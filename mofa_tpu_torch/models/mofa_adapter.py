@@ -1,0 +1,101 @@
+"""MOFA-Adapter, trajectory variant: `FlowControlNet` (PyTorch).
+
+Counterpart of mofa_tpu/models/mofa_adapter.py::FlowControlNet (reference
+svdxt_featureflow_forward_controlnet_s2d_fixcmp_norefine.py:181-384). The
+warped multi-scale feature stack depends only on (first frame, flow), not
+on the latent or the timestep, so `encode_features` runs ONCE per video
+and the denoise loop reuses it; all T-1 frames of a scale are splatted in
+one softsplat call (kernels/softsplat.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mofa_tpu_torch.kernels.softsplat import softsplat
+from mofa_tpu_torch.models.controlnet_sdv import ControlNetSDVModel
+from mofa_tpu_torch.models.svd_unet import SVDUNetConfig
+from mofa_tpu_torch.ops.resize import resize_nhwc
+
+
+class _EncoderLayer(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv_in = nn.Conv2d(cin, cout, 3, padding=1, stride=2)
+
+
+class FirstFrameEncoder(nn.Module):
+    """Pyramid of the /8 cond embedding: stride-2 conv + silu per level,
+    each level's output through a 1x1 zero conv."""
+
+    def __init__(self, cin: int, channels=(320, 640, 1280)):
+        super().__init__()
+        self.encoders = nn.ModuleList([])
+        self.zeroconvs = nn.ModuleList([])
+        for ch in channels:
+            self.encoders.append(_EncoderLayer(cin, ch))
+            self.zeroconvs.append(nn.Conv2d(ch, ch, 1))
+            cin = ch
+
+    def forward(self, x):
+        outs = []
+        for enc, zc in zip(self.encoders, self.zeroconvs):
+            x = F.silu(enc.conv_in(x))
+            outs.append(zc(x))
+        return outs
+
+
+def batched_warp(cond: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
+    """cond [N, h, w, c], flows [N, T-1, h, w, 2] -> [N, T-1, h, w, c]
+    ('avg' softsplat of the same features along every frame's flow)."""
+    n, tm1 = flows.shape[:2]
+    h, w, c = cond.shape[1:]
+    rep = cond[:, None].expand(n, tm1, h, w, c).reshape(n * tm1, h, w, c)
+    warped = softsplat(rep, flows.reshape(n * tm1, h, w, 2), None, "avg")
+    return warped.reshape(n, tm1, h, w, c)
+
+
+class FlowControlNet(ControlNetSDVModel):
+    """Trajectory MOFA-Adapter: the ControlNetSDV trunk plus the first-frame
+    flow encoder, whose warped features are injected at every scale."""
+
+    def __init__(self, cfg: SVDUNetConfig = SVDUNetConfig(),
+                 conditioning_embedding_out_channels=(16, 32, 96, 256)):
+        super().__init__(cfg, conditioning_embedding_out_channels)
+        c0 = cfg.block_out_channels[0]
+        self.flow_encoder = FirstFrameEncoder(
+            c0, (c0,) + tuple(cfg.block_out_channels[1:3]))
+
+    def encode_features(self, controlnet_cond, controlnet_flow):
+        """controlnet_cond [N, H, W, 3]; controlnet_flow [N, T-1, H, W, 2]
+        (pixel resolution). Returns 4 tensors [N*T, h_s, w_s, c_s] at
+        /8 ... /64: the feature itself for frame 0, its warps after."""
+        cond = self.controlnet_cond_embedding(controlnet_cond.permute(0, 3, 1, 2))
+        feats = [cond] + self.flow_encoder(cond)
+        n, tm1, fh = controlnet_flow.shape[:3]
+        inject = []
+        for feat in feats:
+            feat = feat.permute(0, 2, 3, 1)                      # [N, h, w, c]
+            scale = fh // feat.shape[1]
+            # nearest-downsample the flow to the feature's grid, / scale
+            f = resize_nhwc(controlnet_flow, feat.shape[1:3], method="nearest") / scale
+            warped = batched_warp(feat, f)
+            full = torch.cat([feat[:, None], warped], dim=1)     # [N, T, h, w, c]
+            inject.append(full.reshape((n * (tm1 + 1),) + full.shape[2:]))
+        return inject
+
+    def forward(self, sample, timestep, encoder_hidden_states, added_time_ids,
+                controlnet_cond=None, controlnet_flow=None,
+                conditioning_scale: float = 1.0,
+                precomputed_features: Optional[list] = None):
+        """Returns (down_block_res_samples, mid_block_res_sample)."""
+        inject = precomputed_features
+        if inject is None:
+            inject = self.encode_features(controlnet_cond, controlnet_flow)
+        return self.trunk(sample, timestep, encoder_hidden_states,
+                          added_time_ids, inject_features=inject,
+                          conditioning_scale=conditioning_scale)

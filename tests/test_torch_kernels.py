@@ -1,0 +1,189 @@
+"""The port's kernel modules against the JAX package's Pallas kernels, on CPU.
+
+On CPU every wrapper of `mofa_tpu_torch.kernels` runs its plain PyTorch
+version (the CUDA kernels have no CPU mode). Each is checked against the
+JAX Pallas kernel in interpret mode, exactly as the JAX package's own
+tests run it, and against the JAX plain references, on the same numpy
+inputs. Tolerances, fp32: 1e-5 absolute for attention and the splat,
+1e-4 relative for the FFN. The CUDA kernels themselves are tested on a
+GPU by tests/test_torch_gpu.py and chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mofa_tpu.kernels.flash_attention import flash_attention as j_flash
+from mofa_tpu.kernels.geglu_ffn import _ln_ffn_fwd, _ln_ffn_ref
+from mofa_tpu.kernels.short_attention import _tmajor_ref
+from mofa_tpu.kernels.short_attention import short_attention_tmajor as j_tmajor
+from mofa_tpu.kernels.softsplat import softsplat as j_softsplat
+from mofa_tpu.kernels.softsplat import softsplat_oracle_np
+from mofa_tpu.kernels.softsplat_pallas import splat_pallas
+
+from mofa_tpu_torch import kernels
+from mofa_tpu_torch.kernels.attention import (dot_product_attention,
+                                              temporal_attention_tmajor)
+from mofa_tpu_torch.kernels.flash_attention import flash_attention
+from mofa_tpu_torch.kernels.geglu_ffn import fused_ffn_applicable, ln_geglu_ffn
+from mofa_tpu_torch.kernels.short_attention import short_attention_tmajor
+from mofa_tpu_torch.kernels.softsplat import softsplat, splat_raw
+
+
+def _np(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# ------------------------------------------------------------------ flash
+
+@pytest.mark.parametrize("l,d", [(256, 64), (300, 64), (300, 128), (130, 128)])
+def test_flash_matches_pallas_interpret(l, d):
+    rng = np.random.RandomState(l + d)
+    q, k, v = (rng.randn(2, l, 3, d).astype(np.float32) for _ in range(3))
+    got = flash_attention(_t(q), _t(k), _t(v)).numpy()
+    ref = _np(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 128,
+                      128, False))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_dispatch_sends_big_spatial_sites_to_flash():
+    rng = np.random.RandomState(1)
+    small = _t(rng.randn(1, 20, 2, 64).astype(np.float32))
+    big = _t(rng.randn(1, 576, 1, 64).astype(np.float32))
+    # CPU: both run plain math, so the outputs equal the plain version
+    for x in (small, big):
+        np.testing.assert_allclose(dot_product_attention(x, x, x).numpy(),
+                                   flash_attention(x, x, x).numpy(),
+                                   rtol=0, atol=0)
+
+
+# ----------------------------------------------------------------- tmajor
+
+@pytest.mark.parametrize("b,nf,s,h,d", [(2, 7, 12, 2, 64), (1, 25, 6, 1, 128),
+                                        (2, 4, 9, 3, 32)])
+def test_tmajor_matches_pallas_interpret_and_ref(b, nf, s, h, d):
+    rng = np.random.RandomState(nf * s)
+    q, k, v = (rng.randn(b * nf, s, h * d).astype(np.float32) for _ in range(3))
+    got = short_attention_tmajor(_t(q), _t(k), _t(v), nf, h).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    pallas = _np(j_tmajor(jq, jk, jv, nf, h, 0, False))
+    ref = _np(_tmajor_ref(jq, jk, jv, nf, h))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        temporal_attention_tmajor(_t(q), _t(k), _t(v), nf, h).numpy(), got,
+        rtol=0, atol=0)
+
+
+# -------------------------------------------------------------------- FFN
+
+@pytest.mark.parametrize("c,rows", [(320, 512), (640, 256)])
+def test_ln_geglu_ffn_matches_pallas_interpret_and_ref(c, rows):
+    rng = np.random.RandomState(c)
+    x = rng.randn(rows, c).astype(np.float32)
+    ls = (1.0 + 0.1 * rng.randn(c)).astype(np.float32)
+    lb = (0.1 * rng.randn(c)).astype(np.float32)
+    w0 = (rng.randn(c, 8 * c) / np.sqrt(c)).astype(np.float32)        # [in, out]
+    b0 = (0.1 * rng.randn(8 * c)).astype(np.float32)
+    w2 = (rng.randn(4 * c, c) / np.sqrt(4 * c)).astype(np.float32)
+    b2 = (0.1 * rng.randn(c)).astype(np.float32)
+    got = ln_geglu_ffn(_t(x), _t(ls), _t(lb), _t(w0.T), _t(b0), _t(w2.T),
+                       _t(b2)).numpy()
+    args = [jnp.asarray(a) for a in (x, ls, lb, w0, b0, w2, b2)]
+    pallas = _np(_ln_ffn_fwd(*args, variant="plain"))
+    ref = _np(_ln_ffn_ref(*args))
+    # the Pallas kernel's erf is a 1.5e-7 polynomial; the port uses erf
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+    np.testing.assert_allclose(got, pallas, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+def test_ffn_dispatch_gate():
+    assert fused_ffn_applicable(4096, 320, 320)
+    assert fused_ffn_applicable(4097, 640, 640)       # ragged rows allowed
+    assert not fused_ffn_applicable(4095, 320, 320)
+    assert not fused_ffn_applicable(8192, 1280, 1280)
+    assert not fused_ffn_applicable(8192, 320, 640)
+    # widths the kernel is not built for stay plain on every device
+    assert not fused_ffn_applicable(8192, 64, 64)
+    assert not fused_ffn_applicable(8192, 384, 384)
+
+
+# -------------------------------------------------------------- softsplat
+
+def _splat_case(b=2, h=13, w=17, c=5, scale=4.0, seed=0):
+    rng = np.random.RandomState(seed)
+    inp = rng.randn(b, h, w, c).astype(np.float32)
+    flow = ((rng.rand(b, h, w, 2) * 2 - 1) * scale).astype(np.float32)
+    flow[0, 0, :4, 0] = 40.0                     # every tap out of bounds
+    flow[1, 3, 2, :] = np.nan                    # non-finite: skipped
+    flow[1, 5, 6, 1] = np.inf
+    flow[0, 7, 1, 0] = -1.5                      # two taps out of bounds
+    return inp, flow
+
+
+def test_splat_raw_matches_pallas_interpret_and_oracle():
+    inp, flow = _splat_case()
+    got = splat_raw(_t(inp), _t(flow)).numpy()
+    # the one-hot matmul turns a NaN weight into NaN sums (0 * NaN), so the
+    # Pallas kernel gets the non-finite pixels as far out-of-bounds flow,
+    # which drops all four taps just the same
+    pallas = _np(splat_pallas(jnp.asarray(inp), jnp.asarray(np.nan_to_num(
+        flow, nan=1e9, posinf=1e9))))
+    oracle = softsplat_oracle_np(inp, flow)
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["sum", "avg", "linear", "soft",
+                                  "avg-zeroeps", "linear-clipeps", "soft-addeps"])
+def test_softsplat_modes_match_jax(mode):
+    inp, flow = _splat_case(seed=3)
+    metric = None
+    if not mode.startswith(("sum", "avg")):
+        metric = np.random.RandomState(4).rand(*inp.shape[:3], 1).astype(np.float32)
+    got = softsplat(_t(inp), _t(flow), None if metric is None else _t(metric),
+                    mode).numpy()
+    ref = _np(j_softsplat(jnp.asarray(inp), jnp.asarray(flow),
+                          None if metric is None else jnp.asarray(metric), mode))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------ device discipline
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    kernels.reset_launch_counts()
+    x = torch.randn(1, 600, 1, 64)
+    flash_attention(x, x, x)
+    q2 = torch.randn(4, 3, 128)
+    short_attention_tmajor(q2, q2, q2, 2, 2)
+    c = 320
+    ln_geglu_ffn(torch.randn(4100, c), torch.ones(c), torch.zeros(c),
+                 torch.randn(8 * c, c), torch.zeros(8 * c),
+                 torch.randn(c, 4 * c), torch.zeros(c))
+    softsplat(torch.randn(1, 4, 4, 3), torch.zeros(1, 4, 4, 2))
+    assert kernels.launch_counts() == {
+        "flash_attention": 0, "short_attention_tmajor": 0,
+        "ln_geglu_ffn": 0, "softsplat": 0}
+
+
+def test_devices_without_a_kernel_or_plain_path_raise():
+    x = torch.empty(1, 8, 1, 64, device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(x, x, x)
+    with pytest.raises(ValueError):
+        kernels.use_kernel(torch.zeros(1), x)       # mixed devices
+
+
+def test_plain_reference_context_nests_and_restores():
+    assert kernels._plain_depth == 0
+    with kernels.plain_reference():
+        with kernels.plain_reference():
+            assert kernels._plain_depth == 2
+        assert kernels._plain_depth == 1
+    assert kernels._plain_depth == 0
