@@ -6,18 +6,29 @@
 
 Phases, each printed as it finishes:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. the build of the CUDA kernels (nvcc, sm_90a) from `mofa_tpu_torch/csrc`;
+  2. the build of the CUDA kernels (one nvcc per source, all at once,
+     sm_90a) from `mofa_tpu_torch/csrc`;
   3. each kernel against its plain PyTorch version at the main path's
-     shapes, bf16 and fp32, against the bounds of TOL_FP32 / TOL_BF16,
-     with the kernel's and the plain version's times (CUDA events,
-     median); then planted faults, which the bf16 bounds must reject;
+     shapes, bf16 and fp32 (the bf16-only fused convs also against the
+     plain version in fp32 on the upcast inputs), against the bounds of
+     TOL_FP32 / TOL_BF16, with the kernel's, the plain version's and one
+     PyTorch call's times (CUDA events, median of 5) and, for the GroupNorm
+     and fused-conv kernels, the stock chain the port's resnet blocks run;
+     then planted faults, which the bf16 bounds must reject;
   4. the composition check: the full trajectory pipeline at full SVD-XT
-     widths but a small video, once through the kernels and once inside
-     `plain_reference()`, in fp32 (PSNR >= 45 dB) and in bf16 (PSNR bars
-     beside PSNR_BF16_DB);
+     widths but a small video, in both temporal layouts (spatial-major
+     and classic, `MOFA_TMAJOR=0`), once through the kernels and once
+     inside `plain_reference()`, in fp32 (PSNR >= 45 dB) and in bf16 (PSNR
+     bars beside PSNR_BF16_DB); the classic and spatial-major bf16 videos
+     against each other;
   5. the main path: `TrajPipeline` at 576x1024, 25 frames, bf16, batched
      CFG, random seeded weights, timing every phase and counting each
-     kernel's launches (every count must be > 0, every frame finite).
+     kernel's launches (each must be its expected count, every frame
+     finite); 5b. the classic-layout path, the same video at 5 steps with
+     `MOFA_TMAJOR=0` (short_attention launched, tmajor never);
+  6. the GroupNorm / fused-conv entry points: a spatial and a temporal
+     resnet block at full width built from `gn_affine`, `gn_silu_conv3x3`
+     and `gn_silu_tconv3`, held against the port's stock resnet blocks.
 The second line from the end is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
@@ -26,6 +37,7 @@ result, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -42,6 +54,23 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def temporal_layout(layout: str):
+    """Run the models in the "tmajor" or the "classic" temporal layout."""
+    old = os.environ.get("MOFA_TMAJOR")
+    if layout == "classic":
+        os.environ["MOFA_TMAJOR"] = "0"
+    else:
+        os.environ.pop("MOFA_TMAJOR", None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MOFA_TMAJOR", None)
+        else:
+            os.environ["MOFA_TMAJOR"] = old
 
 
 # ------------------------------------------------------------------ timing
@@ -64,6 +93,26 @@ def time_ms(fn, iters: int = 5, warmup: int = 1) -> float:
     return times[len(times) // 2]
 
 
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# the least time a kernel could take is the larger of its bytes over the
+# memory rate and its operations over the peak rate for their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+
+
+def bound(ops: float, nbytes: float, kind: str) -> tuple:
+    """(bound_ms, "bytes" or "operations") for work of `ops` operations
+    of type `kind` (bf16 tensor core, or fp32 outside the tensor cores)
+    that must move `nbytes` bytes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 # ---------------------------------------------------------- phase 3: kernels
 
 KERNEL_META = {
@@ -71,7 +120,7 @@ KERNEL_META = {
         source="mofa_tpu_torch/csrc/flash_attention.cu",
         replaces="mofa_tpu/kernels/flash_attention.py:183"),
     "short_attention_tmajor": dict(
-        source="mofa_tpu_torch/csrc/short_attention_tmajor.cu",
+        source="mofa_tpu_torch/csrc/short_attention.cu",
         replaces="mofa_tpu/kernels/short_attention.py:246"),
     "ln_geglu_ffn": dict(
         source="mofa_tpu_torch/csrc/ln_geglu_ffn.cu",
@@ -79,23 +128,45 @@ KERNEL_META = {
     "softsplat": dict(
         source="mofa_tpu_torch/csrc/softsplat.cu",
         replaces="mofa_tpu/kernels/softsplat_pallas.py:87"),
+    "short_attention": dict(
+        source="mofa_tpu_torch/csrc/short_attention.cu",
+        replaces="mofa_tpu/kernels/short_attention.py:138"),
+    "channel_sums": dict(
+        source="mofa_tpu_torch/csrc/channel_sums.cu",
+        replaces="mofa_tpu/kernels/group_norm.py:92"),
+    "gn_silu_conv3x3": dict(
+        source="mofa_tpu_torch/csrc/conv_fused.cu",
+        replaces="mofa_tpu/kernels/conv_fused.py:190"),
+    "gn_silu_tconv3": dict(
+        source="mofa_tpu_torch/csrc/conv_fused.cu",
+        replaces="mofa_tpu/kernels/conv_fused.py:355"),
 }
 
 # Bounds on a kernel's agreement with its plain version.
-# fp32: max |kernel - plain| <= tol. Both sides are exact fp32 math in
-# another summation order (atomics for the splat, tiles for the rest).
+# fp32: max |kernel - plain| <= tol, or for a (max_rel, rms_rel) pair the
+# relative bounds below. Both sides are exact fp32 math in another
+# summation order (atomics for the splat and the channel sums, tiles for
+# the rest); the channel sums grow with S, so their bound is relative.
 # bf16: (max_rel, rms_rel): max |diff| <= max_rel * max |plain| and
-# ||diff|| / ||plain|| <= rms_rel. The plain versions round P (attention)
-# or the LN output and the GEMM1 result (FFN) to bf16 at other points than
-# the kernels do, and the outputs are bf16, so the bounds scale with the
-# output. They sit a few times above the sound readings and below those of
-# the planted faults, which `planted_faults` checks on every run (readings
-# in PERF.md).
+# ||diff|| / ||plain|| <= rms_rel. The plain versions round P (attention),
+# the LN output and the GEMM1 result (FFN), or the conv's output before
+# its fp32 epilogue (fused convs) to bf16 at other points than the
+# kernels do, and the outputs are bf16, so the bounds scale with the
+# output. The channel sums are fp32 sums of the same bf16 values on both
+# sides. The bf16 kernels are also held, with the same bounds, against
+# the plain version in fp32 on their upcast inputs (TF32 off). The bounds
+# sit a few times above the sound readings and below those of the planted
+# faults, which `planted_faults` checks on every run (readings in PERF.md).
 TOL_FP32 = {"flash_attention": 1e-4, "short_attention_tmajor": 1e-4,
-            "ln_geglu_ffn": 1e-3, "softsplat": 1e-4}
+            "short_attention": 1e-4, "ln_geglu_ffn": 1e-3, "softsplat": 1e-4,
+            "channel_sums": (1e-5, 1e-5)}
 TOL_BF16 = {"flash_attention": (2e-2, 7e-3),
             "short_attention_tmajor": (2e-2, 7e-3),
-            "ln_geglu_ffn": (2e-2, 1e-2)}
+            "short_attention": (2e-2, 7e-3),
+            "ln_geglu_ffn": (2e-2, 1e-2),
+            "channel_sums": (1e-5, 1e-5),
+            "gn_silu_conv3x3": (2e-2, 1e-2),
+            "gn_silu_tconv3": (2e-2, 1e-2)}
 
 
 def agreement(got, ref):
@@ -106,13 +177,43 @@ def agreement(got, ref):
 
 
 def within(name, dtype_name, err, ref_max, rms) -> bool:
-    if dtype_name == "fp32":
-        return err <= TOL_FP32[name]
-    max_rel, rms_rel = TOL_BF16[name]
+    tol = (TOL_FP32 if dtype_name == "fp32" else TOL_BF16)[name]
+    if not isinstance(tol, tuple):
+        return err <= tol
+    max_rel, rms_rel = tol
     return err <= max_rel * ref_max and rms <= rms_rel
 
 
-def _check(results, name, dtype_name, label, kernel_fn, plain_fn, time_it):
+def judge(name, dtype_name, got, ref) -> tuple:
+    """got / ref: a tensor, or a tuple of tensors (an output and its sums),
+    each part held to the bounds on its own. Returns (ok, max |diff| and
+    max |ref| of the first part, the worst relative RMS of all parts)."""
+    import torch
+    parts = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+    ok, rms, first = True, 0.0, None
+    for g_, r_ in parts:
+        e, m, q = agreement(g_, r_)
+        ok = (ok and within(name, dtype_name, e, m, q)
+              and bool(torch.isfinite(g_).all()))
+        rms = max(rms, q)
+        first = first or (e, m)
+    return ok, first[0], first[1], rms
+
+
+def upcast(*tensors):
+    import torch
+    return [t.float() if torch.is_tensor(t) and t.is_floating_point() else t
+            for t in tensors]
+
+
+def _check(results, name, dtype_name, label, kernel_fn, plain_fn, time_it,
+           ref32_fn=None, library_fn=None, chain_fn=None, work=None):
+    """kernel_fn() against plain_fn() (inside plain_reference()), and for
+    a bf16 kernel against ref32_fn(), the plain version on fp32 inputs.
+    With time_it: the kernel's, the plain version's, library_fn()'s (one
+    PyTorch call computing the same function) and chain_fn()'s (the stock
+    chain the port runs instead) times, and the bound of `work` = (ops,
+    bytes, kind)."""
     import torch
     from mofa_tpu_torch import kernels
     with torch.no_grad():
@@ -121,23 +222,37 @@ def _check(results, name, dtype_name, label, kernel_fn, plain_fn, time_it):
         with kernels.plain_reference():
             ref = plain_fn()
         torch.cuda.synchronize()
-        err, ref_max, rms = agreement(got, ref)
-        finite = bool(torch.isfinite(got).all())
-        ms = plain_ms = None
-        if time_it:
-            ms = time_ms(kernel_fn)
+        ok, err, ref_max, rms = judge(name, dtype_name, got, ref)
+        line = (f"  {name:24s} {dtype_name:4s} {label:38s} max|diff| {err:.3e} "
+                f"max|ref| {ref_max:.3e} rel rms {rms:.3e} {'ok' if ok else 'MISS'}")
+        if ref32_fn is not None:
             with kernels.plain_reference():
-                plain_ms = time_ms(plain_fn)
-    ok = finite and within(name, dtype_name, err, ref_max, rms)
-    log(f"  {name:24s} {dtype_name:4s} {label:34s} max|diff| {err:.3e} "
-        f"max|ref| {ref_max:.3e} rel rms {rms:.3e} {'ok' if ok else 'MISS'}"
-        + (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms" if time_it else ""))
+                ref32 = ref32_fn()
+            ok32, err32, _, rms32 = judge(name, dtype_name, got, ref32)
+            ok = ok and ok32
+            line += (f"; vs fp32 plain: max|diff| {err32:.3e} rel rms "
+                     f"{rms32:.3e} {'ok' if ok32 else 'MISS'}")
+            del ref32
+        times = {}
+        if time_it:
+            times["ms"] = time_ms(kernel_fn)
+            with kernels.plain_reference():
+                times["plain_ms"] = time_ms(plain_fn)
+            if library_fn is not None:
+                times["library_ms"] = time_ms(library_fn)
+            if chain_fn is not None:
+                times["chain_ms"] = time_ms(chain_fn)
+            line += "  " + "  ".join(f"{k} {v:.3f}" for k, v in times.items())
+    log(line)
     r = results.setdefault(name, dict(max_abs_err=0.0, ms=None, plain_ms=None,
-                                      ok=True))
+                                      library_ms=None, bound_ms=None,
+                                      bound_by=None, ok=True))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["ok"] = r["ok"] and ok
     if time_it and r["ms"] is None:
-        r["ms"], r["plain_ms"] = ms, plain_ms
+        r.update(times)
+        r["bound_ms"], r["bound_by"] = bound(*work)
+        log(f"  {'':24s}      bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     del got, ref
     torch.cuda.empty_cache()
 
@@ -157,21 +272,31 @@ def planted_faults() -> list:
     """The bf16 kernels held, with the bf16 bounds, against the plain
     version of a faulty kernel: one that skips a 64-key tile (flash,
     L=9216), leaves the ragged tail's zero-filled keys unmasked (flash,
-    L=1000), never reads the last frame (tmajor), or drops a 16-wide
-    chunk of the FFN's inner axis. Every one must MISS; returns the
-    labels of those that passed."""
+    L=1000), never reads the last frame (tmajor) or the last key (classic
+    short attention), drops a 16-wide chunk of the FFN's inner axis, skips
+    the last S-slab of a block (channel sums), or drops the centre tap
+    (3x3 conv) or the t-1 tap (temporal conv). Every one must MISS;
+    returns the labels of those that passed."""
     import torch
     from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.kernels.attention import attention_plain
+    from mofa_tpu_torch.kernels.conv_fused import (gn_silu_conv3x3,
+                                                   gn_silu_tconv3)
     from mofa_tpu_torch.kernels.flash_attention import flash_attention
     from mofa_tpu_torch.kernels.geglu_ffn import ln_geglu_ffn
-    from mofa_tpu_torch.kernels.short_attention import short_attention_tmajor
+    from mofa_tpu_torch.kernels.group_norm import (channel_sums,
+                                                   channel_sums_plain,
+                                                   slab_rows)
+    from mofa_tpu_torch.kernels.short_attention import (short_attention,
+                                                        short_attention_tmajor)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
     bf = torch.bfloat16
 
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+    def randn(*shape, scale=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale
+                + mean).to(bf)
 
     def flash_case(length, fault):
         q, k, v = (randn(2, length, 5, 64) for _ in range(3))
@@ -189,6 +314,11 @@ def planted_faults() -> list:
         return (lambda: short_attention_tmajor(q, k, v, 25, 5),
                 lambda: tmajor_without_last_frame(q, k, v, 25, 5))
 
+    def short_case():
+        q, k, v = (randn(18432, 25, 5, 64) for _ in range(3))
+        return (lambda: short_attention(q, k, v),
+                lambda: attention_plain(q, k[:, :24], v[:, :24]))
+
     def ffn_case():
         c = 320
         x = randn(460800, c)
@@ -200,14 +330,43 @@ def planted_faults() -> list:
         return (lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
                 lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2f, b2))
 
+    def sums_case():
+        x3 = randn(50, 9216, 320, mean=0.5)
+        cut = x3.shape[1] - slab_rows(320, bf)
+        return (lambda: channel_sums(x3),
+                lambda: channel_sums_plain(x3[:, :cut]))
+
+    def conv_case(temporal):
+        x = randn(2, 25, 9216, 320) if temporal else randn(50, 72, 128, 320)
+        n, c = x.shape[0], 320
+        a, b = randn(n, c, scale=0.3, mean=1.0).float(), randn(n, c, scale=0.2).float()
+        taps = (3,) if temporal else (3, 3)
+        w = randn(*taps, c, c, scale=1.7 / (3 ** len(taps) * c) ** 0.5)
+        bias = randn(c, scale=0.1).float()
+        wf = w.clone()
+        if temporal:
+            wf[0] = 0                           # the t-1 tap
+        else:
+            wf[1, 1] = 0                        # the centre tap
+        fn = gn_silu_tconv3 if temporal else gn_silu_conv3x3
+        return (lambda: fn(x, a, b, w, bias), lambda: fn(x, a, b, wf, bias))
+
     cases = [("flash_attention", "B=2 L=9216 H=5 D=64, keys 64-127 skipped",
               lambda: flash_case(9216, "tile")),
              ("flash_attention", "B=2 L=1000 H=5 D=64, tail unmasked",
               lambda: flash_case(1000, "tail")),
              ("short_attention_tmajor", "BT=50 S=9216 HD=320, last frame unread",
               tmajor_case),
+             ("short_attention", "B=18432 L=25 H=5 D=64, last key unread",
+              short_case),
              ("ln_geglu_ffn", "rows=460800 C=320, inner 0-15 dropped",
-              ffn_case)]
+              ffn_case),
+             ("channel_sums", "[50, 9216, 320], last S-slab skipped",
+              sums_case),
+             ("gn_silu_conv3x3", "[50, 72, 128, 320]->320, centre tap dropped",
+              lambda: conv_case(False)),
+             ("gn_silu_tconv3", "[2, 25, 9216, 320]->320, t-1 tap dropped",
+              lambda: conv_case(True))]
     passed = []
     for name, label, make in cases:
         with torch.no_grad():
@@ -215,9 +374,9 @@ def planted_faults() -> list:
             got = kernel_fn()
             with kernels.plain_reference():
                 bad = faulty_fn()
-            err, ref_max, rms = agreement(got, bad)
-        caught = not within(name, "bf16", err, ref_max, rms)
-        log(f"  {name:24s} bf16 {label:42s} max|diff| {err:.3e} max|ref| "
+            fine, err, ref_max, rms = judge(name, "bf16", got, bad)
+        caught = not fine
+        log(f"  {name:24s} bf16 {label:44s} max|diff| {err:.3e} max|ref| "
             f"{ref_max:.3e} rel rms {rms:.3e} "
             f"{'MISS, as it must' if caught else 'PASSED: bounds too loose'}")
         if not caught:
@@ -230,10 +389,19 @@ def planted_faults() -> list:
 def phase_kernels() -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     import torch
+    import torch.nn.functional as F
+    from mofa_tpu_torch.kernels.conv_fused import (conv3x3_plain,
+                                                   gn_silu_conv3x3,
+                                                   gn_silu_tconv3,
+                                                   tconv3_plain)
     from mofa_tpu_torch.kernels.flash_attention import flash_attention
     from mofa_tpu_torch.kernels.geglu_ffn import ln_geglu_ffn
-    from mofa_tpu_torch.kernels.short_attention import short_attention_tmajor
+    from mofa_tpu_torch.kernels.group_norm import (channel_sums,
+                                                   fused_group_norm)
+    from mofa_tpu_torch.kernels.short_attention import (short_attention,
+                                                        short_attention_tmajor)
     from mofa_tpu_torch.kernels.softsplat import splat_raw
+    from mofa_tpu_torch.models.layers import GroupNorm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -242,8 +410,15 @@ def phase_kernels() -> dict:
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
     results: dict = {}
 
-    def randn(*shape, dtype=torch.float32, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+    def randn(*shape, dtype=torch.float32, scale=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale
+                + mean).to(dtype)
+
+    def sdpa(q, k, v):
+        """One PyTorch call on contiguous [B, H, L, D] copies (the copy is
+        made here, not timed)."""
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh)
 
     # flash: UNet /8 /16 /32 (D=64), trunk /32 (D=128), a ragged L.
     # Batch cut to 2 (bf16) / 1 (fp32): the plain version's fp32 logits
@@ -256,18 +431,41 @@ def phase_kernels() -> dict:
             q, k, v = (randn(B, L, H, D, dtype=dts[dn]) for _ in range(3))
             _check(results, "flash_attention", dn, f"B={B} L={L} H={H} D={D}",
                    lambda: flash_attention(q, k, v),
-                   lambda: flash_attention(q, k, v), timed and dn == "bf16")
+                   lambda: flash_attention(q, k, v), timed and dn == "bf16",
+                   library_fn=sdpa(q, k, v) if timed and dn == "bf16" else None,
+                   work=(4 * B * H * L * L * D, 4 * nbytes(q), "bf16"))
     # tmajor: T=25, CFG batch 2 -> B*T=50 rows of [S, H*D]
     for S, HD, H, timed in ((9216, 320, 5, True), (2304, 640, 10, False),
                             (576, 1280, 20, False), (144, 1280, 20, False),
                             (576, 1280, 10, False)):
         for dn in ("bf16", "fp32"):
             q, k, v = (randn(50, S, HD, dtype=dts[dn]) for _ in range(3))
+            lib = None
+            if timed and dn == "bf16":       # SDPA on the [B*S, H, T, D] view
+                to4 = lambda x: x.reshape(2, 25, S, H, HD // H).permute(
+                    0, 2, 1, 3, 4).reshape(2 * S, 25, H, HD // H)
+                lib = sdpa(to4(q), to4(k), to4(v))
             _check(results, "short_attention_tmajor", dn,
                    f"BT=50 S={S} HD={HD} H={H}",
                    lambda: short_attention_tmajor(q, k, v, 25, H),
                    lambda: short_attention_tmajor(q, k, v, 25, H),
-                   timed and dn == "bf16")
+                   timed and dn == "bf16", library_fn=lib,
+                   work=(4 * 2 * S * H * 25 * 25 * (HD // H), 4 * nbytes(q),
+                         "bf16"))
+    # classic short attention: [B*S, T, H, D] at the /8 temporal site of
+    # the classic layout (the only one its gate admits at T=25), and the
+    # 256x384, T=8 composition shapes
+    for B, L, H, timed in ((18432, 25, 5, True), (3072, 8, 5, False),
+                           (768, 8, 10, False), (192, 8, 20, False)):
+        for dn in ("bf16", "fp32"):
+            q, k, v = (randn(B, L, H, 64, dtype=dts[dn]) for _ in range(3))
+            _check(results, "short_attention", dn, f"B={B} L={L} H={H} D=64",
+                   lambda: short_attention(q, k, v),
+                   lambda: short_attention(q, k, v), timed and dn == "bf16",
+                   ref32_fn=(lambda: short_attention(*upcast(q, k, v)))
+                   if dn == "bf16" else None,
+                   library_fn=sdpa(q, k, v) if timed and dn == "bf16" else None,
+                   work=(4 * B * H * L * L * 64, 4 * nbytes(q), "bf16"))
     # ln_geglu_ffn: rows of the /8 (C=320) and /16 (C=640) sites; fp32 on
     # a row cut (its kernel is the plain-FMA correctness path)
     for C, R, timed in ((320, 460800, True), (640, 115200, False)):
@@ -283,7 +481,9 @@ def phase_kernels() -> dict:
             _check(results, "ln_geglu_ffn", dn, f"rows={rows} C={C}",
                    lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
                    lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
-                   timed and dn == "bf16")
+                   timed and dn == "bf16",
+                   work=(24 * rows * C * C, 2 * nbytes(x) + nbytes(w0, w2),
+                         "bf16"))
     # softsplat raw splat: [N*(T-1), h, w, C+1] at /8../64, fp32; smooth
     # flow in [-3, 3] px with some out-of-bounds and non-finite pixels
     for h, w, c, timed in ((72, 128, 321, True), (36, 64, 321, False),
@@ -294,7 +494,76 @@ def phase_kernels() -> dict:
         flow[:, 1, ::7, 1] = float("nan")
         flow[:, 2, ::5, 0] = float("inf")
         _check(results, "softsplat", "fp32", f"N=48 h={h} w={w} C={c}",
-               lambda: splat_raw(x, flow), lambda: splat_raw(x, flow), timed)
+               lambda: splat_raw(x, flow), lambda: splat_raw(x, flow), timed,
+               work=(8 * x.numel(), 2 * nbytes(x) + nbytes(flow), "fp32"))
+    # channel sums of GroupNorm inputs [N, S, C] (activations with a mean):
+    # UNet /8 and /16 resnets at CFG batch 2 x 25 frames, and the temporal
+    # resnet's per-video [B, T*S, C]. Stock chain: the port's GroupNorm on
+    # NCHW, which computes these statistics and applies them.
+    for N, S, C, hw, timed in ((50, 9216, 320, (72, 128), True),
+                               (50, 2304, 640, (36, 64), False),
+                               (2, 230400, 320, None, False)):
+        for dn in ("bf16", "fp32"):
+            if dn == "fp32" and N == 2:
+                continue
+            x3 = randn(N, S, C, dtype=dts[dn], mean=0.5)
+            chain = None
+            if timed and dn == "bf16":
+                gn = GroupNorm(32, C, eps=1e-6).to(dev, torch.bfloat16)
+                x4 = x3.reshape(N, *hw, C).permute(0, 3, 1, 2).contiguous()
+                gamma, beta = gn.weight.float(), gn.bias.float()
+                xn = x3.reshape(N, *hw, C)
+                log(f"  {'':24s}      fused_group_norm (kernel sums + "
+                    f"PyTorch apply) "
+                    f"{time_ms(lambda: fused_group_norm(xn, gamma, beta, 32, 1e-6)):.3f} ms")
+                chain = lambda: gn(x4)
+            _check(results, "channel_sums", dn, f"[{N}, {S}, {C}]",
+                   lambda: channel_sums(x3), lambda: channel_sums(x3),
+                   timed and dn == "bf16", chain_fn=chain,
+                   work=(3 * x3.numel(), nbytes(x3) + 2 * N * C * 4, "fp32"))
+    # fused GN-SiLU-conv, bf16 only: the resnets' conv1 (temb, output sums)
+    # and conv2 (residual) forms at the /8 and /16 widths; stock chain:
+    # GroupNorm + SiLU + Conv2d / Conv3d(3,1,1) on NCHW / NCDHW, bf16.
+    for temporal, shape, timed in ((False, (50, 72, 128, 320), True),
+                                   (False, (50, 36, 64, 640), False),
+                                   (True, (2, 25, 9216, 320), True),
+                                   (True, (2, 25, 2304, 640), False)):
+        name = "gn_silu_tconv3" if temporal else "gn_silu_conv3x3"
+        fn, plain = ((gn_silu_tconv3, tconv3_plain) if temporal
+                     else (gn_silu_conv3x3, conv3x3_plain))
+        n, c = shape[0], shape[-1]
+        taps = (3,) if temporal else (3, 3)
+        fan_in = 3 ** len(taps) * c
+        x = randn(*shape, dtype=torch.bfloat16)
+        a, b = randn(n, c, scale=0.3, mean=1.0), randn(n, c, scale=0.2)
+        w = randn(*taps, c, c, dtype=torch.bfloat16, scale=1.7 / fan_in ** 0.5)
+        bias = randn(c, scale=0.1)
+        temb = randn(*((n, shape[1], c) if temporal else (n, c)), scale=0.3)
+        res = randn(*shape, dtype=torch.bfloat16)
+        chain = None
+        if timed:
+            gn = GroupNorm(32, c, eps=1e-6).to(dev, torch.bfloat16)
+            conv = (torch.nn.Conv3d(c, c, (3, 1, 1), padding=(1, 0, 0))
+                    if temporal else torch.nn.Conv2d(c, c, 3, padding=1))
+            conv = conv.to(dev, torch.bfloat16)
+            if temporal:       # [B, C, T, H, W] at the /8 latent grid
+                xs = x.reshape(n, shape[1], 72, 128, c).permute(0, 4, 1, 2, 3)
+            else:
+                xs = x.permute(0, 3, 1, 2)
+            xs = xs.contiguous()
+            chain = lambda: conv(F.silu(gn(xs)))
+        args = (x, a, b, w, bias)
+        for label, kw in (("temb, sums", dict(temb_bias=temb, emit_sums=True)),
+                          ("residual", dict(residual=res))):
+            kw32 = {k: (v.float() if torch.is_tensor(v) else v)
+                    for k, v in kw.items()}
+            _check(results, name, "bf16", f"{list(shape)} {label}",
+                   lambda: fn(*args, **kw), lambda: plain(*args, **kw),
+                   timed and "emit_sums" in kw,
+                   ref32_fn=lambda: plain(*upcast(*args), **kw32),
+                   chain_fn=chain,
+                   work=(2 * (x.numel() // c) * c * fan_in,
+                         2 * nbytes(x) + nbytes(w, temb), "bf16"))
     return results
 
 
@@ -320,32 +589,68 @@ def psnr(a, b) -> float:
     return 10.0 * math.log10(1.0 / max(mse, 1e-20))
 
 
+def random_bundle(dev, seed: int, dtype):
+    import torch
+    from mofa_tpu_torch.models.clip_vision import CLIPVisionConfig
+    from mofa_tpu_torch.models.svd_unet import SVDUNetConfig
+    from mofa_tpu_torch.models.vae import VAEConfig
+    from mofa_tpu_torch.pipelines.common import ModelBundle
+    return ModelBundle.init_random(
+        dev, torch.Generator(device=dev).manual_seed(seed), SVDUNetConfig(),
+        VAEConfig(), CLIPVisionConfig(), dtype=dtype)
+
+
+# The kernels each temporal layout of the pipeline launches; the other
+# layout's temporal kernel must stay at 0.
+LAYOUT_KERNELS = {
+    "tmajor": ("flash_attention", "short_attention_tmajor", "ln_geglu_ffn",
+               "softsplat"),
+    "classic": ("flash_attention", "short_attention", "ln_geglu_ffn",
+                "softsplat")}
+
+
+def expected_launches(layout: str, steps: int) -> dict:
+    """Launches of one 576x1024, 25-frame video at SVD-XT widths, per the
+    sites of each kernel: flash 21 per step (UNet down/up /8 /16 /32: 15,
+    trunk down: 6), the FFN kernel 42 (the C=320/640 sites, spatial and
+    temporal), softsplat 4 (the adapter's warp, once); spatial-major: 23
+    temporal sites per step (UNet 16, trunk 7); classic: the 7 at /8 (UNet
+    down 0 x2, up 3 x3, trunk down 0 x2) pass the short gate, the H=10/20
+    ones have L*H > 160 and stay plain."""
+    from mofa_tpu_torch import kernels
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(flash_attention=21 * steps, ln_geglu_ffn=42 * steps,
+                softsplat=4)
+    if layout == "tmajor":
+        want["short_attention_tmajor"] = 23 * steps
+    else:
+        want["short_attention"] = 7 * steps
+    return want
+
+
 # ------------------------------------------------ phase 4: composition
 
 # PSNR bars of the composition check: fp32 kernels vs fp32 plain (the bar
 # of tests/test_fullchain_parity.py); bf16 kernels vs bf16 plain (about
-# 6 dB, twice the RMS error, below the 41.9 dB reading in PERF.md); and
-# the bf16 kernels may sit at most BF16_SLACK_DB further from the fp32
-# plain run than the bf16 plain run does (readings 39.02 vs 38.97 dB).
+# 6 dB, twice the RMS error, below the 41.9 dB reading in PERF.md); the
+# bf16 kernels may sit at most BF16_SLACK_DB further from the fp32 plain
+# run than the bf16 plain run does (readings 39.02 vs 38.97 dB); and the
+# two temporal layouts, one function, agree in bf16 to PSNR_BF16_DB.
 PSNR_FP32_DB, PSNR_BF16_DB, BF16_SLACK_DB = 45.0, 36.0, 1.0
 
 
 def phase_composition(dev) -> None:
     """Full SVD-XT widths, 256x384, T=8, 2 steps: the pipeline through the
     kernels and inside `plain_reference()`, in fp32 and then, with the same
-    weights cast, in bf16 (the main path's kernels)."""
+    weights cast, in bf16, each in both temporal layouts. At T=8 every
+    temporal site of the classic layout passes the short gate (L*H <= 160
+    at H = 5, 10 and 20)."""
     import torch
     from mofa_tpu_torch import kernels
-    from mofa_tpu_torch.models.clip_vision import CLIPVisionConfig
-    from mofa_tpu_torch.models.svd_unet import SVDUNetConfig
-    from mofa_tpu_torch.models.vae import VAEConfig
-    from mofa_tpu_torch.pipelines.common import ModelBundle
     from mofa_tpu_torch.pipelines.traj import TrajPipeline
 
     h, w, t, steps = 256, 384, 8, 2
-    bundle = ModelBundle.init_random(
-        dev, torch.Generator(device=dev).manual_seed(1), SVDUNetConfig(),
-        VAEConfig(), CLIPVisionConfig(), dtype=torch.float32)
+    bundle = random_bundle(dev, 1, torch.float32)
     img, flow = smooth_inputs(1, t, h, w, dev, seed=2)
     g = torch.Generator(device=dev).manual_seed(3)
     lat0 = torch.randn(1, t, h // 8, w // 8, 4, generator=g, device=dev)
@@ -356,99 +661,198 @@ def phase_composition(dev) -> None:
     for dn, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for m in bundle.modules().values():
             m.to(dt)
-        kernels.reset_launch_counts()
-        got = run()
-        counts = kernels.launch_counts()
-        with kernels.plain_reference():
-            ref = run()
-        torch.cuda.synchronize()
-        if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
-            fail(f"composition check, {dn}: non-finite frames")
-        sat = float(((ref <= 0.0) | (ref >= 1.0)).float().mean())
-        log(f"  {dn}: launches through the kernels: {counts}")
-        log(f"  {dn}: frames {tuple(got.shape)}, mean {float(ref.mean()):.4f}, "
-            f"std {float(ref.std()):.4f}, clipped share {sat:.4f}, "
-            f"max|diff| {float((got - ref).abs().max()):.3e}")
-        if min(counts.values()) == 0:
-            fail(f"composition check, {dn}: did not reach every kernel: "
-                 f"{counts}")
-        frames[dn] = (got, ref)
-    (k32, p32), (k16, p16) = frames["fp32"], frames["bf16"]
-    readings = {"fp32 kernels vs fp32 plain": (psnr(k32, p32), PSNR_FP32_DB),
-                "bf16 kernels vs bf16 plain": (psnr(k16, p16), PSNR_BF16_DB)}
-    to_truth_k, to_truth_p = psnr(k16, p32), psnr(p16, p32)
-    readings["bf16 kernels vs fp32 plain"] = (to_truth_k,
-                                              to_truth_p - BF16_SLACK_DB)
-    log(f"  bf16 plain vs fp32 plain {to_truth_p:.2f} dB")
+        for layout in ("tmajor", "classic"):
+            with temporal_layout(layout):
+                kernels.reset_launch_counts()
+                got = run()
+                counts = kernels.launch_counts()
+                with kernels.plain_reference():
+                    ref = run()
+            torch.cuda.synchronize()
+            if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+                fail(f"composition check, {layout} {dn}: non-finite frames")
+            sat = float(((ref <= 0.0) | (ref >= 1.0)).float().mean())
+            log(f"  {layout} {dn}: launches through the kernels: {counts}")
+            log(f"  {layout} {dn}: frames {tuple(got.shape)}, mean "
+                f"{float(ref.mean()):.4f}, std {float(ref.std()):.4f}, clipped "
+                f"share {sat:.4f}, max|diff| {float((got - ref).abs().max()):.3e}")
+            other = "short_attention" if layout == "tmajor" else "short_attention_tmajor"
+            if min(counts[k] for k in LAYOUT_KERNELS[layout]) == 0 or counts[other]:
+                fail(f"composition check, {layout} {dn}: launches {counts}, "
+                     f"expected every one of {LAYOUT_KERNELS[layout]} and no "
+                     f"{other}")
+            frames[layout, dn] = (got, ref)
+    readings = {}
+    for layout in ("tmajor", "classic"):
+        (k32, p32), (k16, p16) = frames[layout, "fp32"], frames[layout, "bf16"]
+        to_truth_p = psnr(p16, p32)
+        log(f"  {layout}: bf16 plain vs fp32 plain {to_truth_p:.2f} dB")
+        readings.update({
+            f"{layout}: fp32 kernels vs fp32 plain": (psnr(k32, p32), PSNR_FP32_DB),
+            f"{layout}: bf16 kernels vs bf16 plain": (psnr(k16, p16), PSNR_BF16_DB),
+            f"{layout}: bf16 kernels vs fp32 plain": (psnr(k16, p32),
+                                                      to_truth_p - BF16_SLACK_DB)})
+    readings["classic vs tmajor, bf16 kernels"] = (
+        psnr(frames["classic", "bf16"][0], frames["tmajor", "bf16"][0]),
+        PSNR_BF16_DB)
     for label, (p, bar) in readings.items():
         log(f"[composition] PSNR {label} {p:.2f} dB (bar {bar:.2f} dB)")
     low = [label for label, (p, bar) in readings.items() if p < bar]
     if low:
         fail(f"composition PSNR below its bar: {low}")
-    del bundle, pipe, frames, k32, p32, k16, p16
+    del bundle, pipe, frames
     torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------- phase 5: main path
 
 MAIN = dict(h=576, w=1024, t=25, steps=25, decode_chunk_size=8)
+CLASSIC_STEPS = 5
 
 
-def phase_main(dev) -> dict:
-    """TrajPipeline at 576x1024, 25 frames, bf16, batched CFG."""
+def run_video(bundle, dev, layout: str, steps: int) -> dict:
+    """One TrajPipeline video at MAIN's size in `layout`, launch counts
+    reset just before it and read just after; every phase timed."""
     import torch
     from mofa_tpu_torch import kernels
-    from mofa_tpu_torch.models.clip_vision import CLIPVisionConfig
-    from mofa_tpu_torch.models.svd_unet import SVDUNetConfig
-    from mofa_tpu_torch.models.vae import VAEConfig
-    from mofa_tpu_torch.pipelines.common import ModelBundle
     from mofa_tpu_torch.pipelines.traj import TrajPipeline
 
-    t0 = time.perf_counter()
-    bundle = ModelBundle.init_random(
-        dev, torch.Generator(device=dev).manual_seed(0), SVDUNetConfig(),
-        VAEConfig(), CLIPVisionConfig(), dtype=torch.bfloat16)
-    n_params = {k: sum(p.numel() for p in m.parameters())
-                for k, m in bundle.modules().items()}
-    torch.cuda.synchronize()
-    log(f"  random bf16 bundle on the card in {time.perf_counter() - t0:.1f} s;"
-        f" parameters {n_params}")
     img, flow = smooth_inputs(1, MAIN["t"], MAIN["h"], MAIN["w"], dev, seed=4)
     gen = torch.Generator(device=dev).manual_seed(5)
     pipe = TrajPipeline(bundle)
-    log(f"  {MAIN['steps']} steps (the full schedule), {MAIN['t']} frames, "
-        f"{MAIN['h']}x{MAIN['w']}, decode_chunk_size "
-        f"{MAIN['decode_chunk_size']}")
+    log(f"  {layout} layout: {steps} steps, {MAIN['t']} frames, "
+        f"{MAIN['h']}x{MAIN['w']}, decode_chunk_size {MAIN['decode_chunk_size']}")
     torch.cuda.reset_peak_memory_stats()
     phases: dict = {}
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    frames, _ = pipe(img, flow, num_inference_steps=MAIN["steps"],
-                     decode_chunk_size=MAIN["decode_chunk_size"],
-                     generator=gen, phase_times=phases)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    with temporal_layout(layout):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames, _ = pipe(img, flow, num_inference_steps=steps,
+                         decode_chunk_size=MAIN["decode_chunk_size"],
+                         generator=gen, phase_times=phases)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = phases["denoise_step"]
+    step_s = phases["denoise_step"]
+    median = sorted(step_s)[len(step_s) // 2]
     log(f"  phases (s): clip_encode {phases['clip_encode'][0]:.3f}, "
         f"vae_encode {phases['vae_encode'][0]:.3f}, warp "
-        f"{phases['warp'][0]:.3f}, denoise {sum(steps):.3f} "
-        f"({len(steps)} steps: first {steps[0]:.3f}, median "
-        f"{sorted(steps)[len(steps) // 2]:.3f}), decode "
-        f"{phases['decode'][0]:.3f}; total {total:.3f}")
+        f"{phases['warp'][0]:.3f}, denoise {sum(step_s):.3f} "
+        f"({len(step_s)} steps: first {step_s[0]:.3f}, median "
+        f"{median:.3f}), decode {phases['decode'][0]:.3f}; total {total:.3f}")
     log(f"  peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
-    log(f"  kernel launches in the main path: {launches}")
+    log(f"  kernel launches in the {layout} path: {launches}")
     want = (1, MAIN["t"], MAIN["h"], MAIN["w"], 3)
     if tuple(frames.shape) != want:
-        fail(f"main path frames {tuple(frames.shape)}, expected {want}")
+        fail(f"{layout} path frames {tuple(frames.shape)}, expected {want}")
     if not bool(torch.isfinite(frames).all()):
-        fail("main path produced non-finite frames")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        fail(f"main path never launched: {missing}")
+        fail(f"{layout} path produced non-finite frames")
+    if launches != expected_launches(layout, steps):
+        fail(f"{layout} path launches {launches}, expected "
+             f"{expected_launches(layout, steps)}")
     log(f"  frames finite, mean {float(frames.mean()):.4f}, std "
         f"{float(frames.std()):.4f}")
+    return dict(launches=launches, median_step=median)
+
+
+# --------------------------------- phase 6: the GroupNorm / conv entries
+
+FUSED_SLACK = 1.5
+
+
+def fused_resnet(block, x, temb_bias, temporal: bool):
+    """A resnet block (cin == cout, no shortcut) through the entry points:
+    `gn_affine` (channel sums), the fused conv with temb and the output
+    sums, the second norm's affine from those sums, the fused conv with
+    the residual. x channel-last: [N, H, W, C], or [B, T, S, C]."""
+    from mofa_tpu_torch.kernels.conv_fused import (gn_silu_conv3x3,
+                                                   gn_silu_tconv3)
+    from mofa_tpu_torch.kernels.group_norm import gn_affine, stats_from_sums
+
+    def hwio(conv):              # Conv2d [O, C, 3, 3] / Conv3d [O, C, 3, 1, 1]
+        w = conv.weight
+        return (w[:, :, :, 0, 0].permute(2, 1, 0) if temporal
+                else w.permute(2, 3, 1, 0))
+
+    fn = gn_silu_tconv3 if temporal else gn_silu_conv3x3
+    n, c = x.shape[0], x.shape[-1]
+    x3 = x.reshape(n, -1, c)
+    a1, b1 = gn_affine(x3, block.norm1.weight, block.norm1.bias, 32,
+                       block.norm1.eps)
+    h, s1, s2 = fn(x, a1, b1, hwio(block.conv1), block.conv1.bias,
+                   temb_bias=temb_bias, emit_sums=True)
+    mean_c, inv_c = stats_from_sums(s1, s2, x3.shape[1], 32, block.norm2.eps)
+    a2 = inv_c * block.norm2.weight.float()
+    b2 = block.norm2.bias.float() - mean_c * a2
+    return fn(h, a2, b2, hwio(block.conv2), block.conv2.bias, residual=x)
+
+
+def phase_gn_conv(dev) -> dict:
+    """The spatial and temporal resnet blocks of the UNet's /8 level at
+    CFG batch 2 x 25 frames (576x1024), bf16, through the GroupNorm and
+    fused-conv entry points, against the port's stock blocks (GroupNorm +
+    SiLU + cuDNN conv): each held to the stock block run in fp32 on the
+    upcast inputs (TF32 off), no more than FUSED_SLACK times as far from
+    it as the stock bf16 block. Returns the launch counts of one pass
+    through both blocks."""
+    import torch
+    import torch.nn.functional as F
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.models.resnet_blocks import (ResnetBlock2D,
+                                                     TemporalResnetBlock)
+    from mofa_tpu_torch.pipelines.common import init_random_
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(7)
+    c, tc, bf = 320, 1280, torch.bfloat16
+    blocks = {"spatial [50, 72, 128, 320]": (
+                  ResnetBlock2D(c, c, tc, 1e-6), (50, c, 72, 128), (50, tc), False),
+              "temporal [2, 25, 9216, 320]": (
+                  TemporalResnetBlock(c, c, tc, 1e-5), (2, c, 25, 72, 128),
+                  (2, 25, tc), True)}
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    bad = []
+    for label, (blk, xshape, tshape, temporal) in blocks.items():
+        with torch.no_grad():
+            blk = init_random_(blk.to(dev), g)
+            x = torch.randn(*xshape, generator=g, device=dev) * 0.8 + 0.2
+            temb = torch.randn(*tshape, generator=g, device=dev)
+            ref = blk(x, temb)                            # fp32, TF32 off
+            blk.to(bf)
+            xb, tb = x.to(bf), temb.to(bf)
+            stock = blk(xb, tb)
+            # the entry points' channel-last layouts
+            x_cl = (xb.permute(0, 2, 3, 4, 1).reshape(2, 25, -1, c) if temporal
+                    else xb.permute(0, 2, 3, 1)).contiguous()
+            temb_bias = blk.time_emb_proj(F.silu(tb)).float()
+            kernels.reset_launch_counts()
+            fused = fused_resnet(blk, x_cl, temb_bias, temporal)
+            torch.cuda.synchronize()
+            for name, n in kernels.launch_counts().items():
+                launches[name] += n
+            got = (fused.reshape(2, 25, 72, 128, c).permute(0, 4, 1, 2, 3)
+                   if temporal else fused.permute(0, 3, 1, 2))
+            rel = lambda y: ((y.float() - ref).norm() / ref.norm()).item()
+            e_fused, e_stock = rel(got), rel(stock)
+            ms_fused = time_ms(lambda: fused_resnet(blk, x_cl, temb_bias,
+                                                    temporal))
+            ms_stock = time_ms(lambda: blk(xb, tb))
+        ok = bool(torch.isfinite(got).all()) and e_fused <= FUSED_SLACK * e_stock
+        log(f"  {label}: rel rms to the fp32 stock block: fused {e_fused:.3e},"
+            f" stock bf16 {e_stock:.3e} {'ok' if ok else 'MISS'}; block ms: "
+            f"fused {ms_fused:.3f}, stock {ms_stock:.3f}")
+        if not ok:
+            bad.append(label)
+        del blk, x, temb, ref, xb, tb, stock, x_cl, fused, got
+        torch.cuda.empty_cache()
+    log(f"  launches of one pass through both blocks: {launches}")
+    if bad:
+        fail(f"fused resnet blocks off the stock blocks: {bad}")
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(channel_sums=2, gn_silu_conv3x3=2, gn_silu_tconv3=2)
+    if launches != want:
+        fail(f"GroupNorm / conv entry points launched {launches}, expected {want}")
     return launches
 
 
@@ -458,15 +862,9 @@ def phase_profile(dev, steps: int = 2) -> None:
     timing: the profiler adds overhead)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from mofa_tpu_torch.models.clip_vision import CLIPVisionConfig
-    from mofa_tpu_torch.models.svd_unet import SVDUNetConfig
-    from mofa_tpu_torch.models.vae import VAEConfig
-    from mofa_tpu_torch.pipelines.common import ModelBundle
     from mofa_tpu_torch.pipelines.traj import TrajPipeline
 
-    bundle = ModelBundle.init_random(
-        dev, torch.Generator(device=dev).manual_seed(0), SVDUNetConfig(),
-        VAEConfig(), CLIPVisionConfig(), dtype=torch.bfloat16)
+    bundle = random_bundle(dev, 0, torch.bfloat16)
     img, flow = smooth_inputs(1, MAIN["t"], MAIN["h"], MAIN["w"], dev, seed=4)
     pipe = TrajPipeline(bundle)
     run = lambda: pipe(img, flow, num_inference_steps=steps,
@@ -534,22 +932,51 @@ def main() -> None:
         fail(f"the bf16 bounds let planted faults pass: {loose}")
     log("[kernels] all within tolerance; every planted fault caught")
 
-    launches = {name: None for name in KERNEL_META}
+    launches = dict.fromkeys(KERNEL_META)
     if args.phase == "all":
         dev = torch.device("cuda")
         # 4. composition: kernels vs plain_reference() through the pipeline
-        log("[composition] full widths, 256x384, T=8, 2 steps, fp32 and bf16")
+        log("[composition] full widths, 256x384, T=8, 2 steps, fp32 and bf16,"
+            " spatial-major and classic layouts")
         t0 = time.perf_counter()
         phase_composition(dev)
         log(f"[composition] done in {time.perf_counter() - t0:.1f} s")
-        # 5. the main path
+        # 5. the main path, then 5b. the classic-layout path
         log("[main] TrajPipeline, SVD-XT widths, bf16, batched CFG")
-        launches = phase_main(dev)
+        t0 = time.perf_counter()
+        bundle = random_bundle(dev, 0, torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = {k: sum(p.numel() for p in m.parameters())
+                    for k, m in bundle.modules().items()}
+        log(f"  random bf16 bundle on the card in {time.perf_counter() - t0:.1f}"
+            f" s; parameters {n_params}")
+        main_run = run_video(bundle, dev, "tmajor", MAIN["steps"])
+        log("[classic] the same video in the classic temporal layout "
+            f"(MOFA_TMAJOR=0), {CLASSIC_STEPS} steps")
+        classic_run = run_video(bundle, dev, "classic", CLASSIC_STEPS)
+        log(f"[classic] median denoise step {classic_run['median_step']:.3f} s"
+            f" vs {main_run['median_step']:.3f} s spatial-major")
+        del bundle
+        torch.cuda.empty_cache()
+        # 6. the GroupNorm / fused-conv entry points
+        log("[gn_conv] resnet blocks through gn_affine + gn_silu_conv3x3 / "
+            "gn_silu_tconv3, bf16")
+        gn_launches = phase_gn_conv(dev)
+        # each kernel's launches from the run of its own path
+        for name in KERNEL_META:
+            source = (classic_run if name == "short_attention" else main_run)
+            launches[name] = source["launches"][name]
+        for name in ("channel_sums", "gn_silu_conv3x3", "gn_silu_tconv3"):
+            launches[name] = gn_launches[name]
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],
-             max_abs_err=kres[n]["max_abs_err"], ms=kres[n]["ms"],
-             plain_ms=kres[n]["plain_ms"]) for n in KERNEL_META]}
+             **{k: kres[n][k] for k in keys},
+             **({"chain_ms": kres[n]["chain_ms"]} if "chain_ms" in kres[n]
+                else {}))
+        for n in KERNEL_META]}
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

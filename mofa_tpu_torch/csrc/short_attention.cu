@@ -1,24 +1,31 @@
-// Temporal self-attention over the frame axis, read in the natural
-// spatial-major rows [B*T, S, H*D] (no spatial<->temporal transposes).
+// Attention over short sequences (L <= 32), one warp per (sequence, head).
 //
-// Replaces mofa_tpu/kernels/short_attention.py::_tmajor_kernel. The TPU
-// kernel packs BN spatial slots x T frames into one [rows, rows] masked
-// matmul per head so the MXU has a large tile; on Hopper the T x T problem
-// (T <= 32) maps onto one warp directly: one warp per (b, spatial slot,
-// head) stages its T rows of q/k/v (stride S*H*D apart, D contiguous
-// values each) in shared memory as fp32, lane u computes the logit
-// against key u, the softmax is a warp reduction (exact, max-subtracted),
-// and lanes then sweep D for the P*V product.
+// Two layouts, one body. The kernel reads frame t of sequence (b, s) at
+//   q[((b * L + t) * S + s) * H * D + h * D + d],
+// so frames sit S*H*D elements apart:
+// - spatial-major ("tmajor") rows [B*T, S, H*D], the projections' natural
+//   output, attention over the frame axis for every (b, spatial slot s,
+//   head): replaces mofa_tpu/kernels/short_attention.py::_short_attn_kernel
+//   (C entry mofa_tmajor_attention);
+// - the classic layout [B, L, H, D] is the same with S = 1: replaces
+//   ::_short_attn_kernel (C entry mofa_short_attention).
+// The TPU kernels pack BN sequences x L rows into one [rows, rows] masked
+// matmul per head so that the MXU gets a large tile; on Hopper the L x L
+// problem maps onto one warp directly: the warp stages its L rows of
+// q/k/v (D contiguous values each) in shared memory as fp32, lane u
+// computes the logit against key u, the softmax is a warp reduction
+// (exact, max-subtracted; the TPU default clamps a fixed max), and lanes
+// then sweep D for the P*V product.
 //
 // Bound: device memory (one read of q/k/v and one write of out; about
-// T*D FMAs per loaded element pair is small). The row pitch D+1 keeps the
+// L*D FMAs per loaded element pair is small). The row pitch D+1 keeps the
 // lane-per-key reads of K free of bank conflicts.
 #include "common.cuh"
 
 namespace {
 
 template <typename T, int D>
-__global__ void __launch_bounds__(32) tmajor_kernel(
+__global__ void __launch_bounds__(32) short_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int nf, int S, int H, float scale) {
   extern __shared__ float smem[];
@@ -75,23 +82,18 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int nf,
            int S, int H, cudaStream_t stream) {
   const size_t smem = (size_t)3 * nf * (D + 1) * sizeof(float);
-  cudaFuncSetAttribute(tmajor_kernel<T, D>,
+  cudaFuncSetAttribute(short_attn_kernel<T, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const long long blocks = (long long)B * S * H;
   if (blocks > 0)
-    tmajor_kernel<T, D><<<(unsigned)blocks, 32, smem, stream>>>(
+    short_attn_kernel<T, D><<<(unsigned)blocks, 32, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)out, nf, S, H,
         1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q/k/v/out [B*T, S, H*D] contiguous; T <= 32, D in {64, 128}.
-extern "C" int mofa_tmajor_attention(const void* q, const void* k, const void* v,
-                                     void* out, int B, int T, int S, int H, int D,
-                                     int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+int dispatch(const void* q, const void* k, const void* v, void* out, int B, int T, int S,
+             int H, int D, int dtype, cudaStream_t st) {
   if (T < 1 || T > 32) return (int)cudaErrorInvalidValue;
   if (dtype == mofa::kBF16) {
     if (D == 64) return launch<__nv_bfloat16, 64>(q, k, v, out, B, T, S, H, st);
@@ -101,4 +103,20 @@ extern "C" int mofa_tmajor_attention(const void* q, const void* k, const void* v
     if (D == 128) return launch<float, 128>(q, k, v, out, B, T, S, H, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q/k/v/out [B*T, S, H*D] contiguous; T <= 32, D in {64, 128}.
+extern "C" int mofa_tmajor_attention(const void* q, const void* k, const void* v,
+                                     void* out, int B, int T, int S, int H, int D,
+                                     int dtype, void* stream) {
+  return dispatch(q, k, v, out, B, T, S, H, D, dtype, (cudaStream_t)stream);
+}
+
+// q/k/v/out [B, L, H, D] contiguous; L <= 32, D in {64, 128}.
+extern "C" int mofa_short_attention(const void* q, const void* k, const void* v,
+                                    void* out, int B, int L, int H, int D, int dtype,
+                                    void* stream) {
+  return dispatch(q, k, v, out, B, L, 1, H, D, dtype, (cudaStream_t)stream);
 }

@@ -1,8 +1,8 @@
-"""Hand-written Hopper kernels of the main path, each beside its plain version.
+"""Hand-written Hopper kernels, each beside its plain version.
 
 Every wrapper follows one rule: a tensor on the CPU takes the plain
 PyTorch version; a CUDA tensor launches the CUDA kernel (and adds one to
-the module's `launches` count) or raises. The only other way to the plain
+that kernel's launch count) or raises. The only other way to the plain
 version on a card is the explicit `plain_reference()` context, which the
 composition check of `chip_smoke.py` and the tests enter; the main path
 never does.
@@ -12,6 +12,12 @@ from __future__ import annotations
 
 import contextlib
 
+# one launch count per kernel (not per module: short_attention.py holds two
+# kernels, conv_fused.py two)
+KERNELS = ("flash_attention", "short_attention_tmajor", "short_attention",
+           "ln_geglu_ffn", "softsplat", "channel_sums", "gn_silu_conv3x3",
+           "gn_silu_tconv3")
+_launches = dict.fromkeys(KERNELS, 0)
 _plain_depth = 0
 
 
@@ -42,20 +48,16 @@ def use_kernel(*tensors) -> bool:
     return _plain_depth == 0
 
 
-def _modules():
-    from mofa_tpu_torch.kernels import (flash_attention, geglu_ffn,
-                                        short_attention, softsplat)
-    return {"flash_attention": flash_attention,
-            "short_attention_tmajor": short_attention,
-            "ln_geglu_ffn": geglu_ffn,
-            "softsplat": softsplat}
+def count_launch(name: str) -> None:
+    """Called by a wrapper right after it launched kernel `name`."""
+    _launches[name] += 1
 
 
 def launch_counts() -> dict:
     """Kernel name -> launches since the last reset."""
-    return {name: mod.launches for name, mod in _modules().items()}
+    return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for mod in _modules().values():
-        mod.launches = 0
+    for name in _launches:
+        _launches[name] = 0

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels (nvcc -> shared library -> ctypes).
 
-All sources under `mofa_tpu_torch/csrc/*.cu` compile in ONE nvcc call for
-`sm_90a` into `build/libmofa_kernels_<hash>.so` at the repository root (the
-hash covers every source, so an edited kernel never loads a stale build).
+Every source under `mofa_tpu_torch/csrc/*.cu` compiles for `sm_90a` in its
+own nvcc process, all started together, and one more nvcc links the objects
+into `build/libmofa_kernels_<hash>.so` at the repository root (the hash
+covers every source, so an edited kernel never loads a stale build).
 The library exposes a plain C interface: every pointer and the stream are
 `void*`, every C entry returns `cudaGetLastError()` after its launch.
 
@@ -31,6 +32,10 @@ _SIGNATURES = {
     "mofa_tmajor_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mofa_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mofa_ln_geglu_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mofa_short_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mofa_channel_sums": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "mofa_gn_silu_conv3x3": [_P] * 10 + [_I] * 6 + [_P],
+    "mofa_gn_silu_tconv3": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -63,20 +68,36 @@ def build(verbose: bool = False) -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-lineinfo", "-I", str(CSRC), "-o", str(tmp)]
+    objdir = out.with_suffix(f".{os.getpid()}.objs")
+    objdir.mkdir(parents=True, exist_ok=True)
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-lineinfo", "-I", str(CSRC)]
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [str(s) for s in _sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+        flags += ["-Xptxas", "-v"]
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = objdir / f"{src.stem}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *flags, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(f"--- {src.name}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 

@@ -3,27 +3,36 @@
 Counterpart of mofa_tpu/kernels/attention.py. A site goes to a CUDA kernel
 where the JAX package sends it to a Pallas kernel on the TPU:
 
+- short self-attention that `short_attention_applicable` admits (Lq == Lk
+  <= 32, L*H <= 160, B > 1, B*L >= 224: the temporal sites of the classic
+  layout) -> `short_attention`;
 - spatial attention with Lq·Lk >= 576² -> `flash_attention`;
 - every temporal self-attention in the spatial-major layout ->
   `short_attention_tmajor`.
 
-Every other site (CLIP's 257 tokens, the small spatial sites) stays plain
-PyTorch: matmul with fp32 logits and softmax. On CPU tensors the kernel
-wrappers run their plain versions, so the math is the same either way.
+Every other site (CLIP's 257 tokens, the small spatial sites, the short
+sites the gate refuses) stays plain PyTorch: matmul with fp32 logits and
+softmax. On CPU tensors the kernel wrappers run their plain versions, so
+the math is the same either way.
 """
 
 from __future__ import annotations
 
 from mofa_tpu_torch.kernels.flash_attention import (attention_plain,
                                                     flash_attention)
-from mofa_tpu_torch.kernels.short_attention import short_attention_tmajor
+from mofa_tpu_torch.kernels.short_attention import (short_attention,
+                                                    short_attention_applicable,
+                                                    short_attention_tmajor)
 
 FLASH_MIN_SEQ = 576
 
 
 def dot_product_attention(q, k, v):
     """[B, Lq, H, D] q, [B, Lk, H, D] k/v -> [B, Lq, H, D]; fp32 softmax."""
-    if q.shape[1] * k.shape[1] >= FLASH_MIN_SEQ ** 2:
+    b, lq, h, d = q.shape
+    if short_attention_applicable(b, lq, k.shape[1], h, d, q.dtype):
+        return short_attention(q, k, v)
+    if lq * k.shape[1] >= FLASH_MIN_SEQ ** 2:
         return flash_attention(q, k, v)
     return attention_plain(q, k, v)
 

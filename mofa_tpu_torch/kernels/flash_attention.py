@@ -16,9 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import use_kernel
+from mofa_tpu_torch.kernels import count_launch, use_kernel
 
-launches = 0
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -36,7 +35,6 @@ def attention_plain(q, k, v) -> torch.Tensor:
 
 def flash_attention(q, k, v) -> torch.Tensor:
     """[B, Lq, H, D] q, [B, Lk, H, D] k/v -> [B, Lq, H, D]."""
-    global launches
     if (q.ndim != 4 or k.shape != v.shape or q.shape[0] != k.shape[0]
             or q.shape[2:] != k.shape[2:]):
         raise ValueError(f"bad shapes {tuple(q.shape)} {tuple(k.shape)}")
@@ -54,5 +52,5 @@ def flash_attention(q, k, v) -> torch.Tensor:
     out = torch.empty_like(q)
     launch("mofa_flash_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), b, lq, k.shape[1], h, d, _DTYPES[q.dtype])
-    launches += 1
+    count_launch("flash_attention")
     return out

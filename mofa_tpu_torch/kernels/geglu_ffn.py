@@ -16,9 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mofa_tpu_torch.kernels import use_kernel
+from mofa_tpu_torch.kernels import count_launch, use_kernel
 
-launches = 0
 LN_EPS = 1e-5
 MIN_FUSED_ROWS = 4096
 KERNEL_DIMS = (320, 640)
@@ -49,7 +48,6 @@ def ln_ffn_plain(x, ln_weight, ln_bias, w0, b0, w2, b2) -> torch.Tensor:
 def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2) -> torch.Tensor:
     """x [..., C] -> x + FF(LN(x)); LN params [C]; w0 [8C, C], b0 [8C],
     w2 [C, 4C], b2 [C] (cast to x's dtype, LN params to fp32)."""
-    global launches
     c = x.shape[-1]
     if w0.shape != (8 * c, c) or w2.shape != (c, 4 * c):
         raise ValueError(f"bad FF weights {tuple(w0.shape)} {tuple(w2.shape)}")
@@ -68,5 +66,5 @@ def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2) -> torch.Tensor:
     out = torch.empty_like(args[0])
     launch("mofa_ln_geglu_ffn", x.device, *[a.data_ptr() for a in args],
            out.data_ptr(), x2.shape[0], c, _DTYPES[dt])
-    launches += 1
+    count_launch("ln_geglu_ffn")
     return out.reshape(x.shape)

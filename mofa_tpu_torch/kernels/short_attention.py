@@ -1,25 +1,50 @@
-"""Temporal self-attention in the spatial-major ("tmajor") layout.
+"""Attention over short sequences (L <= 32): the temporal self-attention.
 
-Counterpart of mofa_tpu/kernels/short_attention.py::short_attention_tmajor.
-q/k/v arrive as the projections' natural rows [B*T, S, H*D]; attention
-runs over the frame axis for every (batch, spatial token, head). The CUDA
-kernel `csrc/short_attention_tmajor.cu` replaces the TPU's `_tmajor_kernel`:
-one warp per (b, s, head), the T x T logits in registers, an exact
-max-subtracted softmax (the TPU default is a clamped fixed-max softmax).
-It is bound by device memory (one read of q/k/v, one write); see the
-source note. Forward only.
+Two kernels of one CUDA body, `csrc/short_attention.cu`: one warp per
+(sequence, head), the L x L logits in registers, an exact max-subtracted
+softmax (the TPU default is a clamped fixed-max softmax). Both are bound
+by device memory (one read of q/k/v, one write); see the source note.
+Forward only.
+
+- `short_attention_tmajor`, counterpart of
+  mofa_tpu/kernels/short_attention.py::short_attention_tmajor: q/k/v
+  arrive as the projections' natural rows [B*T, S, H*D] (the spatial-major
+  layout) and attention runs over the frame axis for every (batch,
+  spatial token, head). Replaces the TPU's `_tmajor_kernel`.
+- `short_attention`, counterpart of ::short_attention: q/k/v [B, L, H, D]
+  (the classic temporal layout [B*S, T, H, D]), attention per (sequence,
+  head). It is the tmajor layout with S = 1, so the same body serves it.
+  Replaces the TPU's `_short_attn_kernel`, which packs 224 rows under a
+  block-diagonal mask only to fill the MXU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import use_kernel
+from mofa_tpu_torch.kernels import count_launch, use_kernel
+from mofa_tpu_torch.kernels.flash_attention import attention_plain
 
-launches = 0
-MAX_FRAMES = 32
+MAX_FRAMES = 32                  # one warp: one lane per key
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the sites the JAX package sends to its short-sequence kernel
+# (kernels/attention.py PACK_MAX_FOLDED, short_attention.py _TARGET_ROWS)
+PACK_MAX_FOLDED = 160
+TARGET_ROWS = 224
+
+
+def _kernel_takes(length: int, d: int, dtype) -> bool:
+    return 1 <= length <= MAX_FRAMES and d in HEAD_DIMS and dtype in _DTYPES
+
+
+def short_attention_applicable(b: int, l_q: int, l_k: int, h: int, d: int,
+                               dtype=torch.bfloat16) -> bool:
+    """The dispatch gate of the short kernel: self-attention-shaped
+    (Lq == Lk <= 32), L*H <= 160, B > 1, B*L >= 224 (the JAX package's
+    gate without its TPU-backend test), and only what the kernel takes."""
+    return (l_q == l_k and l_q * h <= PACK_MAX_FOLDED and b > 1
+            and b * l_q >= TARGET_ROWS and _kernel_takes(l_q, d, dtype))
 
 
 def tmajor_plain(q2, k2, v2, num_frames: int, heads: int) -> torch.Tensor:
@@ -39,27 +64,50 @@ def tmajor_plain(q2, k2, v2, num_frames: int, heads: int) -> torch.Tensor:
     return out.permute(0, 3, 1, 2, 4).reshape(bt, s, hd)
 
 
+def _launch(entry: str, q, k, v, *dims: int) -> torch.Tensor:
+    from mofa_tpu_torch.kernels._build import launch
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    launch(entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), *dims, _DTYPES[q.dtype])
+    return out
+
+
 def short_attention_tmajor(q2, k2, v2, num_frames: int,
                            heads: int) -> torch.Tensor:
     """[B*T, S, H*D] q/k/v -> [B*T, S, H*D]; attention over frames."""
-    global launches
     bt, s, hd = q2.shape
     if k2.shape != q2.shape or v2.shape != q2.shape or bt % num_frames:
         raise ValueError(f"bad tmajor shapes {tuple(q2.shape)}, T={num_frames}")
     if not use_kernel(q2, k2, v2):
         return tmajor_plain(q2, k2, v2, num_frames, heads)
     d = hd // heads
-    if (num_frames > MAX_FRAMES or d not in HEAD_DIMS or hd % heads
-            or q2.dtype not in _DTYPES or k2.dtype != q2.dtype
-            or v2.dtype != q2.dtype):
+    if (hd % heads or not _kernel_takes(num_frames, d, q2.dtype)
+            or k2.dtype != q2.dtype or v2.dtype != q2.dtype):
         raise ValueError(f"tmajor kernel takes T<={MAX_FRAMES}, D in "
                          f"{HEAD_DIMS}, fp32/bf16; got T={num_frames}, "
                          f"D={hd / heads}, {q2.dtype}")
-    from mofa_tpu_torch.kernels._build import launch
-    q2, k2, v2 = q2.contiguous(), k2.contiguous(), v2.contiguous()
-    out = torch.empty_like(q2)
-    launch("mofa_tmajor_attention", q2.device, q2.data_ptr(), k2.data_ptr(),
-           v2.data_ptr(), out.data_ptr(), bt // num_frames, num_frames, s,
-           heads, d, _DTYPES[q2.dtype])
-    launches += 1
+    out = _launch("mofa_tmajor_attention", q2, k2, v2, bt // num_frames,
+                  num_frames, s, heads, d)
+    count_launch("short_attention_tmajor")
+    return out
+
+
+def short_attention(q, k, v) -> torch.Tensor:
+    """[B, L, H, D] q/k/v (L <= 32) -> [B, L, H, D]; fp32 softmax. The
+    plain version is `attention_plain` (mofa_tpu `_short_attn_ref`, the
+    same math as the naive attention)."""
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"bad short-attention shapes {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    if not use_kernel(q, k, v):
+        return attention_plain(q, k, v)
+    b, length, h, d = q.shape
+    if (not _kernel_takes(length, d, q.dtype) or k.dtype != q.dtype
+            or v.dtype != q.dtype):
+        raise ValueError(f"short-attention kernel takes L<={MAX_FRAMES}, D in "
+                         f"{HEAD_DIMS}, fp32/bf16; got L={length}, D={d}, "
+                         f"{q.dtype}")
+    out = _launch("mofa_short_attention", q, k, v, b, length, h, d)
+    count_launch("short_attention")
     return out

@@ -18,9 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import use_kernel
+from mofa_tpu_torch.kernels import count_launch, use_kernel
 
-launches = 0
 
 
 def splat_plain(inp: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -53,7 +52,6 @@ def splat_plain(inp: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 def splat_raw(inp: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Raw (un-normalised) forward splat, fp32 in and out."""
-    global launches
     if inp.dtype != torch.float32 or flow.dtype != torch.float32:
         raise TypeError("splat_raw takes fp32 tensors")
     if inp.ndim != 4 or flow.shape != inp.shape[:3] + (2,):
@@ -66,7 +64,7 @@ def splat_raw(inp: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     out = torch.zeros_like(inp)
     launch("mofa_softsplat_f32", inp.device, inp.data_ptr(), flow.data_ptr(),
            out.data_ptr(), B, H, W, C)
-    launches += 1
+    count_launch("softsplat")
     return out
 
 

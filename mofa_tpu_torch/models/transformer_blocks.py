@@ -2,20 +2,33 @@
 
 Counterpart of mofa_tpu/models/transformer_blocks.py (diffusers-0.24
 `BasicTransformerBlock`, `TemporalBasicTransformerBlock`,
-`TransformerSpatioTemporalModel`). The temporal block always runs in the
-spatial-major ("tmajor") layout: its hidden rows stay [B*T, S, C] and the
-temporal self-attention reads them in place (kernels/attention.py); every
-other op of the block is row-wise.
+`TransformerSpatioTemporalModel`). The temporal block runs in one of two
+layouts, which compute the same function:
+
+- spatial-major ("tmajor", the default): the hidden rows stay [B*T, S, C]
+  and the temporal self-attention reads them in place
+  (kernels/attention.py::temporal_attention_tmajor); every other op of
+  the block is row-wise;
+- classic: the rows are transposed to [B*S, T, C], the block runs there
+  (its self-attention is short attention over T per spatial token), and
+  the rows are transposed back.
+
+The choice follows the JAX package (transformer_blocks.py:130-134), read
+at call time: tmajor unless `MOFA_TMAJOR=0`, the context has more than one
+token, or the HW-major quirk meets an odd batch B > 1 (its context layout
+interleaves the batch, which the tmajor layout cannot express).
 
 The temporal cross-attention context replicates diffusers-0.24's HW-major
 quirk: the context is flattened HW-major while the hidden rows are
 batch-major, so at B = 2 (one CFG pair) hidden row (b, hw) reads the
 context of CFG side (b*HW + hw) % 2. For a batch of several CFG pairs,
-each pair (v, half + v) gets exactly that B = 2 misalignment.
+each pair (v, half + v) gets exactly that B = 2 misalignment; an odd batch
+B > 1 takes the raw reference indexing.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -46,7 +59,8 @@ class BasicTransformerBlock(nn.Module):
 
 
 class TemporalBasicTransformerBlock(nn.Module):
-    """x [B*T, S, C] (spatial-major rows); context [B, S, 1, D]."""
+    """x [B*T, S, C] rows. tmajor: context [B, S, 1, D]; classic: context
+    [B*S, S_ctx, D] (one context row per spatial-token sequence)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None):
@@ -60,33 +74,61 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, num_frames: int, context=None):
+    def forward(self, x, num_frames: int, context=None, tmajor: bool = True):
+        bf, seq, ch = x.shape
+        b = bf // num_frames
+        kw = dict(tmajor_frames=num_frames) if tmajor else {}
+        if not tmajor:                                          # -> [B*S, T, C]
+            x = x.reshape(b, num_frames, seq, ch).transpose(1, 2)
+            x = x.reshape(b * seq, num_frames, ch)
         x = ln_ff_residual(x, self.norm_in, self.ff_in)
-        x = self.attn1(self.norm1(x), tmajor_frames=num_frames) + x
-        x = self.attn2(self.norm2(x), context, tmajor_frames=num_frames) + x
-        return ln_ff_residual(x, self.norm3, self.ff)
+        x = self.attn1(self.norm1(x), **kw) + x
+        x = self.attn2(self.norm2(x), context, **kw) + x
+        x = ln_ff_residual(x, self.norm3, self.ff)
+        if not tmajor:                                          # -> [B*T, S, C]
+            x = x.reshape(b, seq, num_frames, ch).transpose(1, 2)
+            x = x.reshape(bf, seq, ch)
+        return x
 
 
-def time_context(tc: torch.Tensor, hw: int, quirk: bool) -> torch.Tensor:
-    """First-frame context [B, 1, D] -> per-spatial-token [B, HW, 1, D]."""
+def tmajor_enabled(bsz: int, ctx_tokens: int, quirk: bool) -> bool:
+    """The JAX package's layout choice (without its sharding policy)."""
+    return (os.environ.get("MOFA_TMAJOR", "") != "0" and ctx_tokens == 1
+            and (bsz == 1 or bsz % 2 == 0 or not quirk))
+
+
+def time_context(tc: torch.Tensor, hw: int, quirk: bool,
+                 tmajor: bool = True) -> torch.Tensor:
+    """First-frame context [B, S, D] -> the temporal cross-attention's
+    context, in the four layouts of mofa_tpu (transformer_blocks.py:135-178):
+    per spatial token [B, HW, 1, D] (tmajor), or one row per spatial-token
+    sequence [B*HW, S', D] (classic)."""
     bsz, s, d = tc.shape
-    if s != 1:
-        raise ValueError("the temporal context must be a single token")
-    if not quirk or bsz == 1:
+    if quirk and bsz % 2 == 0:
+        # pairwise: row (b, hw) reads CFG side (side(b)*HW + hw) % 2 of its pair
+        half = bsz // 2
+        tc2 = tc[:, 0].reshape(2, half, d)
+        rows = torch.arange(bsz, device=tc.device)
+        sides, vs = rows // half, rows % half
+        hw_idx = torch.arange(hw, device=tc.device)
+        sel = (sides[:, None] * hw + hw_idx[None, :]) % 2        # [B, HW]
+        ctx = torch.where(sel[..., None] == 0, tc2[0][vs][:, None, :],
+                          tc2[1][vs][:, None, :])                # [B, HW, D]
+        return ctx[:, :, None, :] if tmajor else ctx.reshape(bsz * hw, 1, d)
+    if quirk and tmajor:
+        if bsz != 1:
+            raise ValueError("the HW-major context quirk has no tmajor layout "
+                             f"at an odd batch B > 1; got B = {bsz}")
         # B = 1: the HW-major flattening degenerates to a plain broadcast
+        return tc[:, None, :1].expand(bsz, hw, 1, d)
+    if quirk:
+        # odd batch: the raw reference indexing, [HW, B, 1, D] -> [HW*B, 1, D]
+        return tc[None, :, :1].expand(hw, bsz, 1, d).reshape(hw * bsz, 1, d)
+    if tmajor:
+        if s != 1:
+            raise ValueError("the tmajor context must be a single token")
         return tc[:, None].expand(bsz, hw, 1, d)
-    if bsz % 2:
-        raise ValueError("the HW-major context quirk needs B = 1 or even B "
-                         f"(CFG pairs); got B = {bsz}")
-    half = bsz // 2
-    tc2 = tc[:, 0].reshape(2, half, d)
-    rows = torch.arange(bsz, device=tc.device)
-    sides, vs = rows // half, rows % half
-    hw_idx = torch.arange(hw, device=tc.device)
-    sel = (sides[:, None] * hw + hw_idx[None, :]) % 2            # [B, HW]
-    ctx = torch.where(sel[..., None] == 0, tc2[0][vs][:, None, :],
-                      tc2[1][vs][:, None, :])                    # [B, HW, D]
-    return ctx[:, :, None, :]
+    return tc[:, None].expand(bsz, hw, s, d).reshape(bsz * hw, s, d)
 
 
 class TransformerSpatioTemporalModel(nn.Module):
@@ -116,7 +158,8 @@ class TransformerSpatioTemporalModel(nn.Module):
         bsz, nf = image_only_indicator.shape
         ehs = encoder_hidden_states
         tc = ehs.reshape(bsz, nf, -1, ehs.shape[-1])[:, 0]           # [B, S, D]
-        t_ctx = time_context(tc, h * w, self.quirk)
+        tmajor = tmajor_enabled(bsz, tc.shape[1], self.quirk)
+        t_ctx = time_context(tc, h * w, self.quirk, tmajor)
 
         residual = x
         x = self.norm(x).permute(0, 2, 3, 1).reshape(bf, h * w, ch)
@@ -129,7 +172,7 @@ class TransformerSpatioTemporalModel(nn.Module):
         for block, tblock in zip(self.transformer_blocks,
                                  self.temporal_transformer_blocks):
             x_spatial = block(x, ehs)
-            x_mix = tblock(x_spatial + emb, nf, t_ctx)
+            x_mix = tblock(x_spatial + emb, nf, t_ctx, tmajor)
             x = self.time_mixer(x_spatial, x_mix, image_only_indicator)
 
         x = self.proj_out(x)

@@ -14,9 +14,12 @@ import pytest
 import torch
 
 from mofa_tpu_torch import kernels
+from mofa_tpu_torch.kernels.conv_fused import gn_silu_conv3x3, gn_silu_tconv3
 from mofa_tpu_torch.kernels.flash_attention import flash_attention
 from mofa_tpu_torch.kernels.geglu_ffn import ln_geglu_ffn
-from mofa_tpu_torch.kernels.short_attention import short_attention_tmajor
+from mofa_tpu_torch.kernels.group_norm import channel_sums
+from mofa_tpu_torch.kernels.short_attention import (short_attention,
+                                                    short_attention_tmajor)
 from mofa_tpu_torch.kernels.softsplat import splat_raw
 
 
@@ -42,11 +45,27 @@ def test_kernels_on_card():
         w0, w2 = (rn(2560, 320) / 18).to(dt), (rn(320, 1280) / 36).to(dt)
         b0, b2 = rn(2560).to(dt), rn(320).to(dt)
         ls, lb = rn(320) + 1, rn(320)
+        qs, ks, vs = (rn(37, 25, 2, 128).to(dt) for _ in range(3))
+        x3 = (rn(3, 1000, 96) + 0.5).to(dt)
         calls = [lambda: flash_attention(q, k, v),
                  lambda: short_attention_tmajor(q2, k2, v2, 7, 3),
-                 lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2)]
+                 lambda: short_attention(qs, ks, vs),
+                 lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
+                 lambda: torch.cat(channel_sums(x3), -1)]
         if dt == torch.float32:
             calls.append(lambda: splat_raw(rn(3, 9, 11, 5), rn(3, 9, 11, 2) * 3))
+        else:
+            # the fused convs take bf16 only; ragged tiles (5*7 and 3*35
+            # output pixels), temb, residual and the output sums
+            xc, xt = rn(2, 5, 7, 64).to(dt), rn(2, 3, 35, 64).to(dt)
+            a, b = rn(2, 64) * 0.3 + 1, rn(2, 64) * 0.2
+            w3, wt = (rn(3, 3, 64, 128) / 24).to(dt), (rn(3, 64, 128) / 14).to(dt)
+            bias = rn(128)
+            conv = lambda: gn_silu_conv3x3(xc, a, b, w3, bias, rn(2, 128),
+                                           rn(2, 5, 7, 128).to(dt), emit_sums=True)
+            calls += [lambda: conv()[0], lambda: torch.cat(conv()[1:], -1),
+                      lambda: gn_silu_tconv3(xt, a, b, wt, bias, rn(2, 3, 128),
+                                             rn(2, 3, 35, 128).to(dt), silu=False)]
         for fn in calls:
             state = g.get_state()
             got = fn()

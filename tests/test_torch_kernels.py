@@ -25,9 +25,12 @@ from mofa_tpu.kernels.softsplat_pallas import splat_pallas
 from mofa_tpu_torch import kernels
 from mofa_tpu_torch.kernels.attention import (dot_product_attention,
                                               temporal_attention_tmajor)
+from mofa_tpu_torch.kernels.conv_fused import gn_silu_conv3x3, gn_silu_tconv3
 from mofa_tpu_torch.kernels.flash_attention import flash_attention
 from mofa_tpu_torch.kernels.geglu_ffn import fused_ffn_applicable, ln_geglu_ffn
-from mofa_tpu_torch.kernels.short_attention import short_attention_tmajor
+from mofa_tpu_torch.kernels.group_norm import fused_group_norm
+from mofa_tpu_torch.kernels.short_attention import (short_attention,
+                                                    short_attention_tmajor)
 from mofa_tpu_torch.kernels.softsplat import softsplat, splat_raw
 
 
@@ -167,9 +170,17 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                  torch.randn(8 * c, c), torch.zeros(8 * c),
                  torch.randn(c, 4 * c), torch.zeros(c))
     softsplat(torch.randn(1, 4, 4, 3), torch.zeros(1, 4, 4, 2))
-    assert kernels.launch_counts() == {
-        "flash_attention": 0, "short_attention_tmajor": 0,
-        "ln_geglu_ffn": 0, "softsplat": 0}
+    q4 = torch.randn(16, 25, 5, 64)
+    short_attention(q4, q4, q4)
+    x = torch.randn(2, 8, 8, 64)
+    a, w3 = torch.ones(2, 64), torch.randn(3, 3, 64, 64)
+    fused_group_norm(x, torch.ones(64), torch.zeros(64), 32)
+    gn_silu_conv3x3(x, a, a, w3, torch.zeros(64), emit_sums=True)
+    gn_silu_tconv3(x, a, a, w3[0], torch.zeros(64))
+    assert kernels.launch_counts() == dict.fromkeys(
+        ("flash_attention", "short_attention_tmajor", "short_attention",
+         "ln_geglu_ffn", "softsplat", "channel_sums", "gn_silu_conv3x3",
+         "gn_silu_tconv3"), 0)
 
 
 def test_devices_without_a_kernel_or_plain_path_raise():

@@ -113,7 +113,8 @@ def test_traj_slice_latents_match_jax(pair, bug_compat):
 
 def test_port_imports_neither_jax_nor_mofa_tpu():
     code = ("import sys, mofa_tpu_torch.pipelines.traj, mofa_tpu_torch.models.weights;"
-            "import mofa_tpu_torch.kernels.attention;"
+            "import mofa_tpu_torch.kernels.attention, mofa_tpu_torch.kernels.group_norm;"
+            "import mofa_tpu_torch.kernels.conv_fused;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'mofa_tpu' or m.startswith('mofa_tpu.') or m == 'flax'];"
             "print(bad); sys.exit(1 if bad else 0)")
