@@ -12,20 +12,27 @@ Phases, each printed as it finishes:
      shapes, bf16 and fp32 (the bf16-only fused convs also against the
      plain version in fp32 on the upcast inputs), against the bounds of
      TOL_FP32 / TOL_BF16, with the kernel's, the plain version's and one
-     PyTorch call's times (CUDA events, median of 5) and, for the GroupNorm
-     and fused-conv kernels, the stock chain the port's resnet blocks run;
-     then planted faults, which the bf16 bounds must reject;
+     PyTorch call's times (CUDA events, median of 5) and, for the FFN,
+     GroupNorm and fused-conv kernels, the stock chain the port's models
+     run; then planted faults, which the bf16 bounds must reject;
+     3b. the FFN variants (tools/bench_ffn.py's A/B): plain, ilv, pipe,
+     tanh, geglu_ffn and the stock chain at the main path's three FF
+     shapes, their agreement with "plain" and one pass's launch counts;
   4. the composition check: the full trajectory pipeline at full SVD-XT
      widths but a small video, in both temporal layouts (spatial-major
      and classic, `MOFA_TMAJOR=0`), once through the kernels and once
      inside `plain_reference()`, in fp32 (PSNR >= 45 dB) and in bf16 (PSNR
      bars beside PSNR_BF16_DB); the classic and spatial-major bf16 videos
      against each other;
-  5. the main path: `TrajPipeline` at 576x1024, 25 frames, bf16, batched
-     CFG, random seeded weights, timing every phase and counting each
-     kernel's launches (each must be its expected count, every frame
-     finite); 5b. the classic-layout path, the same video at 5 steps with
-     `MOFA_TMAJOR=0` (short_attention launched, tmajor never);
+  5. the main path: the traj app's generation (`traj_app.generate`) from
+     a seeded image and seeded drag tracks: PCHIP, sparse flow at 384^2,
+     CMP (full size, seeded random weights, fp32), the flow rescaled to
+     576x1024, then `TrajPipeline` at 25 frames, bf16, batched CFG,
+     random seeded weights, timing every phase and counting each
+     kernel's launches (each must be its expected count, the flow finite
+     and not all zero, every frame finite); 5b. the classic-layout path,
+     the same video at 5 steps with `MOFA_TMAJOR=0` (short_attention
+     launched, tmajor never); 5c. the app's motion-brush path at 256x384;
   6. the GroupNorm / fused-conv entry points: a spatial and a temporal
      resnet block at full width built from `gn_affine`, `gn_silu_conv3x3`
      and `gn_silu_tconv3`, held against the port's stock resnet blocks.
@@ -140,6 +147,18 @@ KERNEL_META = {
     "gn_silu_tconv3": dict(
         source="mofa_tpu_torch/csrc/conv_fused.cu",
         replaces="mofa_tpu/kernels/conv_fused.py:355"),
+    "geglu_ffn": dict(
+        source="mofa_tpu_torch/csrc/ln_geglu_ffn.cu",
+        replaces="mofa_tpu/kernels/geglu_ffn.py:93"),
+    "ln_geglu_ffn_ilv": dict(
+        source="mofa_tpu_torch/csrc/ln_geglu_ffn.cu",
+        replaces="mofa_tpu/kernels/geglu_ffn.py:344"),
+    "ln_geglu_ffn_pipe": dict(
+        source="mofa_tpu_torch/csrc/ln_geglu_ffn.cu",
+        replaces="mofa_tpu/kernels/geglu_ffn.py:363"),
+    "ln_geglu_ffn_tanh": dict(
+        source="mofa_tpu_torch/csrc/ln_geglu_ffn.cu",
+        replaces="mofa_tpu/kernels/geglu_ffn.py:390"),
 }
 
 # Bounds on a kernel's agreement with its plain version.
@@ -166,7 +185,11 @@ TOL_BF16 = {"flash_attention": (2e-2, 7e-3),
             "ln_geglu_ffn": (2e-2, 1e-2),
             "channel_sums": (1e-5, 1e-5),
             "gn_silu_conv3x3": (2e-2, 1e-2),
-            "gn_silu_tconv3": (2e-2, 1e-2)}
+            "gn_silu_tconv3": (2e-2, 1e-2),
+            "geglu_ffn": (2e-2, 1e-2),
+            "ln_geglu_ffn_ilv": (2e-2, 1e-2),
+            "ln_geglu_ffn_pipe": (2e-2, 1e-2),
+            "ln_geglu_ffn_tanh": (2e-2, 1e-2)}
 
 
 def agreement(got, ref):
@@ -257,6 +280,41 @@ def _check(results, name, dtype_name, label, kernel_fn, plain_fn, time_it,
     torch.cuda.empty_cache()
 
 
+def ffn_operands(g, c: int, rows: int, dtype, tail: bool = False):
+    """(x [rows, c], LN scale and shift [c] fp32, w0 [8c, c], b0 [8c],
+    w2 [c, 4c], b2 [c]) drawn from generator g, on its device. tail: the
+    gate's pre-activations are exact bf16 values in [-3.5, -2.5] (the g rows
+    of w0 are zero, so g is its bias in every version), where the tanh-form
+    gelu is 2-45% off the erf form, with the residual and b2 small beside
+    the FF output: there the tanh and erf FFNs differ far beyond bf16
+    rounding."""
+    import torch
+    rn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=g.device) * scale
+    x = rn(rows, c, scale=0.01 if tail else 1.0).to(dtype)
+    ls, lb = rn(c, scale=0.2) + 1.0, rn(c, scale=0.2)
+    w0, b0 = rn(8 * c, c, scale=c ** -0.5), rn(8 * c, scale=0.1)
+    w2, b2 = rn(c, 4 * c, scale=(4 * c) ** -0.5), rn(c, scale=0.1)
+    if tail:
+        w0[4 * c:] = 0.0
+        b0[4 * c:] = -3.0 + 0.25 * torch.randint(-2, 3, (4 * c,), generator=g,
+                                                 device=g.device)
+        w2 *= 100.0
+        b2.zero_()
+    return (x, ls, lb) + tuple(t.to(dtype) for t in (w0, b0, w2, b2))
+
+
+def ffn_chain(x, ln, w0, b0, w2, b2, approximate: str = "none"):
+    """The stock chain the port's model runs where no FFN kernel is taken:
+    [F.layer_norm ->] Linear -> a * gelu(g) -> Linear [-> + x] (ln: the LN
+    scale and shift, or None for geglu_ffn)."""
+    import torch.nn.functional as F
+    h = x if ln is None else F.layer_norm(x, x.shape[-1:], ln[0].to(x.dtype),
+                                          ln[1].to(x.dtype), 1e-5)
+    a, gate = F.linear(h, w0, b0).chunk(2, dim=-1)
+    out = F.linear(a * F.gelu(gate, approximate=approximate), w2, b2)
+    return out if ln is None else out + x
+
+
 def tmajor_without_last_frame(q2, k2, v2, t: int, h: int):
     """Plain tmajor attention that never reads the last key frame."""
     import torch
@@ -273,17 +331,21 @@ def planted_faults() -> list:
     version of a faulty kernel: one that skips a 64-key tile (flash,
     L=9216), leaves the ragged tail's zero-filled keys unmasked (flash,
     L=1000), never reads the last frame (tmajor) or the last key (classic
-    short attention), drops a 16-wide chunk of the FFN's inner axis, skips
-    the last S-slab of a block (channel sums), or drops the centre tap
-    (3x3 conv) or the t-1 tap (temporal conv). Every one must MISS;
-    returns the labels of those that passed."""
+    short attention), drops a 16-wide chunk of the FFN's inner axis, leaves
+    one 16-row sub-tile of every block unwritten (ilv FFN), skips the last
+    inner chunk, the pipeline's drain (pipe FFN), drops the gate half of b0
+    (geglu_ffn), computes the erf gelu instead of the tanh form (tanh FFN,
+    at gate inputs where the two differ), skips the last S-slab of a block
+    (channel sums), or drops the centre tap (3x3 conv) or the t-1 tap
+    (temporal conv). Every one must MISS; returns the labels of those that
+    passed."""
     import torch
     from mofa_tpu_torch import kernels
     from mofa_tpu_torch.kernels.attention import attention_plain
     from mofa_tpu_torch.kernels.conv_fused import (gn_silu_conv3x3,
                                                    gn_silu_tconv3)
     from mofa_tpu_torch.kernels.flash_attention import flash_attention
-    from mofa_tpu_torch.kernels.geglu_ffn import ln_geglu_ffn
+    from mofa_tpu_torch.kernels.geglu_ffn import geglu_ffn, ln_geglu_ffn
     from mofa_tpu_torch.kernels.group_norm import (channel_sums,
                                                    channel_sums_plain,
                                                    slab_rows)
@@ -330,6 +392,29 @@ def planted_faults() -> list:
         return (lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
                 lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2f, b2))
 
+    def ffn_variant_case(fault):
+        c, rows = 320, 460800
+        args = ffn_operands(g, c, rows, bf, tail=fault == "tanh")
+        x, ls, lb, w0, b0, w2, b2 = args
+        if fault == "ilv":                  # sub-tile 1 of every block unwritten
+            def faulty():
+                out = ln_geglu_ffn(*args)
+                out.view(-1, 64, c)[:, 16:32] = 0
+                return out
+            return lambda: ln_geglu_ffn(*args, variant="ilv"), faulty
+        if fault == "pipe":                 # the drain skipped: last chunk lost
+            w2f = w2.clone()
+            w2f[:, -32:] = 0
+            return (lambda: ln_geglu_ffn(*args, variant="pipe"),
+                    lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2f, b2))
+        if fault == "geglu":                # the gate half of b0 dropped
+            b0f = b0.clone()
+            b0f[4 * c:] = 0
+            return (lambda: geglu_ffn(x, w0, b0, w2, b2),
+                    lambda: geglu_ffn(x, w0, b0f, w2, b2))
+        # tanh: the erf function, at the negative-tail gate inputs
+        return lambda: ln_geglu_ffn(*args, variant="tanh"), lambda: ln_geglu_ffn(*args)
+
     def sums_case():
         x3 = randn(50, 9216, 320, mean=0.5)
         cut = x3.shape[1] - slab_rows(320, bf)
@@ -361,6 +446,14 @@ def planted_faults() -> list:
               short_case),
              ("ln_geglu_ffn", "rows=460800 C=320, inner 0-15 dropped",
               ffn_case),
+             ("ln_geglu_ffn_ilv", "rows=460800 C=320, rows 16-31 unwritten",
+              lambda: ffn_variant_case("ilv")),
+             ("ln_geglu_ffn_pipe", "rows=460800 C=320, drain skipped",
+              lambda: ffn_variant_case("pipe")),
+             ("geglu_ffn", "rows=460800 C=320, gate half of b0 dropped",
+              lambda: ffn_variant_case("geglu")),
+             ("ln_geglu_ffn_tanh", "rows=460800 C=320 tail gates, vs erf",
+              lambda: ffn_variant_case("tanh")),
              ("channel_sums", "[50, 9216, 320], last S-slab skipped",
               sums_case),
              ("gn_silu_conv3x3", "[50, 72, 128, 320]->320, centre tap dropped",
@@ -395,7 +488,7 @@ def phase_kernels() -> dict:
                                                    gn_silu_tconv3,
                                                    tconv3_plain)
     from mofa_tpu_torch.kernels.flash_attention import flash_attention
-    from mofa_tpu_torch.kernels.geglu_ffn import ln_geglu_ffn
+    from mofa_tpu_torch.kernels.geglu_ffn import geglu_ffn, ln_geglu_ffn
     from mofa_tpu_torch.kernels.group_norm import (channel_sums,
                                                    fused_group_norm)
     from mofa_tpu_torch.kernels.short_attention import (short_attention,
@@ -468,22 +561,48 @@ def phase_kernels() -> dict:
                    work=(4 * B * H * L * L * 64, 4 * nbytes(q), "bf16"))
     # ln_geglu_ffn: rows of the /8 (C=320) and /16 (C=640) sites; fp32 on
     # a row cut (its kernel is the plain-FMA correctness path)
+    # chain: the stock LayerNorm + Linear + gelu gate + Linear + add
     for C, R, timed in ((320, 460800, True), (640, 115200, False)):
         for dn in ("bf16", "fp32"):
             rows = R if dn == "bf16" else 16384 + 7
-            dt = dts[dn]
-            x = randn(rows, C, dtype=dt)
-            ls, lb = randn(C, scale=0.2) + 1.0, randn(C, scale=0.2)
-            w0 = randn(8 * C, C, dtype=dt, scale=C ** -0.5)
-            b0 = randn(8 * C, dtype=dt, scale=0.1)
-            w2 = randn(C, 4 * C, dtype=dt, scale=(4 * C) ** -0.5)
-            b2 = randn(C, dtype=dt, scale=0.1)
+            args = ffn_operands(g, C, rows, dts[dn])
+            x, ls, lb, w0, b0, w2, b2 = args
+            timed_here = timed and dn == "bf16"
             _check(results, "ln_geglu_ffn", dn, f"rows={rows} C={C}",
-                   lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
-                   lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
-                   timed and dn == "bf16",
+                   lambda: ln_geglu_ffn(*args), lambda: ln_geglu_ffn(*args),
+                   timed_here,
+                   chain_fn=(lambda: ffn_chain(x, (ls, lb), *args[3:]))
+                   if timed_here else None,
                    work=(24 * rows * C * C, 2 * nbytes(x) + nbytes(w0, w2),
                          "bf16"))
+    # the other FFN kernels, bf16 only (entry points: no model calls them),
+    # at the same shapes, also against the plain version in fp32 on the
+    # upcast inputs; tanh also at gate inputs in the negative tail, where
+    # it is far from erf (the planted fault holds erf against it there)
+    for C, R, timed in ((320, 460800, True), (640, 115200, False)):
+        args = ffn_operands(g, C, R, torch.bfloat16)
+        x, ls, lb, w0, b0, w2, b2 = args
+        for name, run, chain in (
+                ("geglu_ffn", lambda a: geglu_ffn(a[0], *a[3:]),
+                 lambda: ffn_chain(x, None, *args[3:])),
+                ("ln_geglu_ffn_ilv", lambda a: ln_geglu_ffn(*a, variant="ilv"),
+                 lambda: ffn_chain(x, (ls, lb), *args[3:])),
+                ("ln_geglu_ffn_pipe", lambda a: ln_geglu_ffn(*a, variant="pipe"),
+                 lambda: ffn_chain(x, (ls, lb), *args[3:])),
+                ("ln_geglu_ffn_tanh", lambda a: ln_geglu_ffn(*a, variant="tanh"),
+                 lambda: ffn_chain(x, (ls, lb), *args[3:], approximate="tanh"))):
+            _check(results, name, "bf16", f"rows={R} C={C}",
+                   lambda: run(args), lambda: run(args), timed,
+                   ref32_fn=lambda: run(upcast(*args)),
+                   chain_fn=chain if timed else None,
+                   work=(24 * R * C * C, 2 * nbytes(x) + nbytes(w0, w2), "bf16"))
+        del args, x, w0, w2
+    tail = ffn_operands(g, 320, 460800, torch.bfloat16, tail=True)
+    tanh = lambda a: ln_geglu_ffn(*a, variant="tanh")
+    _check(results, "ln_geglu_ffn_tanh", "bf16", "rows=460800 C=320 tail gates",
+           lambda: tanh(tail), lambda: tanh(tail), False,
+           ref32_fn=lambda: tanh(upcast(*tail)))
+    del tail
     # softsplat raw splat: [N*(T-1), h, w, C+1] at /8../64, fp32; smooth
     # flow in [-3, 3] px with some out-of-bounds and non-finite pixels
     for h, w, c, timed in ((72, 128, 321, True), (36, 64, 321, False),
@@ -565,6 +684,76 @@ def phase_kernels() -> dict:
                    work=(2 * (x.numel() // c) * c * fan_in,
                          2 * nbytes(x) + nbytes(w, temb), "bf16"))
     return results
+
+
+# ------------------------------------------- phase 3b: the FFN variants
+
+# The main path's FF sites, rows x C: the spatial blocks see B*T*H*W rows
+# (CFG batch 2 x 25 frames at /8 and /16), the temporal blocks B*H*W*T rows
+# at /8 (the same count as spatial /8 in another order, which a row-wise
+# kernel cannot tell apart; timed on its own draw all the same).
+FFN_SHAPES = (("spatial /8", 320, 50 * 72 * 128),
+              ("spatial /16", 640, 50 * 36 * 64),
+              ("temporal /8", 320, 2 * 9216 * 25))
+FFN_RUNS = ("plain", "ilv", "pipe", "tanh", "geglu_ffn", "chain")
+# the kernels only this phase runs (no model calls them)
+FFN_VARIANT_KERNELS = ("geglu_ffn", "ln_geglu_ffn_ilv", "ln_geglu_ffn_pipe",
+                       "ln_geglu_ffn_tanh")
+
+
+def phase_ffn_variants(dev) -> dict:
+    """The counterpart of tools/bench_ffn.py: at each of FFN_SHAPES, bf16,
+    one pass through every FFN kernel (its launch counts must equal the
+    calls), each variant's max |diff| from "plain" ("ilv" and "pipe" compute
+    the same function and must sit within the bf16 bounds; "tanh" is
+    reported), and the times of the variants, `geglu_ffn` and the stock
+    chain. Returns the launch counts summed over the passes."""
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.kernels.geglu_ffn import geglu_ffn, ln_geglu_ffn
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    one_pass = dict.fromkeys(kernels.KERNELS, 0)
+    one_pass.update(ln_geglu_ffn=1, ln_geglu_ffn_ilv=1, ln_geglu_ffn_pipe=1,
+                    ln_geglu_ffn_tanh=1, geglu_ffn=1)
+    bad = []
+    for label, c, rows in FFN_SHAPES:
+        args = ffn_operands(g, c, rows, torch.bfloat16)
+        x, ls, lb, w0, b0, w2, b2 = args
+        runs = {v: (lambda v=v: ln_geglu_ffn(*args, variant=v))
+                for v in ("plain", "ilv", "pipe", "tanh")}
+        runs["geglu_ffn"] = lambda: geglu_ffn(x, w0, b0, w2, b2)
+        runs["chain"] = lambda: ffn_chain(x, (ls, lb), w0, b0, w2, b2)
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            outs = {k: runs[k]() for k in ("plain", "ilv", "pipe", "tanh",
+                                           "geglu_ffn")}
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            diffs = []
+            for v in ("ilv", "pipe", "tanh"):
+                err, ref_max, rms = agreement(outs[v], outs["plain"])
+                ok = v == "tanh" or within("ln_geglu_ffn", "bf16", err, ref_max, rms)
+                diffs.append(f"{v} {err:.3e} (rel rms {rms:.3e}{'' if ok else ', MISS'})")
+                if not ok:
+                    bad.append(f"{label}: {v}")
+            del outs
+            ms = {k: time_ms(runs[k]) for k in FFN_RUNS}
+        log(f"  {label:11s} rows={rows} C={c}: " + "  ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()) + " ms")
+        log(f"  {'':11s} max|diff| from plain: " + "; ".join(diffs))
+        log(f"  {'':11s} launches of one pass: "
+            + str({k: n for k, n in counts.items() if n}))
+        if counts != one_pass:
+            bad.append(f"{label}: launches {counts}")
+        for k, n in counts.items():
+            total[k] += n
+        del args, x, w0, w2, runs
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"FFN variants: {bad}")
+    return total
 
 
 # ------------------------------------------------- inputs of the pipeline
@@ -710,40 +899,84 @@ MAIN = dict(h=576, w=1024, t=25, steps=25, decode_chunk_size=8)
 CLASSIC_STEPS = 5
 
 
+def seeded_tracks(h: int, w: int, seed: int, n: int = 6) -> list:
+    """n drag tracks of 3-5 click points each, in image pixels: a start in
+    the middle 80% of the image, then steps of up to a tenth of its size."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    tracks = []
+    for _ in range(n):
+        pts = [rng.uniform((0.1 * w, 0.1 * h), (0.9 * w, 0.9 * h))]
+        for _ in range(rng.randint(2, 5)):
+            step = rng.uniform(-0.1, 0.1, 2) * (w, h)
+            pts.append(np.clip(pts[-1] + step, 0, (w - 1, h - 1)))
+        tracks.append([[float(x), float(y)] for x, y in pts])
+    return tracks
+
+
+def drag_video(bundle, dev, h: int, w: int, t: int, steps: int, seed: int,
+               brush=None, phase_times=None):
+    """The traj app's generation: a seeded smooth image and seeded tracks
+    -> PCHIP -> sparse flow at 384^2 -> CMP (full CMPConfig, seeded random
+    weights, fp32) -> flow at (h, w) -> TrajPipeline with `bundle`. Returns
+    (frames [T, H, W, 3], flow [1, T-1, H, W, 2], PhaseTimer)."""
+    from mofa_tpu_torch.apps.loaders import load_cmp
+    from mofa_tpu_torch.apps.traj_app import generate
+    from mofa_tpu_torch.utils.profiling import PhaseTimer
+    img, _ = smooth_inputs(1, 2, h, w, dev, seed=seed)
+    timer = PhaseTimer(dev)
+    frames, flow = generate(
+        img[0], seeded_tracks(h, w, seed), lambda: load_cmp(None, dev, seed=seed),
+        lambda: bundle, timer=timer, brush=brush, num_frames=t,
+        num_inference_steps=steps, decode_chunk_size=MAIN["decode_chunk_size"],
+        seed=seed + 1, phase_times=phase_times)
+    return frames, flow, timer
+
+
+def check_flow(label: str, flow) -> None:
+    import torch
+    mag = flow.float().norm(dim=-1)
+    log(f"  {label}: dense flow {tuple(flow.shape)}, mean |flow| "
+        f"{float(mag.mean()):.3f} px, max |flow| {float(mag.max()):.3f} px")
+    if not bool(torch.isfinite(flow).all()) or float(mag.max()) == 0.0:
+        fail(f"{label}: the dense flow is non-finite or all zero")
+
+
 def run_video(bundle, dev, layout: str, steps: int) -> dict:
-    """One TrajPipeline video at MAIN's size in `layout`, launch counts
-    reset just before it and read just after; every phase timed."""
+    """One video at MAIN's size in `layout`, from drag tracks through the
+    traj app's generation (CMP included), launch counts reset just before
+    it and read just after; every phase timed."""
     import torch
     from mofa_tpu_torch import kernels
-    from mofa_tpu_torch.pipelines.traj import TrajPipeline
 
-    img, flow = smooth_inputs(1, MAIN["t"], MAIN["h"], MAIN["w"], dev, seed=4)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    pipe = TrajPipeline(bundle)
-    log(f"  {layout} layout: {steps} steps, {MAIN['t']} frames, "
-        f"{MAIN['h']}x{MAIN['w']}, decode_chunk_size {MAIN['decode_chunk_size']}")
+    log(f"  {layout} layout: drag tracks -> CMP -> {steps} steps, {MAIN['t']} "
+        f"frames, {MAIN['h']}x{MAIN['w']}, decode_chunk_size "
+        f"{MAIN['decode_chunk_size']}")
     torch.cuda.reset_peak_memory_stats()
     phases: dict = {}
     with temporal_layout(layout):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        frames, _ = pipe(img, flow, num_inference_steps=steps,
-                         decode_chunk_size=MAIN["decode_chunk_size"],
-                         generator=gen, phase_times=phases)
+        frames, flow, timer = drag_video(bundle, dev, MAIN["h"], MAIN["w"],
+                                         MAIN["t"], steps, seed=4,
+                                         phase_times=phases)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = phases["denoise_step"]
     median = sorted(step_s)[len(step_s) // 2]
-    log(f"  phases (s): clip_encode {phases['clip_encode'][0]:.3f}, "
+    app = timer.totals
+    log(f"  phases (s): cmp_load {app['cmp_load']:.3f}, cmp_flow "
+        f"{app['cmp_flow']:.3f}, clip_encode {phases['clip_encode'][0]:.3f}, "
         f"vae_encode {phases['vae_encode'][0]:.3f}, warp "
         f"{phases['warp'][0]:.3f}, denoise {sum(step_s):.3f} "
         f"({len(step_s)} steps: first {step_s[0]:.3f}, median "
         f"{median:.3f}), decode {phases['decode'][0]:.3f}; total {total:.3f}")
     log(f"  peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
     log(f"  kernel launches in the {layout} path: {launches}")
-    want = (1, MAIN["t"], MAIN["h"], MAIN["w"], 3)
+    check_flow(f"{layout} path", flow)
+    want = (MAIN["t"], MAIN["h"], MAIN["w"], 3)
     if tuple(frames.shape) != want:
         fail(f"{layout} path frames {tuple(frames.shape)}, expected {want}")
     if not bool(torch.isfinite(frames).all()):
@@ -753,7 +986,25 @@ def run_video(bundle, dev, layout: str, steps: int) -> dict:
              f"{expected_launches(layout, steps)}")
     log(f"  frames finite, mean {float(frames.mean()):.4f}, std "
         f"{float(frames.std()):.4f}")
-    return dict(launches=launches, median_step=median)
+    return dict(launches=launches, median_step=median, cmp_flow=app["cmp_flow"])
+
+
+def run_brush_video(bundle, dev) -> None:
+    """The motion-brush path (`get_drag_flow_with_brush`: tracks split by
+    the brush, each side completed on its own, merged) at the composition
+    check's size, 256x384, T=8, 2 steps: the frames must be finite."""
+    import numpy as np
+    import torch
+    h, w = 256, 384
+    brush = np.zeros((h, w), np.float32)
+    brush[:, : w // 2] = 255.0                     # the left half
+    frames, flow, timer = drag_video(bundle, dev, h, w, 8, 2, seed=9, brush=brush)
+    check_flow("brush path", flow)
+    if tuple(frames.shape) != (8, h, w, 3) or not bool(torch.isfinite(frames).all()):
+        fail(f"brush path: frames {tuple(frames.shape)}, finite "
+             f"{bool(torch.isfinite(frames).all())}")
+    log(f"  brush path: cmp_flow {timer.totals['cmp_flow']:.3f} s, frames finite, "
+        f"mean {float(frames.mean()):.4f}")
 
 
 # --------------------------------- phase 6: the GroupNorm / conv entries
@@ -932,7 +1183,14 @@ def main() -> None:
         fail(f"the bf16 bounds let planted faults pass: {loose}")
     log("[kernels] all within tolerance; every planted fault caught")
 
+    # 3b. the FFN variants at the main path's FF shapes
+    log("[ffn_variants] ln_geglu_ffn variants, geglu_ffn and the stock chain,"
+        " bf16, ms")
+    ffn_launches = phase_ffn_variants(torch.device("cuda"))
+
     launches = dict.fromkeys(KERNEL_META)
+    for name in FFN_VARIANT_KERNELS:
+        launches[name] = ffn_launches[name]
     if args.phase == "all":
         dev = torch.device("cuda")
         # 4. composition: kernels vs plain_reference() through the pipeline
@@ -942,7 +1200,11 @@ def main() -> None:
         phase_composition(dev)
         log(f"[composition] done in {time.perf_counter() - t0:.1f} s")
         # 5. the main path, then 5b. the classic-layout path
-        log("[main] TrajPipeline, SVD-XT widths, bf16, batched CFG")
+        log("[main] the traj app's generation: drag tracks -> PCHIP -> sparse "
+            "flow -> CMP -> TrajPipeline, SVD-XT widths, bf16, batched CFG")
+        # the app runs with PyTorch's defaults (cuDNN may use TF32 for the
+        # CMP's fp32 convs); the checks above turned TF32 off
+        torch.backends.cudnn.allow_tf32 = True
         t0 = time.perf_counter()
         bundle = random_bundle(dev, 0, torch.bfloat16)
         torch.cuda.synchronize()
@@ -956,6 +1218,9 @@ def main() -> None:
         classic_run = run_video(bundle, dev, "classic", CLASSIC_STEPS)
         log(f"[classic] median denoise step {classic_run['median_step']:.3f} s"
             f" vs {main_run['median_step']:.3f} s spatial-major")
+        # 5c. the motion-brush path of the app
+        log("[brush] drag tracks split by a motion brush, 256x384, T=8, 2 steps")
+        run_brush_video(bundle, dev)
         del bundle
         torch.cuda.empty_cache()
         # 6. the GroupNorm / fused-conv entry points
@@ -964,6 +1229,8 @@ def main() -> None:
         gn_launches = phase_gn_conv(dev)
         # each kernel's launches from the run of its own path
         for name in KERNEL_META:
+            if name in FFN_VARIANT_KERNELS:
+                continue
             source = (classic_run if name == "short_attention" else main_run)
             launches[name] = source["launches"][name]
         for name in ("channel_sums", "gn_silu_conv3x3", "gn_silu_tconv3"):

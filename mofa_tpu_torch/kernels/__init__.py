@@ -13,10 +13,11 @@ from __future__ import annotations
 import contextlib
 
 # one launch count per kernel (not per module: short_attention.py holds two
-# kernels, conv_fused.py two)
+# kernels, conv_fused.py two, geglu_ffn.py five)
 KERNELS = ("flash_attention", "short_attention_tmajor", "short_attention",
            "ln_geglu_ffn", "softsplat", "channel_sums", "gn_silu_conv3x3",
-           "gn_silu_tconv3")
+           "gn_silu_tconv3", "geglu_ffn", "ln_geglu_ffn_ilv",
+           "ln_geglu_ffn_pipe", "ln_geglu_ffn_tanh")
 _launches = dict.fromkeys(KERNELS, 0)
 _plain_depth = 0
 

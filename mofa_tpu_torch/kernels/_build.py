@@ -32,6 +32,10 @@ _SIGNATURES = {
     "mofa_tmajor_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mofa_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mofa_ln_geglu_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mofa_ln_geglu_ffn_ilv": [_P] * 8 + [_I, _I, _P],
+    "mofa_ln_geglu_ffn_pipe": [_P] * 8 + [_I, _I, _P],
+    "mofa_ln_geglu_ffn_tanh": [_P] * 8 + [_I, _I, _P],
+    "mofa_geglu_ffn": [_P] * 6 + [_I, _I, _P],
     "mofa_short_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mofa_channel_sums": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mofa_gn_silu_conv3x3": [_P] * 10 + [_I] * 6 + [_P],

@@ -10,8 +10,10 @@ where the JAX package sends it to a Pallas kernel on the TPU:
 - every temporal self-attention in the spatial-major layout ->
   `short_attention_tmajor`.
 
-Every other site (CLIP's 257 tokens, the small spatial sites, the short
-sites the gate refuses) stays plain PyTorch: matmul with fp32 logits and
+Each gate admits only what its kernel takes (D of 64 or 128, T <= 32), so
+no site reaches a kernel that would raise. Every other site (CLIP's 257
+tokens, the small spatial sites, the short sites the gate refuses, the
+micro test widths) stays plain PyTorch: matmul with fp32 logits and
 softmax. On CPU tensors the kernel wrappers run their plain versions, so
 the math is the same either way.
 """
@@ -19,10 +21,13 @@ the math is the same either way.
 from __future__ import annotations
 
 from mofa_tpu_torch.kernels.flash_attention import (attention_plain,
-                                                    flash_attention)
+                                                    flash_attention,
+                                                    flash_kernel_takes)
 from mofa_tpu_torch.kernels.short_attention import (short_attention,
                                                     short_attention_applicable,
-                                                    short_attention_tmajor)
+                                                    short_attention_tmajor,
+                                                    tmajor_applicable,
+                                                    tmajor_plain)
 
 FLASH_MIN_SEQ = 576
 
@@ -32,7 +37,7 @@ def dot_product_attention(q, k, v):
     b, lq, h, d = q.shape
     if short_attention_applicable(b, lq, k.shape[1], h, d, q.dtype):
         return short_attention(q, k, v)
-    if lq * k.shape[1] >= FLASH_MIN_SEQ ** 2:
+    if lq * k.shape[1] >= FLASH_MIN_SEQ ** 2 and flash_kernel_takes(d, q.dtype):
         return flash_attention(q, k, v)
     return attention_plain(q, k, v)
 
@@ -40,4 +45,6 @@ def dot_product_attention(q, k, v):
 def temporal_attention_tmajor(q2, k2, v2, num_frames: int, heads: int):
     """[B*T, S, H*D] rows -> [B*T, S, H*D], attention over the frame axis
     per (batch, spatial token, head)."""
-    return short_attention_tmajor(q2, k2, v2, num_frames, heads)
+    if tmajor_applicable(num_frames, q2.shape[-1], heads, q2.dtype):
+        return short_attention_tmajor(q2, k2, v2, num_frames, heads)
+    return tmajor_plain(q2, k2, v2, num_frames, heads)

@@ -22,6 +22,11 @@ HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def flash_kernel_takes(d: int, dtype) -> bool:
+    """What the CUDA kernel takes: D in HEAD_DIMS, fp32 or bf16."""
+    return d in HEAD_DIMS and dtype in _DTYPES
+
+
 def attention_plain(q, k, v) -> torch.Tensor:
     """[B, Lq, H, D] x [B, Lk, H, D] -> [B, Lq, H, D]: fp32 logits and
     softmax, probabilities cast to the input dtype before P·V (the JAX
@@ -41,7 +46,7 @@ def flash_attention(q, k, v) -> torch.Tensor:
     if not use_kernel(q, k, v):
         return attention_plain(q, k, v)
     b, lq, h, d = q.shape
-    if (d not in HEAD_DIMS or q.dtype not in _DTYPES or k.dtype != q.dtype
+    if (not flash_kernel_takes(d, q.dtype) or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise ValueError(f"flash kernel takes D in {HEAD_DIMS} and fp32/bf16;"
                          f" got D={d}, {q.dtype}")

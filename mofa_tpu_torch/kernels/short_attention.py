@@ -47,6 +47,13 @@ def short_attention_applicable(b: int, l_q: int, l_k: int, h: int, d: int,
             and b * l_q >= TARGET_ROWS and _kernel_takes(l_q, d, dtype))
 
 
+def tmajor_applicable(num_frames: int, hd: int, heads: int, dtype) -> bool:
+    """The dispatch gate of the tmajor kernel: every temporal site it takes
+    (all of them at SVD-XT widths, D = 64, T <= 32); the others (the micro
+    test widths, D = 16) stay plain PyTorch on every device."""
+    return hd % heads == 0 and _kernel_takes(num_frames, hd // heads, dtype)
+
+
 def tmajor_plain(q2, k2, v2, num_frames: int, heads: int) -> torch.Tensor:
     """Plain version (mofa_tpu `_tmajor_ref`): transpose, per-(b, s, head)
     softmax attention with fp32 logits, transpose back."""
@@ -82,7 +89,7 @@ def short_attention_tmajor(q2, k2, v2, num_frames: int,
     if not use_kernel(q2, k2, v2):
         return tmajor_plain(q2, k2, v2, num_frames, heads)
     d = hd // heads
-    if (hd % heads or not _kernel_takes(num_frames, d, q2.dtype)
+    if (not tmajor_applicable(num_frames, hd, heads, q2.dtype)
             or k2.dtype != q2.dtype or v2.dtype != q2.dtype):
         raise ValueError(f"tmajor kernel takes T<={MAX_FRAMES}, D in "
                          f"{HEAD_DIMS}, fp32/bf16; got T={num_frames}, "

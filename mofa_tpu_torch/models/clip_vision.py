@@ -30,6 +30,11 @@ class CLIPVisionConfig:
     hidden_act: str = "gelu"
 
 
+TINY_CLIP_CONFIG = CLIPVisionConfig(
+    hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
+    patch_size=32, image_size=64, projection_dim=32)
+
+
 class CLIPAttention(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()

@@ -2,7 +2,10 @@
 
 `state_dict_from_flax` is the exact inverse of mofa_tpu's torch -> Flax
 converters (`convert_torch_state_dict`, `convert_flow_controlnet_state_dict`,
-`convert_vae_state_dict`, `convert_clip_vision_state_dict`):
+`convert_vae_state_dict`, `convert_clip_vision_state_dict`, and for the
+"cmp" family `convert_cmp_state_dict`, whose Sequential indices and
+BatchNorm buffers (`mean` / `var` -> `running_mean` / `running_var`) are
+restored by `_cmp_parts`):
 
 - names: Flax folds torch list indices into names (`down_blocks.0` ->
   `down_blocks_0`) and flattens some paths (`mid_block_resnets_0`); the
@@ -18,10 +21,12 @@ this module lets the tests drive both packages with the same parameters.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
-FAMILIES = ("unet", "flow_controlnet", "vae", "clip")
+FAMILIES = ("unet", "flow_controlnet", "vae", "clip", "cmp")
 
 # module / parameter names of this package that contain underscores or
 # digits (single words need no entry: any unknown token stands alone)
@@ -88,6 +93,30 @@ def _family_key(family: str, parts: list[str]) -> list[str]:
     return parts
 
 
+def _cmp_parts(mods: list[str]) -> list[str]:
+    """The inverse of mofa_tpu's `remap_cmp_key` for the shipped CMP:
+    `layer1_0` -> layer1.0, `downsample_1` / `features_4` -> .1 / .4, the
+    decoder's `decoderN_i` + conv|bn -> its Sequential index (a MaxPool leads
+    decoder2/4/8), `fusion8` / `skipconv4` + conv|bn -> .0 / .1."""
+    parts, i = [], 0
+    while i < len(mods):
+        m = mods[i]
+        dec = re.fullmatch(r"(decoder([1248]))_(\d)", m)
+        if dec and i + 1 < len(mods):
+            conv_at = (0 if dec.group(2) == "1" else 1) + 3 * int(dec.group(3))
+            parts += [dec.group(1), str(conv_at + (mods[i + 1] == "bn"))]
+            i += 2
+            continue
+        if re.fullmatch(r"(fusion|skipconv)\d", m) and i + 1 < len(mods):
+            parts += [m, "1" if mods[i + 1] == "bn" else "0"]
+            i += 2
+            continue
+        idx = re.fullmatch(r"(layer\d|downsample|features)_(\d+)", m)
+        parts += list(idx.groups()) if idx else [m]
+        i += 1
+    return parts
+
+
 def state_dict_from_flax(params_np: dict, family: str) -> dict:
     """Flax param tree (numpy leaves, with or without the top 'params'
     level) of `family` in FAMILIES -> this package's state dict (fp32)."""
@@ -98,6 +127,14 @@ def state_dict_from_flax(params_np: dict, family: str) -> dict:
     for path, value in _flatten(root):
         value = np.asarray(value, dtype=np.float32)
         *mods, leaf = path
+        if family == "cmp":                  # BatchNorm mean / var: buffers
+            if leaf in ("mean", "var"):
+                name = f"running_{leaf}"
+            else:
+                name, value = _to_torch(leaf, value)
+            key = ".".join(_cmp_parts(mods) + [name])
+            sd[key] = torch.from_numpy(np.ascontiguousarray(value))
+            continue
         parts = []
         for m in mods:
             if m not in _WRAPPERS:

@@ -16,7 +16,7 @@ import torch
 from mofa_tpu_torch import kernels
 from mofa_tpu_torch.kernels.conv_fused import gn_silu_conv3x3, gn_silu_tconv3
 from mofa_tpu_torch.kernels.flash_attention import flash_attention
-from mofa_tpu_torch.kernels.geglu_ffn import ln_geglu_ffn
+from mofa_tpu_torch.kernels.geglu_ffn import geglu_ffn, ln_geglu_ffn
 from mofa_tpu_torch.kernels.group_norm import channel_sums
 from mofa_tpu_torch.kernels.short_attention import (short_attention,
                                                     short_attention_tmajor)
@@ -63,6 +63,10 @@ def test_kernels_on_card():
             bias = rn(128)
             conv = lambda: gn_silu_conv3x3(xc, a, b, w3, bias, rn(2, 128),
                                            rn(2, 5, 7, 128).to(dt), emit_sums=True)
+            # the FFN kernels that take bf16 only, on the ragged 5000 rows
+            calls += [lambda: geglu_ffn(x, w0, b0, w2, b2)] + [
+                lambda v=v: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2, variant=v)
+                for v in ("ilv", "pipe", "tanh")]
             calls += [lambda: conv()[0], lambda: torch.cat(conv()[1:], -1),
                       lambda: gn_silu_tconv3(xt, a, b, wt, bias, rn(2, 3, 128),
                                              rn(2, 3, 35, 128).to(dt), silu=False)]
@@ -79,3 +83,27 @@ def test_kernels_on_card():
             else:
                 assert diff.abs().max().item() <= tol * ref_max
                 assert (diff.norm() / ref.norm()).item() <= rms_tol
+
+
+@pytest.mark.gpu
+def test_tiny_traj_app_on_card(tmp_path):
+    """traj_app on its default device at the micro widths, whose attention
+    sites (D = 16) no kernel takes: the dispatch keeps them plain PyTorch on
+    the card instead of raising (GPU only; PIL reads and writes the files)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the app's default device")
+    import json
+
+    import numpy as np
+    from mofa_tpu_torch.apps import traj_app
+    image = pytest.importorskip("PIL.Image")
+    rng = np.random.RandomState(0)
+    image.fromarray((rng.rand(70, 140, 3) * 255).astype(np.uint8)).save(tmp_path / "in.png")
+    (tmp_path / "t.json").write_text(json.dumps(
+        {"tracks": [[[10, 10], [20, 15], [30, 30]], [[100, 40], [90, 30]]]}))
+    out = tmp_path / "out.gif"
+    traj_app.main(["--image", str(tmp_path / "in.png"), "--tracks",
+                   str(tmp_path / "t.json"), "--tiny", "--num_frames", "3",
+                   "--num_inference_steps", "2", "--target_size", "64",
+                   "--output", str(out)])
+    assert out.stat().st_size > 0

@@ -27,7 +27,8 @@ from mofa_tpu_torch.kernels.attention import (dot_product_attention,
                                               temporal_attention_tmajor)
 from mofa_tpu_torch.kernels.conv_fused import gn_silu_conv3x3, gn_silu_tconv3
 from mofa_tpu_torch.kernels.flash_attention import flash_attention
-from mofa_tpu_torch.kernels.geglu_ffn import fused_ffn_applicable, ln_geglu_ffn
+from mofa_tpu_torch.kernels.geglu_ffn import (fused_ffn_applicable, geglu_ffn,
+                                              ln_geglu_ffn)
 from mofa_tpu_torch.kernels.group_norm import fused_group_norm
 from mofa_tpu_torch.kernels.short_attention import (short_attention,
                                                     short_attention_tmajor)
@@ -166,9 +167,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     q2 = torch.randn(4, 3, 128)
     short_attention_tmajor(q2, q2, q2, 2, 2)
     c = 320
-    ln_geglu_ffn(torch.randn(4100, c), torch.ones(c), torch.zeros(c),
-                 torch.randn(8 * c, c), torch.zeros(8 * c),
-                 torch.randn(c, 4 * c), torch.zeros(c))
+    ffn = (torch.randn(4100, c), torch.ones(c), torch.zeros(c),
+           torch.randn(8 * c, c), torch.zeros(8 * c), torch.randn(c, 4 * c),
+           torch.zeros(c))
+    for variant in ("plain", "ilv", "pipe", "tanh"):
+        ln_geglu_ffn(*ffn, variant=variant)
+    geglu_ffn(ffn[0], *ffn[3:])
     softsplat(torch.randn(1, 4, 4, 3), torch.zeros(1, 4, 4, 2))
     q4 = torch.randn(16, 25, 5, 64)
     short_attention(q4, q4, q4)
@@ -180,7 +184,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     assert kernels.launch_counts() == dict.fromkeys(
         ("flash_attention", "short_attention_tmajor", "short_attention",
          "ln_geglu_ffn", "softsplat", "channel_sums", "gn_silu_conv3x3",
-         "gn_silu_tconv3"), 0)
+         "gn_silu_tconv3", "geglu_ffn", "ln_geglu_ffn_ilv",
+         "ln_geglu_ffn_pipe", "ln_geglu_ffn_tanh"), 0)
 
 
 def test_devices_without_a_kernel_or_plain_path_raise():
@@ -189,6 +194,32 @@ def test_devices_without_a_kernel_or_plain_path_raise():
         flash_attention(x, x, x)
     with pytest.raises(ValueError):
         kernels.use_kernel(torch.zeros(1), x)       # mixed devices
+
+
+def test_dispatch_sends_a_kernel_only_the_sites_it_takes(monkeypatch):
+    """Tensors that pretend to lie on a card (use_kernel -> True): the
+    dispatch must route the micro test widths (D = 16), which the kernels
+    do not take, to plain PyTorch instead of a wrapper that would raise, and
+    still route the SVD-XT widths (D = 64) to the kernels (which cannot be
+    built here, so reaching one raises)."""
+    from mofa_tpu_torch.kernels import flash_attention as fa
+    from mofa_tpu_torch.kernels import short_attention as sa
+    from mofa_tpu_torch.kernels.flash_attention import attention_plain
+    from mofa_tpu_torch.kernels.short_attention import tmajor_plain
+    for mod in (fa, sa):
+        monkeypatch.setattr(mod, "use_kernel", lambda *t: True)
+    monkeypatch.setattr("mofa_tpu_torch.kernels._build.launch",
+                        lambda *a: (_ for _ in ()).throw(RuntimeError("launch")))
+    q = torch.randn(1, 600, 2, 16)                 # flash-sized, D = 16
+    torch.testing.assert_close(dot_product_attention(q, q, q),
+                               attention_plain(q, q, q), rtol=0, atol=0)
+    q2 = torch.randn(6, 10, 2 * 16)                # T = 3, D = 16
+    torch.testing.assert_close(temporal_attention_tmajor(q2, q2, q2, 3, 2),
+                               tmajor_plain(q2, q2, q2, 3, 2), rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="launch"):
+        dot_product_attention(*(torch.randn(1, 600, 1, 64),) * 3)
+    with pytest.raises(RuntimeError, match="launch"):
+        temporal_attention_tmajor(*(torch.randn(6, 10, 2 * 64),) * 3, 3, 2)
 
 
 def test_plain_reference_context_nests_and_restores():

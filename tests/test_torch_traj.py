@@ -17,21 +17,32 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from mofa_tpu.models.clip_vision import CLIPVisionConfig as JCLIPConfig
+from mofa_tpu.models.cmp.model import TINY_CMP_CONFIG as J_TINY_CMP
+from mofa_tpu.ops.resize import resize_nhwc as j_resize_nhwc
+from mofa_tpu.ops.trajectory import interpolate_trajectory as j_interp
+from mofa_tpu.preprocess.traj import DragFlowEngine as JDragFlowEngine
+from mofa_tpu.preprocess.traj import divide_points_afterinterpolate as j_divide
+from mofa_tpu.preprocess.traj import prepare_trajectory_flow as j_prepare
 from mofa_tpu.models.svd_unet import MICRO_UNET_CONFIG as J_MICRO
 from mofa_tpu.models.vae import TINY_VAE_CONFIG as J_TINY_VAE
 from mofa_tpu.pipelines.common import ModelBundle as JBundle
 from mofa_tpu.pipelines.traj import TrajPipeline as JTrajPipeline
 
 from mofa_tpu_torch import kernels
+from mofa_tpu_torch.apps.loaders import init_random_cmp_
+from mofa_tpu_torch.apps.traj_app import drag_flow
 from mofa_tpu_torch.models.clip_vision import CLIPVisionConfig
+from mofa_tpu_torch.models.cmp.model import CMP, TINY_CMP_CONFIG
 from mofa_tpu_torch.models.svd_unet import MICRO_UNET_CONFIG
 from mofa_tpu_torch.models.vae import TINY_VAE_CONFIG
 from mofa_tpu_torch.pipelines.common import ModelBundle
 from mofa_tpu_torch.pipelines.traj import TrajPipeline
-from tests.torch_port_util import (jax_clip, jax_flow_controlnet, jax_unet,
-                                   jax_vae)
+from mofa_tpu_torch.preprocess.traj import DragFlowEngine
+from tests.torch_port_util import (jax_clip, jax_cmp, jax_flow_controlnet,
+                                   jax_unet, jax_vae)
 
 H, W, T, STEPS = 64, 128, 4, 2
 CLIP_KW = dict(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
@@ -111,8 +122,76 @@ def test_traj_slice_latents_match_jax(pair, bug_compat):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * scale)
 
 
+# ------------------------------------- drag tracks -> CMP -> video
+
+RASTER = 96                # the CMP canvas (384 in the app), cut for the CPU
+DRAG_TRACKS = [[[12.0, 10.0], [30.0, 22.0], [45.0, 30.0]],
+               [[100.0, 40.0], [85.0, 28.0], [70.0, 20.0], [60.0, 15.0]],
+               [[64.0, 50.0], [66.0, 30.0]]]
+
+
+def _jax_drag_flow(jengine, image01, tracks, brush):
+    """mofa_tpu's traj app from tracks to flow (traj_app.py:79-108), on a
+    RASTER canvas."""
+    h, w = image01.shape[1:3]
+    image_r = j_resize_nhwc(jnp.asarray(image01), (RASTER, RASTER))
+    both_axes = lambda m: jnp.asarray(np.repeat(m[..., None], 2, -1))[None]
+    if brush is None:
+        s_flow, mask = j_prepare(tracks, T, h, w, RASTER)
+        return jengine.get_flow(image_r, jnp.asarray(s_flow)[None], both_axes(mask),
+                                h, w)
+    pts = np.stack([np.asarray(j_interp(tr, T)) for tr in tracks])
+    inside, outside = j_divide(pts, brush)
+    side = lambda p: j_prepare([list(map(tuple, q)) for q in p] if len(p) else [],
+                               T, h, w, RASTER)
+    (f_in, m_in), (f_out, m_out) = side(inside), side(outside)
+    brush_r = np.asarray(Image.fromarray(brush.astype(np.uint8)).resize(
+        (RASTER, RASTER), Image.NEAREST), np.float32) / 255.0
+    return jengine.get_drag_flow_with_brush(
+        image_r, jnp.asarray(f_in)[None], both_axes(m_in), jnp.asarray(f_out)[None],
+        both_axes(m_out), jnp.asarray(brush_r), h, w)
+
+
+@pytest.fixture(scope="module")
+def cmp_pair():
+    """DragFlowEngines of both packages on one seeded TINY CMP."""
+    cmp = init_random_cmp_(CMP(TINY_CMP_CONFIG), torch.Generator().manual_seed(3))
+    _, params = jax_cmp(J_TINY_CMP, cmp)
+    return DragFlowEngine(cmp), JDragFlowEngine(params, J_TINY_CMP)
+
+
+@pytest.mark.parametrize("with_brush", [False, True])
+def test_drag_tracks_to_video_matches_jax(pair, cmp_pair, with_brush):
+    """Tracks -> PCHIP -> sparse flow -> CMP -> flow at the video's size
+    (the port through traj_app.drag_flow, JAX through its app's code), then
+    both TrajPipelines on their own flows (the JAX program compiled once
+    for this module). With the brush, the tracks are split by it (one
+    inside, two outside) and the two completions merged."""
+    bundle, jbundle, inputs = pair
+    engine, jengine = cmp_pair
+    brush = None
+    if with_brush:
+        brush = np.zeros((H, W), np.float32)
+        brush[:, : W // 2] = 255.0
+    flow = drag_flow(engine, torch.from_numpy(inputs["image01"]), DRAG_TRACKS, T,
+                     brush, raster_size=RASTER).numpy()
+    jflow = np.asarray(_jax_drag_flow(jengine, inputs["image01"], DRAG_TRACKS, brush))
+    assert flow.shape == jflow.shape == (1, T - 1, H, W, 2)
+    assert np.abs(jflow).max() > 0
+    # fp32, two conv implementations through the tiny CMP
+    np.testing.assert_allclose(flow, jflow, rtol=0, atol=1e-4 * np.abs(jflow).max())
+    got = _run_port(bundle, dict(inputs, flow=flow), "np")
+    ref = _run_jax(jbundle, dict(inputs, flow=jflow), "np")
+    assert np.isfinite(got).all()
+    mse = float(np.mean((got - ref) ** 2))
+    psnr = 10.0 * np.log10(1.0 / max(mse, 1e-20))
+    assert psnr > 45.0, f"drag -> video PSNR {psnr:.1f} dB"
+
+
 def test_port_imports_neither_jax_nor_mofa_tpu():
     code = ("import sys, mofa_tpu_torch.pipelines.traj, mofa_tpu_torch.models.weights;"
+            "import mofa_tpu_torch.apps.traj_app, mofa_tpu_torch.apps.loaders;"
+            "import mofa_tpu_torch.kernels.geglu_ffn, mofa_tpu_torch.utils.profiling;"
             "import mofa_tpu_torch.kernels.attention, mofa_tpu_torch.kernels.group_norm;"
             "import mofa_tpu_torch.kernels.conv_fused;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -15,10 +15,12 @@ import numpy as np
 import torch
 
 from mofa_tpu.models.clip_vision import CLIPVisionModelWithProjection as JCLIP
+from mofa_tpu.models.cmp.model import CMP as JCMP
 from mofa_tpu.models.mofa_adapter import FlowControlNet as JFlowControlNet
 from mofa_tpu.models.svd_unet import UNetSpatioTemporalConditionModel as JUNet
 from mofa_tpu.models.vae import AutoencoderKLTemporalDecoder as JVAE
 from mofa_tpu.models.weights import (convert_clip_vision_state_dict,
+                                     convert_cmp_state_dict,
                                      convert_flow_controlnet_state_dict,
                                      convert_torch_state_dict,
                                      convert_vae_state_dict)
@@ -69,3 +71,17 @@ def jax_clip(cfg, torch_module):
     tpl = template(lambda: m.init(
         jax.random.PRNGKey(0), jnp.zeros((1, cfg.image_size, cfg.image_size, 3))))
     return m, convert_clip_vision_state_dict(tpl, sd_np(torch_module))
+
+
+def cmp_template(cfg, size: int = 64) -> dict:
+    """Zero-filled Flax param tree of the CMP at `cfg`."""
+    m = JCMP(cfg)
+    z = lambda c: jnp.zeros((1, size, size, c))
+    return template(lambda: m.init(jax.random.PRNGKey(0), z(3), z(2), z(2)))
+
+
+def jax_cmp(cfg, torch_module):
+    """The Flax CMP holding the port CMP's weights (BatchNorm statistics
+    included), through mofa_tpu's checkpoint converter, strict."""
+    return JCMP(cfg), convert_cmp_state_dict(cmp_template(cfg), sd_np(torch_module),
+                                             strict=True)
