@@ -14,7 +14,9 @@ Phases, each printed as it finishes:
      TOL_FP32 / TOL_BF16, with the kernel's, the plain version's and one
      PyTorch call's times (CUDA events, median of 5) and, for the FFN,
      GroupNorm and fused-conv kernels, the stock chain the port's models
-     run; then planted faults, which the bf16 bounds must reject;
+     run; flash also timed beside SDPA at the main path's own /8 shape
+     (B*T = 50, no plain version: its logits would not fit); then planted
+     faults, which the bf16 bounds must reject;
      3b. the FFN variants (tools/bench_ffn.py's A/B): plain, ilv, pipe,
      tanh, geglu_ffn and the stock chain at the main path's three FF
      shapes, their agreement with "plain" and one pass's launch counts;
@@ -315,23 +317,38 @@ def ffn_chain(x, ln, w0, b0, w2, b2, approximate: str = "none"):
     return out if ln is None else out + x
 
 
-def tmajor_without_last_frame(q2, k2, v2, t: int, h: int):
-    """Plain tmajor attention that never reads the last key frame."""
+def tmajor_faulty(q2, k2, v2, t: int, h: int, keys):
+    """Plain tmajor attention whose keys and values [B, S, H, T, D] pass
+    through `keys` first (a faulty kernel's view of them)."""
     import torch
     bt, s, hd = q2.shape
     heads = lambda x: x.reshape(bt // t, t, s, h, hd // h).permute(0, 2, 3, 1, 4)
-    q, k, v = heads(q2), heads(k2)[..., :t - 1, :], heads(v2)[..., :t - 1, :]
+    q, k, v = heads(q2), keys(heads(k2)), keys(heads(v2))
     p = torch.softmax(q.float() @ k.float().transpose(-1, -2)
                       * (hd // h) ** -0.5, dim=-1)
     return (p.to(q2.dtype) @ v).permute(0, 3, 1, 2, 4).reshape(bt, s, hd)
+
+
+def short_walk_warps(d: int) -> int:
+    """Warps in the short-attention body's grid-stride walk at a large task
+    count: csrc/short_attention.cu launches ShortCfg<D>::BLOCKS_PER_SM (2
+    at D = 64, 1 at D = 128) blocks of BF16_WARPS = 4 warps per SM."""
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count * (
+        2 if d == 64 else 1) * 4
 
 
 def planted_faults() -> list:
     """The bf16 kernels held, with the bf16 bounds, against the plain
     version of a faulty kernel: one that skips a 64-key tile (flash,
     L=9216), leaves the ragged tail's zero-filled keys unmasked (flash,
-    L=1000), never reads the last frame (tmajor) or the last key (classic
-    short attention), drops a 16-wide chunk of the FFN's inner axis, leaves
+    L=1000), consumes a ring stage before its barrier completes (flash:
+    key tile 3 read as the stale tile 0 of the same stage), skips the last
+    wgmma k-step of S (flash: q's last 16 dims unread), never reads the
+    last frame (tmajor) or the last key (classic short attention), leaves
+    the padded keys T..31 unmasked (tmajor: zero keys with logit 0), leaves
+    the last task of every warp's walk unwritten (classic short attention),
+    drops a 16-wide chunk of the FFN's inner axis, leaves
     one 16-row sub-tile of every block unwritten (ilv FFN), skips the last
     inner chunk, the pipeline's drain (pipe FFN), drops the gate half of b0
     (geglu_ffn), computes the erf gelu instead of the tanh form (tanh FFN,
@@ -362,24 +379,42 @@ def planted_faults() -> list:
 
     def flash_case(length, fault):
         q, k, v = (randn(2, length, 5, 64) for _ in range(3))
+        qf, kf, vf = q, k, v
         if fault == "tile":
             keep = torch.cat([torch.arange(64), torch.arange(128, length)])
             kf, vf = k[:, keep.to(dev)], v[:, keep.to(dev)]
+        elif fault == "stale":              # 3 stages: tile 3 shares tile 0's
+            kf, vf = k.clone(), v.clone()
+            kf[:, 384:512], vf[:, 384:512] = k[:, :128], v[:, :128]
+        elif fault == "kstep":              # S from d < 48 only
+            qf = q.clone()
+            qf[..., 48:] = 0
         else:
             pad = torch.zeros(2, 1024 - length, 5, 64, dtype=bf, device=dev)
             kf, vf = torch.cat([k, pad], 1), torch.cat([v, pad], 1)
         return (lambda: flash_attention(q, k, v),
-                lambda: flash_attention(q, kf, vf))
+                lambda: flash_attention(qf, kf, vf))
 
-    def tmajor_case():
+    def tmajor_case(fault):
         q, k, v = (randn(50, 9216, 320) for _ in range(3))
+        if fault == "last":
+            keys = lambda x: x[..., :24, :]
+        else:                               # frames 25..31: zero keys, unmasked
+            keys = lambda x: torch.cat([x, x.new_zeros(*x.shape[:3], 7, 64)], -2)
         return (lambda: short_attention_tmajor(q, k, v, 25, 5),
-                lambda: tmajor_without_last_frame(q, k, v, 25, 5))
+                lambda: tmajor_faulty(q, k, v, 25, 5, keys))
 
-    def short_case():
+    def short_case(fault):
         q, k, v = (randn(18432, 25, 5, 64) for _ in range(3))
-        return (lambda: short_attention(q, k, v),
-                lambda: attention_plain(q, k[:, :24], v[:, :24]))
+        if fault == "last":
+            return (lambda: short_attention(q, k, v),
+                    lambda: attention_plain(q, k[:, :24], v[:, :24]))
+
+        def unwritten():                    # tasks (b, h), h fastest
+            out = short_attention(q, k, v).transpose(1, 2).reshape(-1, 25, 64)
+            out[-short_walk_warps(64):] = 0
+            return out.reshape(18432, 5, 25, 64).transpose(1, 2)
+        return lambda: short_attention(q, k, v), unwritten
 
     def ffn_case():
         c = 320
@@ -440,10 +475,18 @@ def planted_faults() -> list:
               lambda: flash_case(9216, "tile")),
              ("flash_attention", "B=2 L=1000 H=5 D=64, tail unmasked",
               lambda: flash_case(1000, "tail")),
+             ("flash_attention", "B=2 L=9216 H=5 D=64, stale ring stage",
+              lambda: flash_case(9216, "stale")),
+             ("flash_attention", "B=2 L=9216 H=5 D=64, last S k-step skipped",
+              lambda: flash_case(9216, "kstep")),
              ("short_attention_tmajor", "BT=50 S=9216 HD=320, last frame unread",
-              tmajor_case),
+              lambda: tmajor_case("last")),
+             ("short_attention_tmajor", "BT=50 S=9216 HD=320, pad keys unmasked",
+              lambda: tmajor_case("pad")),
              ("short_attention", "B=18432 L=25 H=5 D=64, last key unread",
-              short_case),
+              lambda: short_case("last")),
+             ("short_attention", "B=18432 L=25 H=5 D=64, walk's last unwritten",
+              lambda: short_case("walk")),
              ("ln_geglu_ffn", "rows=460800 C=320, inner 0-15 dropped",
               ffn_case),
              ("ln_geglu_ffn_ilv", "rows=460800 C=320, rows 16-31 unwritten",
@@ -527,6 +570,29 @@ def phase_kernels() -> dict:
                    lambda: flash_attention(q, k, v), timed and dn == "bf16",
                    library_fn=sdpa(q, k, v) if timed and dn == "bf16" else None,
                    work=(4 * B * H * L * L * D, 4 * nbytes(q), "bf16"))
+    # flash at the main path's own /8 shape, B*T = 50 (7 of its 21 launches
+    # a step): the kernel and SDPA, no plain version
+    q, k, v = (randn(50, 9216, 5, 64, dtype=torch.bfloat16) for _ in range(3))
+    r = results["flash_attention"]
+    with torch.no_grad():
+        r["ms_b50"] = time_ms(lambda: flash_attention(q, k, v))
+        r["library_ms_b50"] = time_ms(sdpa(q, k, v))
+    r["bound_ms_b50"] = bound(4 * 50 * 5 * 9216 ** 2 * 64, 4 * nbytes(q), "bf16")[0]
+    log(f"  {'flash_attention':24s} bf16 {'B=50 L=9216 H=5 D=64 (timing only)':38s} "
+        f"ms {r['ms_b50']:.3f}  library_ms {r['library_ms_b50']:.3f}  bound "
+        f"{r['bound_ms_b50']:.3f} ms (operations)")
+    # and beside SDPA at the trunk's /32 site (the main path's D = 128
+    # shape), at the UNet's /32 site (D = 64, the same short L) and at
+    # D = 128 with a long L: short rows against two consumer warpgroups
+    for B, L, H, D in ((50, 576, 10, 128), (50, 576, 20, 64), (2, 9216, 5, 128)):
+        q, k, v = (randn(B, L, H, D, dtype=torch.bfloat16) for _ in range(3))
+        with torch.no_grad():
+            ms, lib_ms = time_ms(lambda: flash_attention(q, k, v)), time_ms(sdpa(q, k, v))
+        label = f"B={B} L={L} H={H} D={D} (timing only)"
+        log(f"  {'flash_attention':24s} bf16 {label:38s} ms {ms:.3f}  library_ms "
+            f"{lib_ms:.3f}  bound {bound(4 * B * H * L * L * D, 4 * nbytes(q), 'bf16')[0]:.3f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
     # tmajor: T=25, CFG batch 2 -> B*T=50 rows of [S, H*D]
     for S, HD, H, timed in ((9216, 320, 5, True), (2304, 640, 10, False),
                             (576, 1280, 20, False), (144, 1280, 20, False),
@@ -1238,11 +1304,11 @@ def main() -> None:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    extra = ("chain_ms", "ms_b50", "library_ms_b50", "bound_ms_b50")
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],
              **{k: kres[n][k] for k in keys},
-             **({"chain_ms": kres[n]["chain_ms"]} if "chain_ms" in kres[n]
-                else {}))
+             **{k: kres[n][k] for k in extra if k in kres[n]})
         for n in KERNEL_META]}
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {

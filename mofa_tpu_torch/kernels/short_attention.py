@@ -1,23 +1,25 @@
 """Attention over short sequences (L <= 32): the temporal self-attention.
 
-Two kernels of one CUDA body, `csrc/short_attention.cu`: one warp per
-(sequence, head), the L x L logits in registers, an exact max-subtracted
-softmax (the TPU default is a clamped fixed-max softmax). Both are bound
-by device memory (one read of q/k/v, one write); see the source note.
-Forward only.
+Two kernels of one CUDA body, `csrc/short_attention.cu`: each warp walks
+its own (sequence, head) tasks with the next task's bf16 rows in flight
+(16-byte `cp.async`, double buffer), runs QK^T and PV as a 32 x 32 x D
+problem on tensor cores (`mma.sync`, `ldmatrix` fragments) with an exact
+max-subtracted softmax in fp32 (the TPU default is a clamped fixed-max
+softmax), and writes 16-byte rows. fp32 inputs run the same body on three
+bf16 terms of each operand. Both are bound by device memory (one read of
+q/k/v, one write); see the source note. Forward only.
 
 - `short_attention_tmajor`, counterpart of
   mofa_tpu/kernels/short_attention.py::short_attention_tmajor: q/k/v
   arrive as the projections' natural rows [B*T, S, H*D] (the spatial-major
   layout) and attention runs over the frame axis for every (batch,
-  spatial token, head). Replaces the TPU's `_tmajor_kernel`.
+  spatial token, head). Replaces the TPU's `_tmajor_fwd`.
 - `short_attention`, counterpart of ::short_attention: q/k/v [B, L, H, D]
   (the classic temporal layout [B*S, T, H, D]), attention per (sequence,
   head). It is the tmajor layout with S = 1, so the same body serves it.
-  Replaces the TPU's `_short_attn_kernel`, which packs 224 rows under a
+  Replaces the TPU's `_short_attn_fwd`, which packs 224 rows under a
   block-diagonal mask only to fill the MXU.
 """
-
 from __future__ import annotations
 
 import torch
@@ -25,7 +27,7 @@ import torch
 from mofa_tpu_torch.kernels import count_launch, use_kernel
 from mofa_tpu_torch.kernels.flash_attention import attention_plain
 
-MAX_FRAMES = 32                  # one warp: one lane per key
+MAX_FRAMES = 32                  # one 32-row tensor-core tile
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the sites the JAX package sends to its short-sequence kernel
@@ -71,9 +73,24 @@ def tmajor_plain(q2, k2, v2, num_frames: int, heads: int) -> torch.Tensor:
     return out.permute(0, 3, 1, 2, 4).reshape(bt, s, hd)
 
 
+def kernel_operands(q, k, v, length: int, d: int):
+    """q, k, v as the CUDA body takes them, made contiguous; ValueError for
+    what it does not take: L outside 1..MAX_FRAMES, D outside HEAD_DIMS, a
+    dtype other than fp32 / bf16 or not shared by all three, data not
+    16-byte aligned (its 16-byte copies and row writes)."""
+    if (not _kernel_takes(length, d, q.dtype) or k.dtype != q.dtype
+            or v.dtype != q.dtype):
+        raise ValueError(f"short-attention kernel takes L<={MAX_FRAMES}, D in "
+                         f"{HEAD_DIMS}, one dtype of fp32/bf16; got L={length}, "
+                         f"D={d}, {q.dtype}, {k.dtype}, {v.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("short-attention kernel takes 16-byte aligned q/k/v")
+    return q, k, v
+
+
 def _launch(entry: str, q, k, v, *dims: int) -> torch.Tensor:
     from mofa_tpu_torch.kernels._build import launch
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     launch(entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), *dims, _DTYPES[q.dtype])
@@ -88,12 +105,10 @@ def short_attention_tmajor(q2, k2, v2, num_frames: int,
         raise ValueError(f"bad tmajor shapes {tuple(q2.shape)}, T={num_frames}")
     if not use_kernel(q2, k2, v2):
         return tmajor_plain(q2, k2, v2, num_frames, heads)
+    if hd % heads:
+        raise ValueError(f"tmajor kernel: H*D={hd} is not a multiple of H={heads}")
     d = hd // heads
-    if (not tmajor_applicable(num_frames, hd, heads, q2.dtype)
-            or k2.dtype != q2.dtype or v2.dtype != q2.dtype):
-        raise ValueError(f"tmajor kernel takes T<={MAX_FRAMES}, D in "
-                         f"{HEAD_DIMS}, fp32/bf16; got T={num_frames}, "
-                         f"D={hd / heads}, {q2.dtype}")
+    q2, k2, v2 = kernel_operands(q2, k2, v2, num_frames, d)
     out = _launch("mofa_tmajor_attention", q2, k2, v2, bt // num_frames,
                   num_frames, s, heads, d)
     count_launch("short_attention_tmajor")
@@ -110,11 +125,7 @@ def short_attention(q, k, v) -> torch.Tensor:
     if not use_kernel(q, k, v):
         return attention_plain(q, k, v)
     b, length, h, d = q.shape
-    if (not _kernel_takes(length, d, q.dtype) or k.dtype != q.dtype
-            or v.dtype != q.dtype):
-        raise ValueError(f"short-attention kernel takes L<={MAX_FRAMES}, D in "
-                         f"{HEAD_DIMS}, fp32/bf16; got L={length}, D={d}, "
-                         f"{q.dtype}")
+    q, k, v = kernel_operands(q, k, v, length, d)
     out = _launch("mofa_short_attention", q, k, v, b, length, h, d)
     count_launch("short_attention")
     return out

@@ -35,6 +35,7 @@ from mofa_tpu_torch.models.svd_unet import (MICRO_UNET_CONFIG,
 from mofa_tpu_torch.models.transformer_blocks import (
     TransformerSpatioTemporalModel, tmajor_enabled)
 from tests.torch_port_util import jax_unet, sd_np, seeded, template
+from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x):

@@ -23,6 +23,7 @@ from mofa_tpu.kernels.geglu_ffn import geglu_ffn as j_geglu_ffn
 
 from mofa_tpu_torch import kernels
 from mofa_tpu_torch.kernels.geglu_ffn import VARIANTS, geglu_ffn, ln_geglu_ffn
+from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _operands(c, rows, seed):

@@ -30,6 +30,7 @@ from mofa_tpu_torch.kernels.conv_fused import (fused_conv_applicable,
                                                gn_silu_conv3x3, gn_silu_tconv3)
 from mofa_tpu_torch.kernels.group_norm import (channel_sums, fused_group_norm,
                                                group_norm_plain)
+from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _np(x):

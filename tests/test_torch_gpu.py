@@ -85,6 +85,63 @@ def test_kernels_on_card():
                 assert (diff.norm() / ref.norm()).item() <= rms_tol
 
 
+def _assert_like_plain(fn, dt):
+    """fn() through the kernel against fn() inside plain_reference(), with
+    test_kernels_on_card's bounds."""
+    got = fn()
+    with kernels.plain_reference():
+        ref = fn()
+    torch.cuda.synchronize()
+    diff, ref = got.float() - ref.float(), ref.float()
+    assert torch.isfinite(got).all()
+    if dt == torch.float32:
+        assert diff.abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    else:
+        assert diff.abs().max().item() <= 2e-2 * ref.abs().max().item()
+        assert (diff.norm() / ref.norm()).item() <= 1e-2
+
+
+def _card(seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *s: torch.randn(*s, generator=g, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("length", [576, 1000, 2304])
+def test_flash_on_card(length, d, dt):
+    """The wgmma flash kernel (bf16; fp32 its FMA path) at whole and ragged
+    128-key tiles, both head widths, against its plain version."""
+    rn = _card(length + d)
+    q, k, v = (rn(2, length, 3, d).to(dt) for _ in range(3))
+    kernels.reset_launch_counts()
+    _assert_like_plain(lambda: flash_attention(q, k, v), dt)
+    assert kernels.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("slots", [1, 144])
+@pytest.mark.parametrize("frames", [1, 8, 25, 32])
+def test_short_body_on_card(frames, slots, dt):
+    """The tensor-core short-attention body in both layouts: tmajor at S
+    slots (5 heads of 64), and classic at an odd count of sequences (2111 x
+    3 heads of 128: 6333 tasks, more than the walk's warps and not a
+    multiple of them, so the walks end ragged)."""
+    rn = _card(frames * 1000 + slots)
+    q2, k2, v2 = (rn(3 * frames, slots, 5 * 64).to(dt) for _ in range(3))
+    qs, ks, vs = (rn(2111, frames, 3, 128).to(dt) for _ in range(3))
+    kernels.reset_launch_counts()
+    _assert_like_plain(lambda: short_attention_tmajor(q2, k2, v2, frames, 5), dt)
+    _assert_like_plain(lambda: short_attention(qs, ks, vs), dt)
+    counts = kernels.launch_counts()
+    assert counts["short_attention_tmajor"] == counts["short_attention"] == 1
+
+
 @pytest.mark.gpu
 def test_tiny_traj_app_on_card(tmp_path):
     """traj_app on its default device at the micro widths, whose attention

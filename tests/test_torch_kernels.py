@@ -33,6 +33,7 @@ from mofa_tpu_torch.kernels.group_norm import fused_group_norm
 from mofa_tpu_torch.kernels.short_attention import (short_attention,
                                                     short_attention_tmajor)
 from mofa_tpu_torch.kernels.softsplat import softsplat, splat_raw
+from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _np(x):

@@ -38,6 +38,7 @@ from mofa_tpu_torch.models.vae import (TINY_VAE_CONFIG,
 from mofa_tpu_torch.models.weights import state_dict_from_flax
 from tests.torch_port_util import (jax_clip, jax_flow_controlnet, jax_unet,
                                    jax_vae, sd_np, seeded, template)
+from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 CLIP_KW = dict(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
                patch_size=16, image_size=48, projection_dim=32)
@@ -110,7 +111,7 @@ def test_spatio_temporal_res_block_matches_jax():
     params = convert_torch_state_dict(tpl, sd_np(m))
     with torch.no_grad():
         got = m(_t(x.transpose(0, 3, 1, 2)), _t(temb), _t(ind))
-    ref = jm.apply(params, jnp.asarray(x), jnp.asarray(temb), jnp.asarray(ind))
+    ref = jax.jit(jm.apply)(params, x, temb, ind)
     _close(got.permute(0, 2, 3, 1).numpy(), ref)
 
 
@@ -129,7 +130,7 @@ def test_transformer_spatio_temporal_matches_jax(quirk):
     params = convert_torch_state_dict(tpl, sd_np(m))
     with torch.no_grad():
         got = m(_t(x.transpose(0, 3, 1, 2)), _t(ehs), _t(ind))
-    ref = jm.apply(params, jnp.asarray(x), jnp.asarray(ehs), jnp.asarray(ind))
+    ref = jax.jit(jm.apply)(params, x, ehs, ind)
     _close(got.permute(0, 2, 3, 1).numpy(), ref)
 
 
@@ -232,4 +233,4 @@ def test_clip_matches_jax():
     x = np.random.RandomState(5).rand(2, 48, 48, 3).astype(np.float32)
     with torch.no_grad():
         got = clip(_t(x))
-    _close(got.numpy(), jm.apply(jp, jnp.asarray(x)))
+    _close(got.numpy(), jax.jit(jm.apply)(jp, x))

@@ -43,6 +43,7 @@ from mofa_tpu_torch.pipelines.traj import TrajPipeline
 from mofa_tpu_torch.preprocess.traj import DragFlowEngine
 from tests.torch_port_util import (jax_clip, jax_cmp, jax_flow_controlnet,
                                    jax_unet, jax_vae)
+from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, T, STEPS = 64, 128, 4, 2
 CLIP_KW = dict(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
@@ -84,8 +85,22 @@ def _run_port(bundle, inputs, output_type, bug_compat=True):
     return out.numpy()
 
 
+class _OneCompileTraj(JTrajPipeline):
+    """mofa_tpu's TrajPipeline with one jit program for both bug_compat
+    settings: bug_compat only picks the added-time ids, outside the jit
+    program, which takes them as an argument; the stock class keys its
+    jit cache on bug_compat too, and so compiles the same program twice."""
+
+    def __hash__(self):
+        return hash((id(self.bundle), id(self.mesh)))
+
+    def __eq__(self, other):
+        return (isinstance(other, _OneCompileTraj) and other.bundle is self.bundle
+                and other.mesh is self.mesh)
+
+
 def _run_jax(jbundle, inputs, output_type, bug_compat=True):
-    out, _ = JTrajPipeline(jbundle, bug_compat=bug_compat)(
+    out, _ = _OneCompileTraj(jbundle, bug_compat=bug_compat)(
         jnp.asarray(inputs["image01"]), jnp.asarray(inputs["flow"]),
         num_inference_steps=STEPS, noise_aug_strength=0.0, fps=8,
         motion_bucket_id=100, latents=jnp.asarray(inputs["latents"]),

@@ -39,6 +39,7 @@ from mofa_tpu_torch.ops.rasterize import rasterize_trajectories
 from mofa_tpu_torch.ops.trajectory import interpolate_trajectory, pchip_interpolate
 from mofa_tpu_torch.preprocess import traj as p_traj
 from tests.torch_port_util import cmp_template, jax_cmp
+from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 TRACKS = [[[10.0, 12.0], [30.5, 20.25], [52.0, 18.0], [70.0, 40.0]],
           [[100.0, 40.0], [90.0, 30.0]],
@@ -157,7 +158,7 @@ def test_tiny_cmp_matches_flax():
     mask = (rng.rand(2, 64, 96, 2) > 0.9).astype(np.float32)
     with torch.no_grad():
         got = port(*map(torch.from_numpy, (image, sparse, mask))).numpy()
-    ref = np.asarray(JCMP(J_TINY_CMP).apply(params, *map(jnp.asarray, (image, sparse, mask))))
+    ref = np.asarray(jax.jit(JCMP(J_TINY_CMP).apply)(params, image, sparse, mask))
     assert got.shape == ref.shape == (2, 64, 96, 2)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
     logits = rng.randn(3, 5, 7, 2 * 99).astype(np.float32) * 3
