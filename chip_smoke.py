@@ -232,13 +232,15 @@ def upcast(*tensors):
 
 
 def _check(results, name, dtype_name, label, kernel_fn, plain_fn, time_it,
-           ref32_fn=None, library_fn=None, chain_fn=None, work=None):
+           ref32_fn=None, library_fn=None, chain_fn=None, work=None,
+           suffix=""):
     """kernel_fn() against plain_fn() (inside plain_reference()), and for
     a bf16 kernel against ref32_fn(), the plain version on fp32 inputs.
     With time_it: the kernel's, the plain version's, library_fn()'s (one
     PyTorch call computing the same function) and chain_fn()'s (the stock
     chain the port runs instead) times, and the bound of `work` = (ops,
-    bytes, kind)."""
+    bytes, kind); the first timed shape of a kernel fills its row's keys,
+    a shape with a `suffix` fills the same keys with the suffix added."""
     import torch
     from mofa_tpu_torch import kernels
     with torch.no_grad():
@@ -274,10 +276,11 @@ def _check(results, name, dtype_name, label, kernel_fn, plain_fn, time_it,
                                       bound_by=None, ok=True))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["ok"] = r["ok"] and ok
-    if time_it and r["ms"] is None:
-        r.update(times)
-        r["bound_ms"], r["bound_by"] = bound(*work)
-        log(f"  {'':24s}      bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    if time_it and (suffix or r["ms"] is None):
+        r.update({k + suffix: v for k, v in times.items()})
+        b_ms, b_by = bound(*work)
+        r["bound_ms" + suffix], r["bound_by" + suffix] = b_ms, b_by
+        log(f"  {'':24s}      bound {b_ms:.3f} ms ({b_by})")
     del got, ref
     torch.cuda.empty_cache()
 
@@ -348,7 +351,9 @@ def planted_faults() -> list:
     last frame (tmajor) or the last key (classic short attention), leaves
     the padded keys T..31 unmasked (tmajor: zero keys with logit 0), leaves
     the last task of every warp's walk unwritten (classic short attention),
-    drops a 16-wide chunk of the FFN's inner axis, leaves
+    drops a 16-wide chunk of the FFN's inner axis, takes the gate GEMM's
+    g box from the a rows in one N tile (a * gelu(a)), skips the out
+    GEMM's last k-tile (inner columns 4C-64..4C-1), leaves
     one 16-row sub-tile of every block unwritten (ilv FFN), skips the last
     inner chunk, the pipeline's drain (pipe FFN), drops the gate half of b0
     (geglu_ffn), computes the erf gelu instead of the tanh form (tanh FFN,
@@ -427,6 +432,18 @@ def planted_faults() -> list:
         return (lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
                 lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2f, b2))
 
+    def ffn_stage_case(fault):
+        c = 320
+        args = ffn_operands(g, c, 460800, bf)
+        x, ls, lb, w0, b0, w2, b2 = args
+        w0f, w2f = w0.clone(), w2.clone()
+        if fault == "gbox":                 # N tile 0's g box from the a rows
+            w0f[4 * c:4 * c + 128] = w0[:128]
+        else:                               # the out GEMM's last k-tile
+            w2f[:, -64:] = 0
+        return (lambda: ln_geglu_ffn(*args),
+                lambda: ln_geglu_ffn(x, ls, lb, w0f, b0, w2f, b2))
+
     def ffn_variant_case(fault):
         c, rows = 320, 460800
         args = ffn_operands(g, c, rows, bf, tail=fault == "tanh")
@@ -489,6 +506,10 @@ def planted_faults() -> list:
               lambda: short_case("walk")),
              ("ln_geglu_ffn", "rows=460800 C=320, inner 0-15 dropped",
               ffn_case),
+             ("ln_geglu_ffn", "rows=460800 C=320, a*gelu(a) in N tile 0",
+              lambda: ffn_stage_case("gbox")),
+             ("ln_geglu_ffn", "rows=460800 C=320, out GEMM last k-tile",
+              lambda: ffn_stage_case("ktile")),
              ("ln_geglu_ffn_ilv", "rows=460800 C=320, rows 16-31 unwritten",
               lambda: ffn_variant_case("ilv")),
              ("ln_geglu_ffn_pipe", "rows=460800 C=320, drain skipped",
@@ -520,6 +541,39 @@ def planted_faults() -> list:
         del kernel_fn, faulty_fn, got, bad
         torch.cuda.empty_cache()
     return passed
+
+
+# output columns per tile of the out GEMM, both timed by `ffn_stages`
+OUT_TILE_WIDTHS = (160, 320)
+
+
+def ffn_stages(results, g, c: int, rows: int) -> None:
+    """The bf16 FFN route's three stages alone at rows x c: each against
+    its plain version on the same inputs with the bf16 bounds of
+    ln_geglu_ffn (h from the gate GEMM alone, so a fault shows in its
+    stage; the out GEMM at both tile widths), and each one's time, stored
+    as the row's `stage_ms_c<c>`."""
+    import torch
+    from mofa_tpu_torch.kernels.geglu_ffn import (ffn_gemm_gate, ffn_gemm_out,
+                                                  ffn_ln_rows)
+    x, ls, lb, w0, b0, w2, b2 = ffn_operands(g, c, rows, torch.bfloat16)
+    with torch.no_grad():
+        xn = ffn_ln_rows(x, ls, lb)
+        h = ffn_gemm_gate(xn, w0, b0)
+    runs = {"ln": lambda: ffn_ln_rows(x, ls, lb),
+            "gate": lambda: ffn_gemm_gate(xn, w0, b0)}
+    runs.update({f"out{tc}": (lambda tc=tc: ffn_gemm_out(h, w2, b2, x, tile_cols=tc))
+                 for tc in OUT_TILE_WIDTHS})
+    for stage, fn in runs.items():
+        _check(results, "ln_geglu_ffn", "bf16", f"{stage} stage rows={rows} C={c}",
+               fn, fn, False)
+    with torch.no_grad():
+        split = {stage: time_ms(fn) for stage, fn in runs.items()}
+    results["ln_geglu_ffn"][f"stage_ms_c{c}"] = split
+    log(f"  {'ln_geglu_ffn':24s} bf16 stages rows={rows} C={c}: "
+        + "  ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms")
+    del x, xn, h, runs
+    torch.cuda.empty_cache()
 
 
 def phase_kernels() -> dict:
@@ -625,22 +679,34 @@ def phase_kernels() -> dict:
                    if dn == "bf16" else None,
                    library_fn=sdpa(q, k, v) if timed and dn == "bf16" else None,
                    work=(4 * B * H * L * L * 64, 4 * nbytes(q), "bf16"))
-    # ln_geglu_ffn: rows of the /8 (C=320) and /16 (C=640) sites; fp32 on
-    # a row cut (its kernel is the plain-FMA correctness path)
-    # chain: the stock LayerNorm + Linear + gelu gate + Linear + add
-    for C, R, timed in ((320, 460800, True), (640, 115200, False)):
+    # ln_geglu_ffn: rows of the /8 (C=320) and /16 (C=640) sites, both
+    # timed (the C=640 keys end in _c640); fp32 on a row cut (its kernel is
+    # the plain-FMA correctness path); chain: the stock LayerNorm + Linear
+    # + gelu gate + Linear + add
+    for C, R, suffix in ((320, 460800, ""), (640, 115200, "_c640")):
         for dn in ("bf16", "fp32"):
             rows = R if dn == "bf16" else 16384 + 7
             args = ffn_operands(g, C, rows, dts[dn])
             x, ls, lb, w0, b0, w2, b2 = args
-            timed_here = timed and dn == "bf16"
+            timed_here = dn == "bf16"
             _check(results, "ln_geglu_ffn", dn, f"rows={rows} C={C}",
                    lambda: ln_geglu_ffn(*args), lambda: ln_geglu_ffn(*args),
                    timed_here,
                    chain_fn=(lambda: ffn_chain(x, (ls, lb), *args[3:]))
                    if timed_here else None,
                    work=(24 * rows * C * C, 2 * nbytes(x) + nbytes(w0, w2),
-                         "bf16"))
+                         "bf16"), suffix=suffix)
+        del args, x, w0, w2
+        ffn_stages(results, g, C, R)
+    # the bf16 route at a ragged row count (a partial last row tile)
+    for C in (320, 640):
+        args = ffn_operands(g, C, 4096 + 7, torch.bfloat16)
+        for name, run in (("ln_geglu_ffn", lambda a: ln_geglu_ffn(*a)),
+                          ("ln_geglu_ffn_tanh", lambda a: ln_geglu_ffn(*a, variant="tanh")),
+                          ("geglu_ffn", lambda a: geglu_ffn(a[0], *a[3:]))):
+            _check(results, name, "bf16", f"rows={4096 + 7} C={C}",
+                   lambda: run(args), lambda: run(args), False,
+                   ref32_fn=lambda: run(upcast(*args)))
     # the other FFN kernels, bf16 only (entry points: no model calls them),
     # at the same shapes, also against the plain version in fp32 on the
     # upcast inputs; tanh also at gate inputs in the negative tail, where
@@ -1304,7 +1370,9 @@ def main() -> None:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("chain_ms", "ms_b50", "library_ms_b50", "bound_ms_b50")
+    extra = ("chain_ms", "ms_b50", "library_ms_b50", "bound_ms_b50", "ms_c640",
+             "plain_ms_c640", "chain_ms_c640", "bound_ms_c640", "bound_by_c640",
+             "stage_ms_c320", "stage_ms_c640")
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],
              **{k: kres[n][k] for k in keys},

@@ -126,6 +126,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
 }
+// TMA: the box of a 2-D tensor map at coordinates (c0 innermost, c1) into
+// shared memory at `dst`; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
 // wgmma shared-memory matrix descriptor, 128-byte swizzle (the layout TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B); byte offsets, 16-byte units
 __device__ __forceinline__ uint64_t gmma_desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {

@@ -8,26 +8,58 @@
 // (:344, "ilv"), `_ln_ffn_kernel_pipe` (:363, "pipe") and `_ffn_kernel`
 // (:93, `geglu_ffn`). The TPU kernels hold both weight matrices and the
 // whole [rows, 8C] intermediate in VMEM; a Hopper block has 227 KB of
-// shared memory, and W0 alone is 6.5 MB at C=640, so here a block puts a
-// 64-row tile (normalised, or as it is for geglu_ffn) into shared memory
-// once and then walks the 4C inner axis in chunks (32 wide at C=320, 16 at
-// C=640): the chunk's W0 rows (a and g) and W2 columns are double-buffered
-// in shared memory with `cp.async` (streamed from L2, where both matrices
-// stay resident), GEMM1 makes the chunk's [a | g] in registers, the gelu
-// gate runs there in fp32 (erff; the TPU's polynomial exists only because
-// Mosaic has no erf), and GEMM2 adds into fp32 accumulators held in
-// registers for the block's whole [64, C] output, added to the bias (and
-// the residual) at the end. The [rows, 8C] intermediate never reaches
-// device memory.
+// shared memory, and W0 alone is 6.5 MB at C=640.
 //
-// bf16 (the main path): `mma.sync.m16n8k16` tensor cores fed by
-// `ldmatrix`, bf16 in, fp32 accumulate; 8 warps, two per 16-row tile, each
-// owning half of the output columns and half of each chunk's gate columns.
-// Bound: tensor-core issue and the L2 reads of the weight tiles (each
-// 64-row block reads all of W0 and W2 once: 64 FLOP per byte). Schedules:
-// - plain / tanh / geglu_ffn (`ffn_bf16_kernel`): per chunk, GEMM1 -> gate
-//   -> GEMM2, three block barriers. The LN stage, the residual and the
-//   tanh gate are compile-time flags of the one kernel.
+// bf16 plain / tanh / geglu_ffn (the main path): three kernels in turn.
+// Bound: operations, 24 M C^2 (two products of 2 M C 8C and 2 M 4C C),
+// 1.145 ms at both main-path shapes (M = 460,800 at C = 320, 115,200 at
+// C = 640) against 989 TFLOP/s.
+// - `ffn_ln_rows`: xn = LN(x) as bf16, one warp per row, 16-byte loads
+//   (skipped by geglu_ffn: the gate GEMM reads x itself).
+// - `ffn_gemm_gate`: h = gate(xn W0^T + b0), [M, 4C] bf16. A block tile is
+//   128 rows (two consumer warpgroups of 64) x 128 gate columns; a
+//   producer warpgroup (its registers handed to the consumers with
+//   `setmaxnreg`) issues the TMA copies into a ring of shared-memory
+//   stages, each holding a k-tile of 64: the xn rows, W0 rows
+//   [n0, n0 + 128) (a) and W0 rows [4C + n0, 4C + n0 + 128) (g), all three
+//   boxes 128-byte swizzled. The a and g boxes lie back to back, so one
+//   `wgmma.m64n256k16` per k16 makes both halves, and a_j and g_j land in
+//   the same thread at accumulator offsets j and 64 + j: the epilogue adds
+//   b0, applies the gate in fp32 (erff, or tanhf for "tanh") and stores
+//   bf16 pairs, masking rows past M.
+// - `ffn_gemm_out`: out = h W2^T + b2 (+ x), the same mainloop with h as
+//   the A operand and W2 rows as B: a tile is 128 rows x TN output columns
+//   (TN = 160 or 320, one or two `wgmma.m64n160k16` per k16); the
+//   epilogue adds b2 and the residual in fp32 and rounds once.
+// Both GEMMs are persistent (one block per SM walks the tiles, N
+// fastest, so a row tile's A operand is re-read from L2, not HBM, and the
+// weights stay resident in L2); the producer runs ahead into the next
+// tile's k-tiles while the consumers run the epilogue. TMA zero-fills the
+// rows past M. The rounding points are the TPU kernel's: LN rounded to
+// bf16, fp32 accumulation plus bias, the gate in fp32 rounded to bf16,
+// fp32 accumulation plus bias plus residual rounded once. So h in device
+// memory changes no result; its round trip costs 2 M 4C 2 bytes each way,
+// 2.36 GB at C = 320 (0.70 ms at 3.35 TB/s) and half that at C = 640.
+// Why not one fused kernel: a `wgmma` warpgroup owns 64 rows, and holding
+// the fused kernel's whole [64, C] fp32 output accumulator takes 64 C / 128
+// registers a thread, 320 at C = 640, over the 255 limit; splitting the
+// output columns across warpgroups that share each gate chunk through
+// shared memory would need a schedule of its own. PR 3's fused `mma.sync`
+// kernel read all of W0 and W2 from L2 for every 64 rows and lost to the
+// stock cuBLAS chain at both widths.
+//
+// ilv / pipe (entry points only): PR 3's fused schedules on
+// `mma.sync.m16n8k16` fed by `ldmatrix`: a block puts a 64-row tile
+// (normalised) into shared memory once and walks the 4C inner axis in
+// chunks (32 wide at C=320, 16 at C=640): the chunk's W0 rows (a and g)
+// and W2 columns are double-buffered in shared memory with `cp.async`
+// (streamed from L2), GEMM1 makes the chunk's [a | g] in registers, the
+// gate runs there in fp32, and GEMM2 adds into fp32 accumulators held in
+// registers for the block's whole [64, C] output; the [rows, 8C]
+// intermediate never reaches device memory. 8 warps, two per 16-row tile,
+// each owning half of the output columns and half of each chunk's gate
+// columns. Bound: tensor-core issue and the L2 reads of the weight tiles
+// (each 64-row block reads all of W0 and W2: 64 FLOP per byte).
 // - pipe (`ffn_pipe_kernel`): a two-stage software pipeline over the inner
 //   axis. GEMM1 of chunk k+1 is issued before the gate and GEMM2 of chunk
 //   k, so two chunks' [a | g] fragments are live in registers and the
@@ -44,9 +76,11 @@
 //   cp.asyncs landed; empty: all eight consumer warps are done with the
 //   stage). The groups drift out of phase, so one group's erf gate overlaps
 //   another's tensor-core GEMMs: what the TPU's sub-block split was for.
-// fp32 (composition checks, tests; plain variant only): the same chunked
+// fp32 (composition checks, tests; plain variant only): the chunked
 // schedule in plain FMA, 16 rows per block, exact fp32.
-#include "common.cuh"
+#include <algorithm>
+
+#include "hopper.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -95,21 +129,6 @@ __device__ __forceinline__ void layer_norm_rows(TD* dst, int ldx, const T* __res
     const float rstd = rsqrtf(var + LN_EPS);
     for (int c = lane; c < C; c += 32)
       dst[r * ldx + c] = mofa::from_f32<TD>((mofa::to_f32(xr[c]) - mean) * rstd * ls[c] + lb[c]);
-  }
-}
-
-// Rows [row0, row0 + nrows) of bf16 x copied into dst (pitch ldx), zero past R.
-template <int C>
-__device__ __forceinline__ void copy_rows(bf16* dst, int ldx, const bf16* __restrict__ x,
-                                          long long row0, int nrows, long long R, int warp,
-                                          int nwarps, int lane) {
-  for (int r = warp; r < nrows; r += nwarps) {
-    const long long row = row0 + r;
-    for (int c = lane * 8; c < C; c += 256) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < R) v = *reinterpret_cast<const uint4*>(x + row * C + c);
-      *reinterpret_cast<uint4*>(dst + r * ldx + c) = v;
-    }
   }
 }
 
@@ -272,59 +291,6 @@ __device__ __forceinline__ void store_out(const float (&acc)[BfLayout<C>::NC / 8
       }
     }
   }
-}
-
-// plain / tanh (LN, RESID) and geglu_ffn (neither): GEMM1 -> gate -> GEMM2
-// per chunk, the whole block in step
-template <int C, bool LN, bool RESID, bool TANH>
-__global__ void __launch_bounds__(BfLayout<C>::NW * 32, 1) ffn_bf16_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ ls, const float* __restrict__ lb,
-    const bf16* __restrict__ w0, const bf16* __restrict__ b0, const bf16* __restrict__ w2,
-    const bf16* __restrict__ b2, bf16* __restrict__ out, long long R) {
-  using Lt = BfLayout<C>;
-  constexpr int BR = Lt::BR, KC = Lt::KC, NW = Lt::NW, NT = NW * 32, NCH = Lt::NCH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);        // [BR][LDX]: LN(x) or x
-  bf16* W0s = Xs + BR * Lt::LDX;                    // 2 x [2KC][LDX]: a rows, g rows
-  bf16* W2s = W0s + 2 * Lt::W0T;                    // 2 x [C][LDA]: W2[:, chunk]
-  bf16* As = W2s + 2 * Lt::W2T;                     // [BR][LDA]: the gate
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rt = warp / Lt::CG, cg = warp % Lt::CG;  // row tile, column group
-  const long long row0 = (long long)blockIdx.x * BR;
-  auto stage = [&](int buf, int j0) {
-    stage_w0<C>(W0s + buf * Lt::W0T, w0, j0, tid, NT);
-    stage_w2<C>(W2s + buf * Lt::W2T, w2, j0, tid, NT);
-    mofa::cp_async_commit();
-  };
-
-  stage(0, 0);
-  if constexpr (LN)
-    layer_norm_rows<bf16, bf16, C>(Xs, Lt::LDX, x, ls, lb, row0, BR, R, warp, NW, lane);
-  else
-    copy_rows<C>(Xs, Lt::LDX, x, row0, BR, R, warp, NW, lane);
-
-  float acc[Lt::NC / 8][4];                         // out tile 16 x NC, fp32
-  zero_acc<C>(acc);
-  const bf16* Xw = Xs + rt * 16 * Lt::LDX;
-  bf16* Aw = As + rt * 16 * Lt::LDA;
-  for (int ch = 0; ch < NCH; ++ch) {
-    const int buf = ch & 1;
-    if (ch + 1 < NCH) {
-      stage(buf ^ 1, (ch + 1) * KC);
-      mofa::cp_async_wait<1>();
-    } else {
-      mofa::cp_async_wait<0>();
-    }
-    __syncthreads();
-    float ha[Lt::KW / 8][4], hg[Lt::KW / 8][4];
-    gemm1<C>(ha, hg, Xw, W0s + buf * Lt::W0T, cg, lane);
-    gate_store<C, TANH>(ha, hg, b0, ch * KC, Aw, cg, lane);
-    __syncthreads();
-    gemm2<C>(acc, Aw, W2s + buf * Lt::W2T, cg, lane);
-    __syncthreads();                                // buffers are refilled next
-  }
-  store_out<C, RESID>(acc, b2, x, out, row0 + rt * 16, R, cg, lane);
 }
 
 // variant "pipe": GEMM1 of chunk k+1 before the gate and GEMM2 of chunk k.
@@ -524,10 +490,245 @@ __global__ void __launch_bounds__(F32_NT) ffn_f32_kernel(
   }
 }
 
+// ---- the bf16 route of plain / tanh / geglu_ffn: LN pass, two wgmma GEMMs
+
+// xn = LN(x) in bf16, one warp per row: fp32 statistics (E[x^2] - mean^2),
+// scale and shift in fp32, one rounding
+template <int C>
+__global__ void __launch_bounds__(256) ffn_ln_rows_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ ls, const float* __restrict__ lb,
+    bf16* __restrict__ xn, long long R) {
+  constexpr int V = C / 8;                          // 16-byte vectors a row
+  constexpr int PER = (V + 31) / 32;                // vectors a lane
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= R) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * C);
+  uint4 v[PER];
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane + 32 * i;
+    if (c < V) {
+      v[i] = xr[c];
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        s1 += f.x + f.y;
+        s2 += f.x * f.x + f.y * f.y;
+      }
+    }
+  }
+  s1 = mofa::warp_sum(s1);
+  s2 = mofa::warp_sum(s2);
+  const float mean = s1 / C;
+  const float var = fmaxf(s2 / C - mean * mean, 0.0f);
+  const float rstd = rsqrtf(var + LN_EPS);
+  uint4* yr = reinterpret_cast<uint4*>(xn + row * C);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane + 32 * i;
+    if (c < V) {
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
+      const float4* sc = reinterpret_cast<const float4*>(ls) + 2 * c;
+      const float4* sh = reinterpret_cast<const float4*>(lb) + 2 * c;
+      const float4 s0 = sc[0], s1v = sc[1], h0 = sh[0], h1 = sh[1];
+      const float scale[8] = {s0.x, s0.y, s0.z, s0.w, s1v.x, s1v.y, s1v.z, s1v.w};
+      const float shift[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+      uint4 o;
+      __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        q[e] = __floats2bfloat162_rn((f.x - mean) * rstd * scale[2 * e] + shift[2 * e],
+                                     (f.y - mean) * rstd * scale[2 * e + 1] + shift[2 * e + 1]);
+      }
+      yr[c] = o;
+    }
+  }
+}
+
+constexpr int GEMM_BM = 128;        // rows per tile: two consumer warpgroups of 64
+constexpr int KTILE = 64;           // k per ring stage: one 128-byte swizzled row
+constexpr int GEMM_THREADS = 384;   // two consumer warpgroups, one producer
+constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
+
+// The two products as one TN GEMM (A [M, K] and B [N, K], both K-major):
+// GATE: A = xn [M, C], B = W0 [8C, C], a tile of 128 gate columns (two B
+// boxes of 128 rows: a and g); otherwise A = h [M, 4C], B = W2 [C, 4C], a
+// tile of TN output columns (TN / 160 B boxes of 160 rows).
+template <int C, bool GATE, int TN>
+struct GemmCfg {
+  static constexpr int K = GATE ? C : 4 * C;
+  static constexpr int KT = K / KTILE;
+  static constexpr int N = GATE ? 4 * C : C;             // output columns
+  static constexpr int N_TILES = N / TN;
+  static constexpr int BOX_ROWS = GATE ? 128 : 160;      // B rows per box
+  static constexpr int NBOX = GATE ? 2 : TN / 160;
+  static constexpr int A_BYTES = GEMM_BM * 128;
+  static constexpr int BOX_BYTES = BOX_ROWS * 128;
+  static constexpr int STAGE_BYTES = A_BYTES + NBOX * BOX_BYTES;
+  static constexpr int STAGES_FIT = (SMEM_LIMIT - 1024 - 256) / STAGE_BYTES;
+  static constexpr int STAGES = STAGES_FIT < 6 ? STAGES_FIT : 6;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;   // + 1024-byte alignment
+  static constexpr int ACC = GATE ? 128 : NBOX * 80;     // fp32 accumulators a thread
+  static_assert(K % KTILE == 0 && N % TN == 0, "whole k-tiles and column tiles");
+  static_assert(GATE ? TN == 128 : TN % 160 == 0, "tile widths the epilogues take");
+  static_assert(STAGES >= 2, "a ring");
+};
+
+template <int C, bool GATE, int TN, bool TANH, bool RESID>
+__global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+    const bf16* __restrict__ bias, const bf16* __restrict__ resid, bf16* __restrict__ out,
+    int M) {
+  using G = GemmCfg<C, GATE, TN>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * G::STAGES];
+  // swizzled tiles start on 1024-byte boundaries (the 8-row swizzle atom)
+  const uint32_t base = (mofa::smem_addr(smem_raw) + 1023) & ~1023u;
+  auto sa = [&](int s) { return base + s * G::STAGE_BYTES; };
+  auto sb = [&](int s) { return base + s * G::STAGE_BYTES + G::A_BYTES; };
+  auto full = [&](int s) { return mofa::smem_addr(&bars[s]); };
+  auto empty = [&](int s) { return mofa::smem_addr(&bars[G::STAGES + s]); };
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int tiles = (M + GEMM_BM - 1) / GEMM_BM * G::N_TILES;
+  if (tid == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      mofa::mbar_init(full(s), 1);
+      mofa::mbar_init(empty(s), 8);                 // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy, running ahead of the
+    // consumers by up to STAGES k-tiles, across tiles
+    mofa::setmaxnreg_dec<24>();
+    if (tid == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / G::N_TILES * GEMM_BM, n0 = tile % G::N_TILES * TN;
+        for (int kt = 0; kt < G::KT; ++kt, ++it) {
+          const int s = it % G::STAGES, round = it / G::STAGES;
+          if (round > 0) mofa::mbar_wait(empty(s), (round - 1) & 1);
+          mofa::mbar_arrive_expect_tx(full(s), G::STAGE_BYTES);
+          mofa::tma_load_2d(sa(s), &ta, full(s), kt * KTILE, m0);
+#pragma unroll
+          for (int b = 0; b < G::NBOX; ++b)
+            mofa::tma_load_2d(sb(s) + b * G::BOX_BYTES, &tb, full(s), kt * KTILE,
+                              GATE ? n0 + b * 4 * C : n0 + b * G::BOX_ROWS);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 rows of the tile each
+  mofa::setmaxnreg_inc<240>();
+  const int warp = (tid % 128) / 32, lane = tid % 32, t = lane & 3;
+  float acc[G::ACC];
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < G::ACC; ++i) mofa::fence_operand(acc[i]);
+  };
+  auto release = [&](int it) {                      // k-tile it's stage may be refilled
+    __syncwarp();
+    if (lane == 0) mofa::mbar_arrive(empty(it % G::STAGES));
+  };
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / G::N_TILES * GEMM_BM, n0 = tile % G::N_TILES * TN;
+    for (int kt = 0; kt < G::KT; ++kt, ++it) {
+      const int s = it % G::STAGES;
+      mofa::mbar_wait(full(s), (it / G::STAGES) & 1);
+      const uint32_t a = sa(s) + wg * 64 * 128;
+      fence_acc();
+      mofa::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KTILE / 16; ++kk) {     // a k16 step is 32 bytes of the row
+        const uint64_t da = mofa::gmma_desc_sw128(a + kk * 32, 16, 1024);
+        const int accumulate = kt > 0 || kk > 0;
+        if constexpr (GATE) {
+          mofa::wgmma_m64n256k16_ss(acc, da, mofa::gmma_desc_sw128(sb(s) + kk * 32, 16, 1024),
+                                    accumulate);
+        } else {
+#pragma unroll
+          for (int b = 0; b < G::NBOX; ++b)
+            mofa::wgmma_m64n160k16_ss(
+                acc + 80 * b, da,
+                mofa::gmma_desc_sw128(sb(s) + b * G::BOX_BYTES + kk * 32, 16, 1024), accumulate);
+        }
+      }
+      mofa::wgmma_commit();
+      fence_acc();
+      if (kt > 0) {
+        mofa::wgmma_wait<1>();                      // k-tile kt - 1 is done with its stage
+        release(it - 1);
+      }
+    }
+    mofa::wgmma_wait<0>();
+    fence_acc();
+    release(it - 1);
+
+    // ---- epilogue: fragment (warp, lane) holds rows r0 and r0 + 8 of
+    // every n8 block j at columns 8j + 2t, 8j + 2t + 1
+    const int r0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+    if constexpr (GATE) {
+      bf16* hrow = out + (long long)r0 * (4 * C);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float2 ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        const float2 bg =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + 4 * C + col));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (r0 + 8 * hh < M)
+            *reinterpret_cast<__nv_bfloat162*>(hrow + hh * 8 * (4 * C) + col) =
+                __floats2bfloat162_rn(
+                    gelu_gate<TANH>(acc[4 * j + 2 * hh] + ba.x, acc[64 + 4 * j + 2 * hh] + bg.x),
+                    gelu_gate<TANH>(acc[4 * j + 2 * hh + 1] + ba.y,
+                                    acc[64 + 4 * j + 2 * hh + 1] + bg.y));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < G::NBOX; ++b)
+#pragma unroll
+        for (int j = 0; j < 20; ++j) {
+          const int col = n0 + 160 * b + 8 * j + 2 * t;
+          const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const long long row = r0 + 8 * hh;
+            if (row < M) {
+              float v0 = acc[80 * b + 4 * j + 2 * hh] + bb.x;
+              float v1 = acc[80 * b + 4 * j + 2 * hh + 1] + bb.y;
+              if constexpr (RESID) {
+                const float2 xr =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resid + row * C + col));
+                v0 += xr.x;
+                v1 += xr.y;
+              }
+              *reinterpret_cast<__nv_bfloat162*>(out + row * C + col) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
+    }
+  }
+}
+
+// ---- host: launches
+
 template <typename Kernel>
-int launch_bf16(Kernel kernel, int threads, size_t bytes, const void* x, const void* ls,
-                const void* lb, const void* w0, const void* b0, const void* w2, const void* b2,
-                void* out, long long R, cudaStream_t st) {
+int launch_fused(Kernel kernel, int threads, size_t bytes, const void* x, const void* ls,
+                 const void* lb, const void* w0, const void* b0, const void* w2,
+                 const void* b2, void* out, long long R, cudaStream_t st) {
   if (R <= 0) return (int)cudaGetLastError();
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   const long long blocks = (R + 63) / 64;           // BfLayout::BR rows per block
@@ -537,37 +738,23 @@ int launch_bf16(Kernel kernel, int threads, size_t bytes, const void* x, const v
   return (int)cudaGetLastError();
 }
 
-enum Variant { kPlain, kTanh, kGeglu, kPipe, kIlv };
+enum Variant { kPipe, kIlv };
 
 template <int C>
 int launch_variant(Variant v, const void* x, const void* ls, const void* lb, const void* w0,
                    const void* b0, const void* w2, const void* b2, void* out, long long R,
                    cudaStream_t st) {
   using Lt = BfLayout<C>;
-  constexpr int NT = Lt::NW * 32;
-  switch (v) {
-    case kPlain:
-      return launch_bf16(ffn_bf16_kernel<C, true, true, false>, NT, Lt::bytes, x, ls, lb, w0,
-                         b0, w2, b2, out, R, st);
-    case kTanh:
-      return launch_bf16(ffn_bf16_kernel<C, true, true, true>, NT, Lt::bytes, x, ls, lb, w0, b0,
-                         w2, b2, out, R, st);
-    case kGeglu:
-      return launch_bf16(ffn_bf16_kernel<C, false, false, false>, NT, Lt::bytes, x, ls, lb, w0,
-                         b0, w2, b2, out, R, st);
-    case kPipe:
-      return launch_bf16(ffn_pipe_kernel<C>, NT, Lt::bytes, x, ls, lb, w0, b0, w2, b2, out, R,
-                         st);
-    case kIlv:
-      return launch_bf16(ffn_ilv_kernel<C>, IlvLayout<C>::NT, IlvLayout<C>::bytes, x, ls, lb,
-                         w0, b0, w2, b2, out, R, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (v == kPipe)
+    return launch_fused(ffn_pipe_kernel<C>, Lt::NW * 32, Lt::bytes, x, ls, lb, w0, b0, w2, b2,
+                        out, R, st);
+  return launch_fused(ffn_ilv_kernel<C>, IlvLayout<C>::NT, IlvLayout<C>::bytes, x, ls, lb, w0,
+                      b0, w2, b2, out, R, st);
 }
 
-int launch_bf16_variant(Variant v, const void* x, const void* ls, const void* lb,
-                        const void* w0, const void* b0, const void* w2, const void* b2,
-                        void* out, int R, int C, void* stream) {
+int launch_fused_variant(Variant v, const void* x, const void* ls, const void* lb,
+                         const void* w0, const void* b0, const void* w2, const void* b2,
+                         void* out, int R, int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (C == 320) return launch_variant<320>(v, x, ls, lb, w0, b0, w2, b2, out, R, st);
   if (C == 640) return launch_variant<640>(v, x, ls, lb, w0, b0, w2, b2, out, R, st);
@@ -575,8 +762,80 @@ int launch_bf16_variant(Variant v, const void* x, const void* ls, const void* lb
 }
 
 template <int C>
+int launch_ln_rows(const void* x, const void* ls, const void* lb, void* xn, int R,
+                   cudaStream_t st) {
+  if (R <= 0) return (int)cudaGetLastError();
+  ffn_ln_rows_kernel<C><<<(R + 7) / 8, 256, 0, st>>>((const bf16*)x, (const float*)ls,
+                                                     (const float*)lb, (bf16*)xn, R);
+  return (int)cudaGetLastError();
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// one GEMM: A [M, K] and B [N, K] bf16 as 2-D tensor maps, a persistent
+// grid of at most one block per SM
+template <int C, bool GATE, int TN, bool TANH, bool RESID>
+int launch_gemm(const void* a, const void* b, const void* bias, const void* resid, void* out,
+                int M, cudaStream_t st) {
+  using G = GemmCfg<C, GATE, TN>;
+  if (M <= 0) return (int)cudaGetLastError();
+  CUtensorMap ta, tb;
+  if (!mofa::bf16_rows_map(&ta, a, M, G::K, GEMM_BM) ||
+      !mofa::bf16_rows_map(&tb, b, GATE ? 8 * C : C, G::K, G::BOX_ROWS))
+    return (int)cudaErrorNotSupported;
+  auto kernel = ffn_gemm_kernel<C, GATE, TN, TANH, RESID>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  const int tiles = (M + GEMM_BM - 1) / GEMM_BM * G::N_TILES;
+  kernel<<<std::min(tiles, sm_count()), GEMM_THREADS, G::SMEM, st>>>(
+      ta, tb, (const bf16*)bias, (const bf16*)resid, (bf16*)out, M);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_gate(const void* xn, const void* w0, const void* b0, void* h, int R, int gelu,
+                cudaStream_t st) {
+  if (gelu == 0) return launch_gemm<C, true, 128, false, false>(xn, w0, b0, nullptr, h, R, st);
+  if (gelu == 1) return launch_gemm<C, true, 128, true, false>(xn, w0, b0, nullptr, h, R, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int C, int TN>
+int launch_out_tn(const void* h, const void* w2, const void* b2, const void* resid, void* out,
+                  int R, cudaStream_t st) {
+  if (resid != nullptr)
+    return launch_gemm<C, false, TN, false, true>(h, w2, b2, resid, out, R, st);
+  return launch_gemm<C, false, TN, false, false>(h, w2, b2, nullptr, out, R, st);
+}
+
+template <int C>
+int launch_out(const void* h, const void* w2, const void* b2, const void* resid, void* out,
+               int R, int tile_cols, cudaStream_t st) {
+  if (tile_cols == 160) return launch_out_tn<C, 160>(h, w2, b2, resid, out, R, st);
+  if (tile_cols == 320) return launch_out_tn<C, 320>(h, w2, b2, resid, out, R, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the three stages in turn; ls == nullptr: geglu_ffn (no LN, no residual)
+template <int C>
+int launch_ffn(const void* x, const void* ls, const void* lb, const void* w0, const void* b0,
+               const void* w2, const void* b2, void* xn, void* h, void* out, int R, int gelu,
+               int tile_cols, cudaStream_t st) {
+  const bool ln = ls != nullptr;
+  int err = ln ? launch_ln_rows<C>(x, ls, lb, xn, R, st) : 0;
+  if (err == 0) err = launch_gate<C>(ln ? xn : x, w0, b0, h, R, gelu, st);
+  if (err == 0) err = launch_out<C>(h, w2, b2, ln ? x : nullptr, out, R, tile_cols, st);
+  return err;
+}
+
+template <int C>
 int launch_f32(const void* x, const void* ls, const void* lb, const void* w0, const void* b0,
                const void* w2, const void* b2, void* out, long long R, cudaStream_t st) {
+  if (R <= 0) return (int)cudaGetLastError();
   const long long blocks = (R + F32_BR - 1) / F32_BR;
   ffn_f32_kernel<C><<<(unsigned)blocks, F32_NT, 0, st>>>(
       (const float*)x, (const float*)ls, (const float*)lb, (const float*)w0,
@@ -586,43 +845,77 @@ int launch_f32(const void* x, const void* ls, const void* lb, const void* w0, co
 
 }  // namespace
 
-// x/out [R, C]; ls/lb [C] fp32; w0 [8C, C], b0 [8C], w2 [C, 4C], b2 [C] in x's
-// dtype; all contiguous and 32-byte aligned. C in {320, 640}; dtype 0 = fp32,
-// 1 = bf16.
+// Arguments of every entry: x/out [R, C]; ls/lb [C] fp32; w0 [8C, C], b0
+// [8C], w2 [C, 4C], b2 [C] in x's dtype; scratch xn [R, C] and h [R, 4C]
+// in x's dtype (bf16 only); all contiguous and 32-byte aligned. C in
+// {320, 640}; dtype 0 = fp32, 1 = bf16; gelu 0 = erf, 1 = tanh (bf16
+// only); tile_cols: output columns per tile of the out GEMM, 160 or 320.
 extern "C" int mofa_ln_geglu_ffn(const void* x, const void* ls, const void* lb,
                                  const void* w0, const void* b0, const void* w2,
-                                 const void* b2, void* out, int R, int C, int dtype,
-                                 void* stream) {
-  if (dtype == mofa::kBF16)
-    return launch_bf16_variant(kPlain, x, ls, lb, w0, b0, w2, b2, out, R, C, stream);
-  if (dtype == mofa::kF32) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (R <= 0) return (int)cudaGetLastError();
+                                 const void* b2, void* xn, void* h, void* out, int R, int C,
+                                 int dtype, int gelu, int tile_cols, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ls == nullptr || lb == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == mofa::kBF16) {
+    if (C == 320)
+      return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, tile_cols, st);
+    if (C == 640)
+      return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, tile_cols, st);
+  } else if (dtype == mofa::kF32 && gelu == 0) {
     if (C == 320) return launch_f32<320>(x, ls, lb, w0, b0, w2, b2, out, R, st);
     if (C == 640) return launch_f32<640>(x, ls, lb, w0, b0, w2, b2, out, R, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The variants, bf16 only, arguments as mofa_ln_geglu_ffn without dtype.
-extern "C" int mofa_ln_geglu_ffn_tanh(const void* x, const void* ls, const void* lb,
-                                      const void* w0, const void* b0, const void* w2,
-                                      const void* b2, void* out, int R, int C, void* stream) {
-  return launch_bf16_variant(kTanh, x, ls, lb, w0, b0, w2, b2, out, R, C, stream);
+// geglu_ffn: out = GEGLU-FF(x), no LayerNorm, no residual; bf16 only.
+extern "C" int mofa_geglu_ffn(const void* x, const void* w0, const void* b0, const void* w2,
+                              const void* b2, void* h, void* out, int R, int C, int tile_cols,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 320)
+    return launch_ffn<320>(x, nullptr, nullptr, w0, b0, w2, b2, nullptr, h, out, R, 0,
+                           tile_cols, st);
+  if (C == 640)
+    return launch_ffn<640>(x, nullptr, nullptr, w0, b0, w2, b2, nullptr, h, out, R, 0,
+                           tile_cols, st);
+  return (int)cudaErrorInvalidValue;
 }
+
+// The stages one at a time (bf16): xn = LN(x); h = gate(xn W0^T + b0);
+// out = h W2^T + b2 (+ resid, which may be null).
+extern "C" int mofa_ffn_ln_rows(const void* x, const void* ls, const void* lb, void* xn, int R,
+                                int C, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 320) return launch_ln_rows<320>(x, ls, lb, xn, R, st);
+  if (C == 640) return launch_ln_rows<640>(x, ls, lb, xn, R, st);
+  return (int)cudaErrorInvalidValue;
+}
+extern "C" int mofa_ffn_gemm_gate(const void* xn, const void* w0, const void* b0, void* h, int R,
+                                  int C, int gelu, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 320) return launch_gate<320>(xn, w0, b0, h, R, gelu, st);
+  if (C == 640) return launch_gate<640>(xn, w0, b0, h, R, gelu, st);
+  return (int)cudaErrorInvalidValue;
+}
+extern "C" int mofa_ffn_gemm_out(const void* h, const void* w2, const void* b2,
+                                 const void* resid, void* out, int R, int C, int tile_cols,
+                                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 320) return launch_out<320>(h, w2, b2, resid, out, R, tile_cols, st);
+  if (C == 640) return launch_out<640>(h, w2, b2, resid, out, R, tile_cols, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fused schedules, bf16 only, arguments as mofa_ln_geglu_ffn without
+// the scratch, dtype, gelu and tile_cols.
 extern "C" int mofa_ln_geglu_ffn_pipe(const void* x, const void* ls, const void* lb,
                                       const void* w0, const void* b0, const void* w2,
                                       const void* b2, void* out, int R, int C, void* stream) {
-  return launch_bf16_variant(kPipe, x, ls, lb, w0, b0, w2, b2, out, R, C, stream);
+  return launch_fused_variant(kPipe, x, ls, lb, w0, b0, w2, b2, out, R, C, stream);
 }
 extern "C" int mofa_ln_geglu_ffn_ilv(const void* x, const void* ls, const void* lb,
                                      const void* w0, const void* b0, const void* w2,
                                      const void* b2, void* out, int R, int C, void* stream) {
-  return launch_bf16_variant(kIlv, x, ls, lb, w0, b0, w2, b2, out, R, C, stream);
-}
-
-// geglu_ffn: out = GEGLU-FF(x), no LayerNorm, no residual; bf16 only.
-extern "C" int mofa_geglu_ffn(const void* x, const void* w0, const void* b0, const void* w2,
-                              const void* b2, void* out, int R, int C, void* stream) {
-  return launch_bf16_variant(kGeglu, x, nullptr, nullptr, w0, b0, w2, b2, out, R, C, stream);
+  return launch_fused_variant(kIlv, x, ls, lb, w0, b0, w2, b2, out, R, C, stream);
 }

@@ -6,11 +6,18 @@ that kernel's launch count) or raises. The only other way to the plain
 version on a card is the explicit `plain_reference()` context, which the
 composition check of `chip_smoke.py` and the tests enter; the main path
 never does.
+
+The kernels are forward only: their outputs are written through ctypes
+and carry no `grad_fn`. So before a launch every wrapper calls
+`check_no_grad`, which raises where autograd would need a backward; the
+plain versions on the CPU keep autograd.
 """
 
 from __future__ import annotations
 
 import contextlib
+
+import torch
 
 # one launch count per kernel (not per module: short_attention.py holds two
 # kernels, conv_fused.py two, geglu_ffn.py five)
@@ -47,6 +54,19 @@ def use_kernel(*tensors) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"no kernel or plain path for device {dev}")
     return _plain_depth == 0
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise RuntimeError if kernel `name` is about to run with grad enabled
+    on an input that requires grad: its output would silently have no
+    gradient. Called by each wrapper on its kernel route only."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward only (its backward comes "
+            "with slice 3, training) and an input requires grad; run it "
+            "under torch.no_grad(), or on CPU tensors, whose plain version "
+            "keeps autograd")
 
 
 def count_launch(name: str) -> None:

@@ -10,7 +10,8 @@ where the JAX package sends it to a Pallas kernel on the TPU:
 - every temporal self-attention in the spatial-major layout ->
   `short_attention_tmajor`.
 
-Each gate admits only what its kernel takes (D of 64 or 128, T <= 32), so
+Each gate admits only what its kernel takes (D of 64 or 128, T <= 32,
+flash at most 65535 batch·heads), so
 no site reaches a kernel that would raise. Every other site (CLIP's 257
 tokens, the small spatial sites, the short sites the gate refuses, the
 micro test widths) stays plain PyTorch: matmul with fp32 logits and
@@ -37,7 +38,8 @@ def dot_product_attention(q, k, v):
     b, lq, h, d = q.shape
     if short_attention_applicable(b, lq, k.shape[1], h, d, q.dtype):
         return short_attention(q, k, v)
-    if lq * k.shape[1] >= FLASH_MIN_SEQ ** 2 and flash_kernel_takes(d, q.dtype):
+    if (lq * k.shape[1] >= FLASH_MIN_SEQ ** 2
+            and flash_kernel_takes(d, q.dtype, b * h)):
         return flash_attention(q, k, v)
     return attention_plain(q, k, v)
 

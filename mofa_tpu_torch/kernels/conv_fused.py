@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mofa_tpu_torch.kernels import count_launch, use_kernel
+from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
 
 MAX_FUSED_CHANNELS = 640
 K_CHUNK, O_TILE = 32, 64          # the kernel's K step and output-channel tile
@@ -150,6 +150,7 @@ def gn_silu_conv3x3(x, a, b, w, bias, temb_bias=None, residual=None,
     if not use_kernel(*tensors):
         return conv3x3_plain(x, a, b, w, bias, temb_bias, residual, silu,
                              emit_sums)
+    check_no_grad("gn_silu_conv3x3", *tensors)
     return _launch_conv("gn_silu_conv3x3", "mofa_gn_silu_conv3x3", x, a, b, w,
                         bias, temb_bias, residual, silu, emit_sums)
 
@@ -166,5 +167,6 @@ def gn_silu_tconv3(x, a, b, w, bias, temb_bias=None, residual=None,
     if not use_kernel(*tensors):
         return tconv3_plain(x, a, b, w, bias, temb_bias, residual, silu,
                             emit_sums)
+    check_no_grad("gn_silu_tconv3", *tensors)
     return _launch_conv("gn_silu_tconv3", "mofa_gn_silu_tconv3", x, a, b, w,
                         bias, temb_bias, residual, silu, emit_sums)

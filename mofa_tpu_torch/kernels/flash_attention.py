@@ -20,15 +20,18 @@ from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import count_launch, use_kernel
+from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
 
 HEAD_DIMS = (64, 128)
+MAX_BATCH_HEADS = 65535                    # the grid's y dimension
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_kernel_takes(d: int, dtype) -> bool:
-    """What the CUDA kernel takes: D in HEAD_DIMS, fp32 or bf16."""
-    return d in HEAD_DIMS and dtype in _DTYPES
+def flash_kernel_takes(d: int, dtype, batch_heads: int) -> bool:
+    """What the CUDA kernel takes: D in HEAD_DIMS, fp32 or bf16, at most
+    MAX_BATCH_HEADS batch·heads."""
+    return (d in HEAD_DIMS and dtype in _DTYPES
+            and batch_heads <= MAX_BATCH_HEADS)
 
 
 def kernel_operands(q, k, v):
@@ -38,12 +41,11 @@ def kernel_operands(q, k, v):
     batch·heads (the grid's y), data not 16-byte aligned (the rule of TMA
     and of the 16-byte copies)."""
     b, _, h, d = q.shape
-    if (not flash_kernel_takes(d, q.dtype) or k.dtype != q.dtype
+    if (not flash_kernel_takes(d, q.dtype, b * h) or k.dtype != q.dtype
             or v.dtype != q.dtype):
-        raise ValueError(f"flash kernel takes D in {HEAD_DIMS} and one dtype of "
-                         f"fp32/bf16; got D={d}, {q.dtype}, {k.dtype}, {v.dtype}")
-    if b * h > 65535:
-        raise ValueError(f"flash kernel takes B*H <= 65535; got {b * h}")
+        raise ValueError(f"flash kernel takes D in {HEAD_DIMS}, one dtype of "
+                         f"fp32/bf16 and B*H <= {MAX_BATCH_HEADS}; got D={d}, "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}, B*H={b * h}")
     q, k, v = (x.contiguous() for x in (q, k, v))
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash kernel takes 16-byte aligned q/k/v")
@@ -68,6 +70,7 @@ def flash_attention(q, k, v) -> torch.Tensor:
         raise ValueError(f"bad shapes {tuple(q.shape)} {tuple(k.shape)}")
     if not use_kernel(q, k, v):
         return attention_plain(q, k, v)
+    check_no_grad("flash_attention", q, k, v)
     b, lq, h, d = q.shape
     q, k, v = kernel_operands(q, k, v)
     from mofa_tpu_torch.kernels._build import launch

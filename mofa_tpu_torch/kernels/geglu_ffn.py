@@ -10,15 +10,23 @@ Counterpart of mofa_tpu/kernels/geglu_ffn.py:
   of the next inner chunk issued before the gate and GEMM2 of this one).
 - `geglu_ffn`: FF(x) without LN or residual; replaces `_ffn_kernel`.
 
-All five run one CUDA source, `csrc/ln_geglu_ffn.cu`: a 64-row tile in
-shared memory, the 4C inner axis walked in chunks (GEMM1 -> gelu gate in
-fp32 -> GEMM2 into fp32 register accumulators) on `mma.sync` tensor cores,
-weight tiles streamed from L2 by `cp.async`. The [rows, 8C] intermediate
-never reaches device memory. They are bound by tensor-core issue and the
-L2 weight reads; the source note describes each schedule. Weights use
-torch Linear layouts: w0 [8C, C], w2 [C, 4C]. The "plain" kernel also has
-an fp32 path; the others take bf16 only and raise on fp32 tensors on a
-card. Forward only.
+All run one CUDA source, `csrc/ln_geglu_ffn.cu`. In bf16, "plain", "tanh"
+and `geglu_ffn` are three kernels launched in turn, each a stage with its
+own entry point and plain version here:
+
+- `ffn_ln_rows`: xn = LN(x), bf16 (skipped by `geglu_ffn`);
+- `ffn_gemm_gate`: h = a * gelu(g), [a | g] = xn W0^T + b0, bf16 [rows, 4C]
+  (a persistent `wgmma` GEMM fed by TMA, the gate in its epilogue);
+- `ffn_gemm_out`: out = h W2^T + b2 (+ x), the same GEMM mainloop.
+
+The wrappers allocate the xn and h scratch per call and count one launch
+per call; the stage entry points launch one stage each and count nothing
+(`chip_smoke.py` uses them to place a fault in its stage). "ilv" and "pipe"
+keep PR 3's fused schedules on `mma.sync` (the [rows, 8C] intermediate
+never leaves the block); the source note describes each design. Weights
+use torch Linear layouts: w0 [8C, C], w2 [C, 4C]. The "plain" kernel also
+has an fp32 path (plain FMA); the others take bf16 only and raise on fp32
+tensors on a card. Forward only.
 """
 
 from __future__ import annotations
@@ -26,13 +34,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mofa_tpu_torch.kernels import count_launch, use_kernel
+from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
 
 LN_EPS = 1e-5
 MIN_FUSED_ROWS = 4096
 KERNEL_DIMS = (320, 640)
 VARIANTS = ("plain", "ilv", "pipe", "tanh")
+# output columns per tile of `ffn_gemm_out` (160 or 320), by C
+OUT_TILE_COLS = {320: 320, 640: 320}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GELU = ("none", "tanh")
 
 
 def fused_ffn_applicable(rows: int, dim: int, dim_out: int) -> bool:
@@ -43,47 +54,99 @@ def fused_ffn_applicable(rows: int, dim: int, dim_out: int) -> bool:
     return dim in KERNEL_DIMS and dim_out == dim and rows >= MIN_FUSED_ROWS
 
 
+# ---------------------------------------------------------- plain versions
+
+def ffn_ln_rows_plain(x, ln_weight, ln_bias) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (E[x^2] - mean^2), scale and shift in
+    fp32, cast to x's dtype (mofa_tpu `_ln_ffn_ref`'s first line)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    return ((xf - mean) * torch.rsqrt(var + LN_EPS) * ln_weight.float()
+            + ln_bias.float()).to(x.dtype)
+
+
+def ffn_gemm_gate_plain(xn, w0, b0, approximate: str = "none") -> torch.Tensor:
+    """a * gelu(g), [a | g] = xn W0^T + b0, in xn's dtype (gelu
+    `approximate` "none", or "tanh" for the tanh variant)."""
+    a, g = F.linear(xn, w0.to(xn.dtype), b0.to(xn.dtype)).chunk(2, dim=-1)
+    return a * F.gelu(g, approximate=approximate)
+
+
+def ffn_gemm_out_plain(h, w2, b2, residual=None) -> torch.Tensor:
+    """h W2^T + b2 (+ residual), in h's dtype."""
+    out = F.linear(h, w2.to(h.dtype), b2.to(h.dtype))
+    return out if residual is None else out + residual
+
+
 def ffn_plain(x, w0, b0, w2, b2) -> torch.Tensor:
     """Plain version (mofa_tpu `_ffn_ref`): GEGLU FF in x's dtype."""
-    a, g = F.linear(x, w0.to(x.dtype), b0.to(x.dtype)).chunk(2, dim=-1)
-    return F.linear(a * F.gelu(g), w2.to(x.dtype), b2.to(x.dtype))
+    return ffn_gemm_out_plain(ffn_gemm_gate_plain(x, w0, b0), w2, b2)
 
 
 def ln_ffn_plain(x, ln_weight, ln_bias, w0, b0, w2, b2,
                  approximate: str = "none") -> torch.Tensor:
-    """Plain version (mofa_tpu `_ln_ffn_ref`): LayerNorm with fp32 stats
-    (E[x^2] - mean^2), cast to x's dtype, GEGLU FF in x's dtype (gelu
-    `approximate` "none", or "tanh" for the tanh variant), residual."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
-    h = ((xf - mean) * torch.rsqrt(var + LN_EPS) * ln_weight.float()
-         + ln_bias.float()).to(x.dtype)
-    a, g = F.linear(h, w0.to(x.dtype), b0.to(x.dtype)).chunk(2, dim=-1)
-    act = a * F.gelu(g, approximate=approximate)
-    return F.linear(act, w2.to(x.dtype), b2.to(x.dtype)) + x
+    """Plain version (mofa_tpu `_ln_ffn_ref`): LayerNorm with fp32 stats,
+    cast to x's dtype, GEGLU FF in x's dtype, residual."""
+    xn = ffn_ln_rows_plain(x, ln_weight, ln_bias)
+    return ffn_gemm_out_plain(ffn_gemm_gate_plain(xn, w0, b0, approximate),
+                              w2, b2, x)
 
+
+# ------------------------------------------------------------ the kernels
 
 def _check_weights(c, w0, w2):
     if w0.shape != (8 * c, c) or w2.shape != (c, 4 * c):
         raise ValueError(f"bad FF weights {tuple(w0.shape)} {tuple(w2.shape)}")
 
 
-def _launch(name, entry, x, ln, weights, dtypes, with_dtype):
-    """Launch C entry `entry` on x [..., C] with the LN params `ln` (or
-    none) and (w0, b0, w2, b2) cast to x's dtype; returns out like x."""
+def _operands(name, x, ln, weights, dtypes):
+    """x as [rows, C] and the LN params (fp32) and weights (x's dtype),
+    contiguous and 32-byte aligned; ValueError for a width or dtype the
+    kernel does not take."""
     c, dt = x.shape[-1], x.dtype
     if c not in KERNEL_DIMS or dt not in dtypes:
         raise ValueError(f"{name} kernel takes C in {KERNEL_DIMS} and "
                          f"{[str(d) for d in dtypes]}; got C={c}, {dt}")
-    from mofa_tpu_torch.kernels._build import launch
-    x2 = x.reshape(-1, c).contiguous()
-    args = ([x2] + [p.float().contiguous() for p in ln]
+    args = ([x.reshape(-1, c).contiguous()] + [p.float().contiguous() for p in ln]
             + [w.to(dt).contiguous() for w in weights])
-    args = [a.clone() if a.data_ptr() % 32 else a for a in args]
+    return [a.clone() if a.data_ptr() % 32 else a for a in args]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_ffn(name, x, ln, weights, approximate="none"):
+    """ln_geglu_ffn ("plain", "tanh"; ln = (scale, shift)) or geglu_ffn
+    (ln = ()): the three stages in bf16 or, for "plain" in fp32, the fused
+    FMA kernel; one count per call."""
+    from mofa_tpu_torch.kernels._build import launch
+    dtypes = _DTYPES if name == "ln_geglu_ffn" else (torch.bfloat16,)
+    args = _operands(name, x, ln, weights, dtypes)
+    x2, c = args[0], x.shape[-1]
+    rows, dev, bf16 = x2.shape[0], x.device, x2.dtype == torch.bfloat16
+    out = torch.empty_like(x2)
+    xn = torch.empty_like(x2) if ln and bf16 else None
+    h = torch.empty(rows, 4 * c, device=dev, dtype=x2.dtype) if bf16 else None
+    if ln:
+        launch("mofa_ln_geglu_ffn", dev, *map(_ptr, args), _ptr(xn), _ptr(h),
+               out.data_ptr(), rows, c, _DTYPES[x2.dtype],
+               _GELU.index(approximate), OUT_TILE_COLS[c])
+    else:
+        launch("mofa_geglu_ffn", dev, *map(_ptr, args), h.data_ptr(),
+               out.data_ptr(), rows, c, OUT_TILE_COLS[c])
+    count_launch(name)
+    return out.reshape(x.shape)
+
+
+def _launch_fused(name, x, ln, weights):
+    """The "ilv" / "pipe" schedules: one fused bf16 kernel."""
+    from mofa_tpu_torch.kernels._build import launch
+    args = _operands(name, x, ln, weights, (torch.bfloat16,))
     out = torch.empty_like(args[0])
-    tail = (x2.shape[0], c) + ((_DTYPES[dt],) if with_dtype else ())
-    launch(entry, x.device, *[a.data_ptr() for a in args], out.data_ptr(), *tail)
+    launch(f"mofa_{name}", x.device, *map(_ptr, args), out.data_ptr(),
+           args[0].shape[0], x.shape[-1])
     count_launch(name)
     return out.reshape(x.shape)
 
@@ -98,15 +161,15 @@ def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2,
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     _check_weights(x.shape[-1], w0, w2)
+    approximate = "tanh" if variant == "tanh" else "none"
     if not use_kernel(x, ln_weight, ln_bias, w0, b0, w2, b2):
-        return ln_ffn_plain(x, ln_weight, ln_bias, w0, b0, w2, b2,
-                            "tanh" if variant == "tanh" else "none")
-    if variant == "plain":
-        return _launch("ln_geglu_ffn", "mofa_ln_geglu_ffn", x,
-                       (ln_weight, ln_bias), (w0, b0, w2, b2), _DTYPES, True)
-    return _launch(f"ln_geglu_ffn_{variant}", f"mofa_ln_geglu_ffn_{variant}", x,
-                   (ln_weight, ln_bias), (w0, b0, w2, b2), (torch.bfloat16,),
-                   False)
+        return ln_ffn_plain(x, ln_weight, ln_bias, w0, b0, w2, b2, approximate)
+    name = "ln_geglu_ffn" if variant == "plain" else f"ln_geglu_ffn_{variant}"
+    check_no_grad(name, x, ln_weight, ln_bias, w0, b0, w2, b2)
+    ln, weights = (ln_weight, ln_bias), (w0, b0, w2, b2)
+    if variant in ("ilv", "pipe"):
+        return _launch_fused(name, x, ln, weights)
+    return _launch_ffn(name, x, ln, weights, approximate)
 
 
 def geglu_ffn(x, w0, b0, w2, b2) -> torch.Tensor:
@@ -115,5 +178,90 @@ def geglu_ffn(x, w0, b0, w2, b2) -> torch.Tensor:
     _check_weights(x.shape[-1], w0, w2)
     if not use_kernel(x, w0, b0, w2, b2):
         return ffn_plain(x, w0, b0, w2, b2)
-    return _launch("geglu_ffn", "mofa_geglu_ffn", x, (), (w0, b0, w2, b2),
-                   (torch.bfloat16,), False)
+    check_no_grad("geglu_ffn", x, w0, b0, w2, b2)
+    return _launch_ffn("geglu_ffn", x, (), (w0, b0, w2, b2))
+
+
+# ------------------------------------------------- the stage entry points
+
+def _stage_operands(name, *tensors):
+    """bf16 tensors with the last dim a kernel width, contiguous and 32-byte
+    aligned; ValueError otherwise."""
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} takes bf16 tensors; got {t.dtype}")
+        t = t.contiguous()
+        out.append(t.clone() if t.data_ptr() % 32 else t)
+    return out
+
+
+def _stage_width(name, c):
+    if c not in KERNEL_DIMS:
+        raise ValueError(f"{name} takes C in {KERNEL_DIMS}; got C={c}")
+    return c
+
+
+def ffn_ln_rows(x, ln_weight, ln_bias) -> torch.Tensor:
+    """Stage 1 of the bf16 FFN: x [rows, C] -> LN(x) [rows, C]."""
+    if not use_kernel(x, ln_weight, ln_bias):
+        return ffn_ln_rows_plain(x, ln_weight, ln_bias)
+    check_no_grad("ffn_ln_rows", x, ln_weight, ln_bias)
+    from mofa_tpu_torch.kernels._build import launch
+    c = _stage_width("ffn_ln_rows", x.shape[-1])
+    if x.ndim != 2 or ln_weight.shape != (c,) or ln_bias.shape != (c,):
+        raise ValueError(f"ffn_ln_rows: bad shapes {tuple(x.shape)} "
+                         f"{tuple(ln_weight.shape)} {tuple(ln_bias.shape)}")
+    (x,) = _stage_operands("ffn_ln_rows", x)
+    ls, lb = (p.float().contiguous() for p in (ln_weight, ln_bias))
+    xn = torch.empty_like(x)
+    launch("mofa_ffn_ln_rows", x.device, x.data_ptr(), ls.data_ptr(),
+           lb.data_ptr(), xn.data_ptr(), x.shape[0], c)
+    return xn
+
+
+def ffn_gemm_gate(xn, w0, b0, approximate: str = "none") -> torch.Tensor:
+    """Stage 2: xn [rows, C], w0 [8C, C], b0 [8C] -> a * gelu(g) [rows, 4C]."""
+    if approximate not in _GELU:
+        raise ValueError(f"approximate must be one of {_GELU}, got {approximate!r}")
+    if not use_kernel(xn, w0, b0):
+        return ffn_gemm_gate_plain(xn, w0, b0, approximate)
+    check_no_grad("ffn_gemm_gate", xn, w0, b0)
+    from mofa_tpu_torch.kernels._build import launch
+    c = _stage_width("ffn_gemm_gate", xn.shape[-1])
+    if xn.ndim != 2 or w0.shape != (8 * c, c) or b0.shape != (8 * c,):
+        raise ValueError(f"ffn_gemm_gate: bad shapes {tuple(xn.shape)} "
+                         f"{tuple(w0.shape)} {tuple(b0.shape)}")
+    xn, w0, b0 = _stage_operands("ffn_gemm_gate", xn, w0, b0)
+    h = torch.empty(xn.shape[0], 4 * c, device=xn.device, dtype=xn.dtype)
+    launch("mofa_ffn_gemm_gate", xn.device, xn.data_ptr(), w0.data_ptr(),
+           b0.data_ptr(), h.data_ptr(), xn.shape[0], c, _GELU.index(approximate))
+    return h
+
+
+def ffn_gemm_out(h, w2, b2, residual=None, tile_cols: int | None = None) -> torch.Tensor:
+    """Stage 3: h [rows, 4C], w2 [C, 4C], b2 [C] -> h W2^T + b2 (+ residual
+    [rows, C]); `tile_cols` (160 or 320) overrides OUT_TILE_COLS."""
+    tensors = [t for t in (h, w2, b2, residual) if t is not None]
+    if not use_kernel(*tensors):
+        return ffn_gemm_out_plain(h, w2, b2, residual)
+    check_no_grad("ffn_gemm_out", *tensors)
+    from mofa_tpu_torch.kernels._build import launch
+    c = _stage_width("ffn_gemm_out", w2.shape[0])
+    rows = h.shape[0]
+    if (h.ndim != 2 or h.shape[1] != 4 * c or w2.shape != (c, 4 * c)
+            or b2.shape != (c,)
+            or (residual is not None and residual.shape != (rows, c))):
+        raise ValueError(f"ffn_gemm_out: bad shapes {tuple(h.shape)} "
+                         f"{tuple(w2.shape)} {tuple(b2.shape)}")
+    tile_cols = OUT_TILE_COLS[c] if tile_cols is None else tile_cols
+    if tile_cols not in (160, 320):
+        raise ValueError(f"ffn_gemm_out: tile_cols 160 or 320; got {tile_cols}")
+    h, w2, b2, residual = _stage_operands("ffn_gemm_out", h, w2, b2, residual)
+    out = torch.empty(rows, c, device=h.device, dtype=h.dtype)
+    launch("mofa_ffn_gemm_out", h.device, h.data_ptr(), w2.data_ptr(),
+           b2.data_ptr(), _ptr(residual), out.data_ptr(), rows, c, tile_cols)
+    return out

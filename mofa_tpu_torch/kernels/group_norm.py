@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import count_launch, use_kernel
+from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNKS = 256          # C / (values per 16-byte load): one block's threads
@@ -51,6 +51,7 @@ def channel_sums(x3: torch.Tensor):
         raise ValueError(f"channel_sums takes [N, S, C]; got {tuple(x3.shape)}")
     if not use_kernel(x3):
         return channel_sums_plain(x3)
+    check_no_grad("channel_sums", x3)
     n, s, c = x3.shape
     if not _kernel_takes(c, x3.dtype):
         raise ValueError(f"channel_sums kernel takes fp32/bf16 with C a multiple "

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import count_launch, use_kernel
+from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
 from mofa_tpu_torch.kernels.flash_attention import attention_plain
 
 MAX_FRAMES = 32                  # one 32-row tensor-core tile
@@ -105,6 +105,7 @@ def short_attention_tmajor(q2, k2, v2, num_frames: int,
         raise ValueError(f"bad tmajor shapes {tuple(q2.shape)}, T={num_frames}")
     if not use_kernel(q2, k2, v2):
         return tmajor_plain(q2, k2, v2, num_frames, heads)
+    check_no_grad("short_attention_tmajor", q2, k2, v2)
     if hd % heads:
         raise ValueError(f"tmajor kernel: H*D={hd} is not a multiple of H={heads}")
     d = hd // heads
@@ -124,6 +125,7 @@ def short_attention(q, k, v) -> torch.Tensor:
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     if not use_kernel(q, k, v):
         return attention_plain(q, k, v)
+    check_no_grad("short_attention", q, k, v)
     b, length, h, d = q.shape
     q, k, v = kernel_operands(q, k, v, length, d)
     out = _launch("mofa_short_attention", q, k, v, b, length, h, d)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import count_launch, use_kernel
+from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
 
 
 
@@ -58,6 +58,7 @@ def splat_raw(inp: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bad shapes {tuple(inp.shape)} / {tuple(flow.shape)}")
     if not use_kernel(inp, flow):
         return splat_plain(inp, flow)
+    check_no_grad("softsplat", inp, flow)
     from mofa_tpu_torch.kernels._build import launch
     inp, flow = inp.contiguous(), flow.contiguous()
     B, H, W, C = inp.shape

@@ -104,6 +104,9 @@ SITES = {
     "spatial /32": ((50, 576, 20, 64), (50, 576, 20, 64), "flash_attention"),
     "trunk /32, D=128": ((50, 576, 10, 128), (50, 576, 10, 128), "flash_attention"),
     "spatial /64": ((50, 144, 20, 64), (50, 144, 20, 64), "attention_plain"),
+    # past the flash grid's 65535 batch·heads, which the kernel refuses
+    "spatial /32, B*H = 65540": ((13108, 576, 5, 64), (13108, 576, 5, 64),
+                                 "attention_plain"),
     "cross /8": ((50, 9216, 5, 64), (50, 1, 5, 64), "attention_plain"),
     "classic temporal /8": ((18432, 25, 5, 64), (18432, 25, 5, 64), "short_attention"),
     "classic temporal /16": ((4608, 25, 10, 64), (4608, 25, 10, 64), "attention_plain"),

@@ -16,7 +16,8 @@ import torch
 from mofa_tpu_torch import kernels
 from mofa_tpu_torch.kernels.conv_fused import gn_silu_conv3x3, gn_silu_tconv3
 from mofa_tpu_torch.kernels.flash_attention import flash_attention
-from mofa_tpu_torch.kernels.geglu_ffn import geglu_ffn, ln_geglu_ffn
+from mofa_tpu_torch.kernels.geglu_ffn import (ffn_gemm_gate, ffn_gemm_out,
+                                              ffn_ln_rows, geglu_ffn, ln_geglu_ffn)
 from mofa_tpu_torch.kernels.group_norm import channel_sums
 from mofa_tpu_torch.kernels.short_attention import (short_attention,
                                                     short_attention_tmajor)
@@ -140,6 +141,71 @@ def test_short_body_on_card(frames, slots, dt):
     _assert_like_plain(lambda: short_attention(qs, ks, vs), dt)
     counts = kernels.launch_counts()
     assert counts["short_attention_tmajor"] == counts["short_attention"] == 1
+
+
+_FFN_NAMES = {"plain": "ln_geglu_ffn", "tanh": "ln_geglu_ffn_tanh",
+              "geglu_ffn": "geglu_ffn"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(_FFN_NAMES))
+@pytest.mark.parametrize("c", [320, 640])
+@pytest.mark.parametrize("rows", [4096, 4096 + 7, 16384 + 1])
+def test_ffn_route_on_card(rows, c, kind):
+    """The bf16 FFN route (LN pass, gate GEMM, out GEMM on wgmma) against
+    its plain version at whole and ragged 128-row tiles, one launch count
+    per call; then each stage alone against its plain stage: h from the
+    gate GEMM on the kernel's own xn, and the out GEMM at both tile
+    widths."""
+    rn = _card(rows + c)
+    bf = torch.bfloat16
+    x = rn(rows, c).to(bf)
+    ls, lb = rn(c) * 0.2 + 1, rn(c) * 0.2
+    w0, b0 = (rn(8 * c, c) * c ** -0.5).to(bf), (rn(8 * c) * 0.1).to(bf)
+    w2, b2 = (rn(c, 4 * c) * (4 * c) ** -0.5).to(bf), (rn(c) * 0.1).to(bf)
+    gelu = "tanh" if kind == "tanh" else "none"
+    kernels.reset_launch_counts()
+    if kind == "geglu_ffn":
+        _assert_like_plain(lambda: geglu_ffn(x, w0, b0, w2, b2), bf)
+    else:
+        _assert_like_plain(lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2,
+                                                variant=kind), bf)
+    counts = kernels.launch_counts()
+    assert counts[_FFN_NAMES[kind]] == 1 and sum(counts.values()) == 1
+    with torch.no_grad():
+        xn = x if kind == "geglu_ffn" else ffn_ln_rows(x, ls, lb)
+    if kind != "geglu_ffn":
+        _assert_like_plain(lambda: ffn_ln_rows(x, ls, lb), bf)
+    _assert_like_plain(lambda: ffn_gemm_gate(xn, w0, b0, gelu), bf)
+    h = ffn_gemm_gate(xn, w0, b0, gelu)
+    resid = None if kind == "geglu_ffn" else x
+    for cols in (160, 320):
+        _assert_like_plain(lambda: ffn_gemm_out(h, w2, b2, resid, tile_cols=cols), bf)
+
+
+@pytest.mark.gpu
+def test_kernels_raise_under_grad():
+    """The kernels are forward only: on a card, a wrapper raises when grad
+    is enabled and an input requires grad, and launches under no_grad."""
+    rn = _card(5)
+    bf = torch.bfloat16
+    q = rn(1, 600, 2, 64).to(bf).requires_grad_()
+    x = rn(4096, 320).to(bf).requires_grad_()
+    ls, lb = rn(320) + 1, rn(320)
+    w0, b0 = (rn(2560, 320) / 18).to(bf), rn(2560).to(bf)
+    w2, b2 = (rn(320, 1280) / 36).to(bf), rn(320).to(bf)
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="flash_attention.*forward only"):
+        flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="ln_geglu_ffn.*forward only"):
+        ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2)
+    assert sum(kernels.launch_counts().values()) == 0
+    with torch.no_grad():
+        flash_attention(q, q, q)
+        ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == counts["ln_geglu_ffn"] == 1
 
 
 @pytest.mark.gpu
