@@ -543,17 +543,15 @@ def planted_faults() -> list:
     return passed
 
 
-# output columns per tile of the out GEMM, both timed by `ffn_stages`
-OUT_TILE_WIDTHS = (160, 320)
-
-
 def ffn_stages(results, g, c: int, rows: int) -> None:
     """The bf16 FFN route's three stages alone at rows x c: each against
     its plain version on the same inputs with the bf16 bounds of
     ln_geglu_ffn (h from the gate GEMM alone, so a fault shows in its
-    stage; the out GEMM at both tile widths), and each one's time, stored
-    as the row's `stage_ms_c<c>`."""
+    stage), and each one's time beside one cuBLAS call of the same product
+    (F.linear without bias, gate or residual: no stock call computes the
+    stages' epilogues), stored as the row's `stage_ms_c<c>`."""
     import torch
+    import torch.nn.functional as F
     from mofa_tpu_torch.kernels.geglu_ffn import (ffn_gemm_gate, ffn_gemm_out,
                                                   ffn_ln_rows)
     x, ls, lb, w0, b0, w2, b2 = ffn_operands(g, c, rows, torch.bfloat16)
@@ -561,14 +559,15 @@ def ffn_stages(results, g, c: int, rows: int) -> None:
         xn = ffn_ln_rows(x, ls, lb)
         h = ffn_gemm_gate(xn, w0, b0)
     runs = {"ln": lambda: ffn_ln_rows(x, ls, lb),
-            "gate": lambda: ffn_gemm_gate(xn, w0, b0)}
-    runs.update({f"out{tc}": (lambda tc=tc: ffn_gemm_out(h, w2, b2, x, tile_cols=tc))
-                 for tc in OUT_TILE_WIDTHS})
+            "gate": lambda: ffn_gemm_gate(xn, w0, b0),
+            "out": lambda: ffn_gemm_out(h, w2, b2, x)}
     for stage, fn in runs.items():
         _check(results, "ln_geglu_ffn", "bf16", f"{stage} stage rows={rows} C={c}",
                fn, fn, False)
     with torch.no_grad():
         split = {stage: time_ms(fn) for stage, fn in runs.items()}
+        split["cublas_gate"] = time_ms(lambda: F.linear(xn, w0))
+        split["cublas_out"] = time_ms(lambda: F.linear(h, w2))
     results["ln_geglu_ffn"][f"stage_ms_c{c}"] = split
     log(f"  {'ln_geglu_ffn':24s} bf16 stages rows={rows} C={c}: "
         + "  ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms")

@@ -101,6 +101,24 @@ template <bool TANH>
 __device__ __forceinline__ float gelu_gate(float a, float g) {
   return a * (TANH ? gelu_tanh(g) : gelu_erf(g));
 }
+// erf as Abramowitz-Stegun 7.1.26 (max abs error 1.5e-7), the TPU
+// kernel's own formula: one reciprocal, five FMAs and one exp2
+__device__ __forceinline__ float gelu_erf_as(float g) {
+  const float xs = g * 0.70710678118654752f, ax = fabsf(xs);
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, ax, 1.0f));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  const float erf = copysignf(1.0f - poly * __expf(-ax * ax), xs);
+  return 0.5f * g * (1.0f + erf);
+}
+// the gate of the gate GEMM's epilogue: GELU 0 = erf (Abramowitz-Stegun),
+// 1 = the tanh form
+template <int GELU>
+__device__ __forceinline__ float gate_of(float a, float g) {
+  return a * (GELU == 1 ? gelu_tanh(g) : gelu_erf_as(g));
+}
 
 // LayerNorm of rows [row0, row0 + nrows) into dst (pitch ldx), zero past R.
 template <typename T, typename TD, int C>
@@ -553,37 +571,44 @@ constexpr int GEMM_BM = 128;        // rows per tile: two consumer warpgroups of
 constexpr int KTILE = 64;           // k per ring stage: one 128-byte swizzled row
 constexpr int GEMM_THREADS = 384;   // two consumer warpgroups, one producer
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
+constexpr int OUT_CH = 32;          // output columns per staged chunk of the out GEMM
+constexpr int OUT_PITCH = 40;       // its fp32 row pitch: conflict-free float2 / float4
 
 // The two products as one TN GEMM (A [M, K] and B [N, K], both K-major):
-// GATE: A = xn [M, C], B = W0 [8C, C], a tile of 128 gate columns (two B
-// boxes of 128 rows: a and g); otherwise A = h [M, 4C], B = W2 [C, 4C], a
-// tile of TN output columns (TN / 160 B boxes of 160 rows).
-template <int C, bool GATE, int TN>
+// GATE: A = xn [M, C], B = W0 [8C, C], a tile of TN = 128 gate columns (B:
+// the a rows and the g rows, two boxes of 128); otherwise A = h [M, 4C],
+// B = W2 [C, 4C], a tile of TN = 160 output columns (B: two boxes of 80).
+template <int C, bool GATE>
 struct GemmCfg {
   static constexpr int K = GATE ? C : 4 * C;
   static constexpr int KT = K / KTILE;
   static constexpr int N = GATE ? 4 * C : C;             // output columns
+  static constexpr int TN = GATE ? 128 : 160;            // output columns per tile
   static constexpr int N_TILES = N / TN;
-  static constexpr int BOX_ROWS = GATE ? 128 : 160;      // B rows per box
-  static constexpr int NBOX = GATE ? 2 : TN / 160;
+  static constexpr int BOX_ROWS = GATE ? 128 : TN / 2;   // B rows per box, two boxes
   static constexpr int A_BYTES = GEMM_BM * 128;
   static constexpr int BOX_BYTES = BOX_ROWS * 128;
-  static constexpr int STAGE_BYTES = A_BYTES + NBOX * BOX_BYTES;
-  static constexpr int STAGES_FIT = (SMEM_LIMIT - 1024 - 256) / STAGE_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * BOX_BYTES;
+  // the out GEMM's epilogue stages a 64 x OUT_CH fp32 chunk per warpgroup
+  static constexpr int EPI_WG_BYTES = GATE ? 0 : 64 * OUT_PITCH * 4;
+  static constexpr int STAGES_FIT = (SMEM_LIMIT - 1024 - 256 - 2 * EPI_WG_BYTES) / STAGE_BYTES;
   static constexpr int STAGES = STAGES_FIT < 6 ? STAGES_FIT : 6;
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;   // + 1024-byte alignment
-  static constexpr int ACC = GATE ? 128 : NBOX * 80;     // fp32 accumulators a thread
-  static_assert(K % KTILE == 0 && N % TN == 0, "whole k-tiles and column tiles");
-  static_assert(GATE ? TN == 128 : TN % 160 == 0, "tile widths the epilogues take");
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * EPI_WG_BYTES + 1024;  // + alignment
+  static constexpr int ACC = GATE ? 128 : TN / 2;        // fp32 accumulators a thread
+  // residual pieces (4 columns) a consumer thread adds per chunk
+  static constexpr int RES_PER_CHUNK = 64 * OUT_CH / 4 / 128;
+  static_assert(K % KTILE == 0 && N % TN == 0 && TN % OUT_CH == 0, "whole tiles");
+  static_assert(BOX_BYTES % 1024 == 0, "boxes keep the 1024-byte swizzle atoms");
   static_assert(STAGES >= 2, "a ring");
 };
 
-template <int C, bool GATE, int TN, bool TANH, bool RESID>
+template <int C, bool GATE, int GELU, bool RESID>
 __global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
     const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
     const bf16* __restrict__ bias, const bf16* __restrict__ resid, bf16* __restrict__ out,
     int M) {
-  using G = GemmCfg<C, GATE, TN>;
+  using G = GemmCfg<C, GATE>;
+  constexpr int TN = G::TN;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * G::STAGES];
   // swizzled tiles start on 1024-byte boundaries (the 8-row swizzle atom)
@@ -618,7 +643,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
           mofa::mbar_arrive_expect_tx(full(s), G::STAGE_BYTES);
           mofa::tma_load_2d(sa(s), &ta, full(s), kt * KTILE, m0);
 #pragma unroll
-          for (int b = 0; b < G::NBOX; ++b)
+          for (int b = 0; b < 2; ++b)
             mofa::tma_load_2d(sb(s) + b * G::BOX_BYTES, &tb, full(s), kt * KTILE,
                               GATE ? n0 + b * 4 * C : n0 + b * G::BOX_ROWS);
         }
@@ -629,7 +654,11 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
 
   // ---- consumers: 64 rows of the tile each
   mofa::setmaxnreg_inc<240>();
-  const int warp = (tid % 128) / 32, lane = tid % 32, t = lane & 3;
+  const int warp = (tid % 128) / 32, lane = tid % 32, t = lane & 3, wt = tid % 128;
+  const int wrow = warp * 16 + (lane >> 2);         // the fragment's first row in the warpgroup
+  float* const stage_out = reinterpret_cast<float*>(
+      smem_raw + (base - mofa::smem_addr(smem_raw)) + G::STAGES * G::STAGE_BYTES +
+      wg * G::EPI_WG_BYTES);
   float acc[G::ACC];
   auto fence_acc = [&]() {
 #pragma unroll
@@ -642,6 +671,28 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int m0 = tile / G::N_TILES * GEMM_BM, n0 = tile % G::N_TILES * TN;
+    // the epilogue's operands are loaded before the products, which hide
+    // their latency: the bias pairs of this thread's fragment columns (and
+    // of the g columns), and the residual pieces of its copy-out rows
+    uint32_t bias2[GATE ? 32 : TN / 8];
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      bias2[j] = __ldg(reinterpret_cast<const unsigned*>(bias + n0 + 8 * j + 2 * t));
+      if constexpr (GATE)
+        bias2[16 + j] = __ldg(reinterpret_cast<const unsigned*>(bias + 4 * C + n0 + 8 * j + 2 * t));
+    }
+    uint2 res[RESID ? TN / OUT_CH * G::RES_PER_CHUNK : 1];
+    if constexpr (RESID) {
+#pragma unroll
+      for (int i = 0; i < TN / OUT_CH * G::RES_PER_CHUNK; ++i) {
+        const int q = wt + 128 * (i % G::RES_PER_CHUNK), r = q / (OUT_CH / 4);
+        const int col = n0 + i / G::RES_PER_CHUNK * OUT_CH + 4 * (q % (OUT_CH / 4));
+        const long long grow = m0 + wg * 64 + r;
+        res[i] = grow < M ? __ldg(reinterpret_cast<const uint2*>(resid + grow * C + col))
+                          : make_uint2(0u, 0u);
+      }
+    }
+
     for (int kt = 0; kt < G::KT; ++kt, ++it) {
       const int s = it % G::STAGES;
       mofa::mbar_wait(full(s), (it / G::STAGES) & 1);
@@ -651,17 +702,12 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
 #pragma unroll
       for (int kk = 0; kk < KTILE / 16; ++kk) {     // a k16 step is 32 bytes of the row
         const uint64_t da = mofa::gmma_desc_sw128(a + kk * 32, 16, 1024);
+        const uint64_t db = mofa::gmma_desc_sw128(sb(s) + kk * 32, 16, 1024);
         const int accumulate = kt > 0 || kk > 0;
-        if constexpr (GATE) {
-          mofa::wgmma_m64n256k16_ss(acc, da, mofa::gmma_desc_sw128(sb(s) + kk * 32, 16, 1024),
-                                    accumulate);
-        } else {
-#pragma unroll
-          for (int b = 0; b < G::NBOX; ++b)
-            mofa::wgmma_m64n160k16_ss(
-                acc + 80 * b, da,
-                mofa::gmma_desc_sw128(sb(s) + b * G::BOX_BYTES + kk * 32, 16, 1024), accumulate);
-        }
+        // gate: the a and g boxes back to back, one n256 product makes both;
+        // out: the two 80-row boxes back to back, one n160 product
+        if constexpr (GATE) mofa::wgmma_m64n256k16_ss(acc, da, db, accumulate);
+        else mofa::wgmma_m64n160k16_ss(acc, da, db, accumulate);
       }
       mofa::wgmma_commit();
       fence_acc();
@@ -674,51 +720,66 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
     fence_acc();
     release(it - 1);
 
-    // ---- epilogue: fragment (warp, lane) holds rows r0 and r0 + 8 of
+    // ---- epilogue: fragment (warp, lane) holds rows wrow and wrow + 8 of
     // every n8 block j at columns 8j + 2t, 8j + 2t + 1
-    const int r0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
     if constexpr (GATE) {
+      const int r0 = m0 + wg * 64 + wrow;
       bf16* hrow = out + (long long)r0 * (4 * C);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int col = n0 + 8 * j + 2 * t;
-        const float2 ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        const float2 ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bias2[j]));
         const float2 bg =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + 4 * C + col));
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bias2[16 + j]));
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           if (r0 + 8 * hh < M)
-            *reinterpret_cast<__nv_bfloat162*>(hrow + hh * 8 * (4 * C) + col) =
+            *reinterpret_cast<__nv_bfloat162*>(hrow + hh * 8 * (4 * C) + n0 + 8 * j + 2 * t) =
                 __floats2bfloat162_rn(
-                    gelu_gate<TANH>(acc[4 * j + 2 * hh] + ba.x, acc[64 + 4 * j + 2 * hh] + bg.x),
-                    gelu_gate<TANH>(acc[4 * j + 2 * hh + 1] + ba.y,
-                                    acc[64 + 4 * j + 2 * hh + 1] + bg.y));
+                    gate_of<GELU>(acc[4 * j + 2 * hh] + ba.x, acc[64 + 4 * j + 2 * hh] + bg.x),
+                    gate_of<GELU>(acc[4 * j + 2 * hh + 1] + ba.y,
+                                  acc[64 + 4 * j + 2 * hh + 1] + bg.y));
         }
       }
     } else {
+      // OUT_CH columns at a time: acc + b2 in fp32 into shared memory, then
+      // rows of 4-column pieces (eight lanes to a row's 64 bytes) with the
+      // residual added, rounded once
 #pragma unroll
-      for (int b = 0; b < G::NBOX; ++b)
+      for (int ch = 0; ch < TN / OUT_CH; ++ch) {
+        mofa::named_bar_sync(1 + wg, 128);          // the last chunk's copy-out is done
 #pragma unroll
-        for (int j = 0; j < 20; ++j) {
-          const int col = n0 + 160 * b + 8 * j + 2 * t;
-          const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        for (int j = ch * OUT_CH / 8; j < (ch + 1) * OUT_CH / 8; ++j) {
+          const float2 bb =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bias2[j]));
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const long long row = r0 + 8 * hh;
-            if (row < M) {
-              float v0 = acc[80 * b + 4 * j + 2 * hh] + bb.x;
-              float v1 = acc[80 * b + 4 * j + 2 * hh + 1] + bb.y;
-              if constexpr (RESID) {
-                const float2 xr =
-                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resid + row * C + col));
-                v0 += xr.x;
-                v1 += xr.y;
-              }
-              *reinterpret_cast<__nv_bfloat162*>(out + row * C + col) =
-                  __floats2bfloat162_rn(v0, v1);
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(stage_out + (wrow + 8 * hh) * OUT_PITCH + 8 * j -
+                                       ch * OUT_CH + 2 * t) =
+                make_float2(acc[4 * j + 2 * hh] + bb.x, acc[4 * j + 2 * hh + 1] + bb.y);
+        }
+        mofa::named_bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int i = 0; i < G::RES_PER_CHUNK; ++i) {
+          const int q = wt + 128 * i, r = q / (OUT_CH / 4), c = 4 * (q % (OUT_CH / 4));
+          const long long grow = m0 + wg * 64 + r;
+          if (grow < M) {
+            float4 v = *reinterpret_cast<const float4*>(stage_out + r * OUT_PITCH + c);
+            if constexpr (RESID) {
+              const uint2 xr = res[ch * G::RES_PER_CHUNK + i];
+              const float2 x01 =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.x));
+              const float2 x23 =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.y));
+              v.x += x01.x;
+              v.y += x01.y;
+              v.z += x23.x;
+              v.w += x23.y;
             }
+            *reinterpret_cast<uint2*>(out + grow * C + n0 + ch * OUT_CH + c) =
+                make_uint2(mofa::pack_bf16(v.x, v.y), mofa::pack_bf16(v.z, v.w));
           }
         }
+      }
     }
   }
 }
@@ -779,16 +840,16 @@ int sm_count() {
 
 // one GEMM: A [M, K] and B [N, K] bf16 as 2-D tensor maps, a persistent
 // grid of at most one block per SM
-template <int C, bool GATE, int TN, bool TANH, bool RESID>
+template <int C, bool GATE, int GELU, bool RESID>
 int launch_gemm(const void* a, const void* b, const void* bias, const void* resid, void* out,
                 int M, cudaStream_t st) {
-  using G = GemmCfg<C, GATE, TN>;
+  using G = GemmCfg<C, GATE>;
   if (M <= 0) return (int)cudaGetLastError();
   CUtensorMap ta, tb;
   if (!mofa::bf16_rows_map(&ta, a, M, G::K, GEMM_BM) ||
       !mofa::bf16_rows_map(&tb, b, GATE ? 8 * C : C, G::K, G::BOX_ROWS))
     return (int)cudaErrorNotSupported;
-  auto kernel = ffn_gemm_kernel<C, GATE, TN, TANH, RESID>;
+  auto kernel = ffn_gemm_kernel<C, GATE, GELU, RESID>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   const int tiles = (M + GEMM_BM - 1) / GEMM_BM * G::N_TILES;
   kernel<<<std::min(tiles, sm_count()), GEMM_THREADS, G::SMEM, st>>>(
@@ -799,36 +860,27 @@ int launch_gemm(const void* a, const void* b, const void* bias, const void* resi
 template <int C>
 int launch_gate(const void* xn, const void* w0, const void* b0, void* h, int R, int gelu,
                 cudaStream_t st) {
-  if (gelu == 0) return launch_gemm<C, true, 128, false, false>(xn, w0, b0, nullptr, h, R, st);
-  if (gelu == 1) return launch_gemm<C, true, 128, true, false>(xn, w0, b0, nullptr, h, R, st);
+  if (gelu == 0) return launch_gemm<C, true, 0, false>(xn, w0, b0, nullptr, h, R, st);
+  if (gelu == 1) return launch_gemm<C, true, 1, false>(xn, w0, b0, nullptr, h, R, st);
   return (int)cudaErrorInvalidValue;
-}
-
-template <int C, int TN>
-int launch_out_tn(const void* h, const void* w2, const void* b2, const void* resid, void* out,
-                  int R, cudaStream_t st) {
-  if (resid != nullptr)
-    return launch_gemm<C, false, TN, false, true>(h, w2, b2, resid, out, R, st);
-  return launch_gemm<C, false, TN, false, false>(h, w2, b2, nullptr, out, R, st);
 }
 
 template <int C>
 int launch_out(const void* h, const void* w2, const void* b2, const void* resid, void* out,
-               int R, int tile_cols, cudaStream_t st) {
-  if (tile_cols == 160) return launch_out_tn<C, 160>(h, w2, b2, resid, out, R, st);
-  if (tile_cols == 320) return launch_out_tn<C, 320>(h, w2, b2, resid, out, R, st);
-  return (int)cudaErrorInvalidValue;
+               int R, cudaStream_t st) {
+  if (resid != nullptr) return launch_gemm<C, false, 0, true>(h, w2, b2, resid, out, R, st);
+  return launch_gemm<C, false, 0, false>(h, w2, b2, nullptr, out, R, st);
 }
 
 // the three stages in turn; ls == nullptr: geglu_ffn (no LN, no residual)
 template <int C>
 int launch_ffn(const void* x, const void* ls, const void* lb, const void* w0, const void* b0,
                const void* w2, const void* b2, void* xn, void* h, void* out, int R, int gelu,
-               int tile_cols, cudaStream_t st) {
+               cudaStream_t st) {
   const bool ln = ls != nullptr;
   int err = ln ? launch_ln_rows<C>(x, ls, lb, xn, R, st) : 0;
   if (err == 0) err = launch_gate<C>(ln ? xn : x, w0, b0, h, R, gelu, st);
-  if (err == 0) err = launch_out<C>(h, w2, b2, ln ? x : nullptr, out, R, tile_cols, st);
+  if (err == 0) err = launch_out<C>(h, w2, b2, ln ? x : nullptr, out, R, st);
   return err;
 }
 
@@ -849,18 +901,18 @@ int launch_f32(const void* x, const void* ls, const void* lb, const void* w0, co
 // [8C], w2 [C, 4C], b2 [C] in x's dtype; scratch xn [R, C] and h [R, 4C]
 // in x's dtype (bf16 only); all contiguous and 32-byte aligned. C in
 // {320, 640}; dtype 0 = fp32, 1 = bf16; gelu 0 = erf, 1 = tanh (bf16
-// only); tile_cols: output columns per tile of the out GEMM, 160 or 320.
+// only).
 extern "C" int mofa_ln_geglu_ffn(const void* x, const void* ls, const void* lb,
                                  const void* w0, const void* b0, const void* w2,
                                  const void* b2, void* xn, void* h, void* out, int R, int C,
-                                 int dtype, int gelu, int tile_cols, void* stream) {
+                                 int dtype, int gelu, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (ls == nullptr || lb == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == mofa::kBF16) {
     if (C == 320)
-      return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, tile_cols, st);
+      return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, st);
     if (C == 640)
-      return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, tile_cols, st);
+      return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, st);
   } else if (dtype == mofa::kF32 && gelu == 0) {
     if (C == 320) return launch_f32<320>(x, ls, lb, w0, b0, w2, b2, out, R, st);
     if (C == 640) return launch_f32<640>(x, ls, lb, w0, b0, w2, b2, out, R, st);
@@ -870,15 +922,14 @@ extern "C" int mofa_ln_geglu_ffn(const void* x, const void* ls, const void* lb,
 
 // geglu_ffn: out = GEGLU-FF(x), no LayerNorm, no residual; bf16 only.
 extern "C" int mofa_geglu_ffn(const void* x, const void* w0, const void* b0, const void* w2,
-                              const void* b2, void* h, void* out, int R, int C, int tile_cols,
-                              void* stream) {
+                              const void* b2, void* h, void* out, int R, int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (C == 320)
     return launch_ffn<320>(x, nullptr, nullptr, w0, b0, w2, b2, nullptr, h, out, R, 0,
-                           tile_cols, st);
+                           st);
   if (C == 640)
     return launch_ffn<640>(x, nullptr, nullptr, w0, b0, w2, b2, nullptr, h, out, R, 0,
-                           tile_cols, st);
+                           st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -899,16 +950,15 @@ extern "C" int mofa_ffn_gemm_gate(const void* xn, const void* w0, const void* b0
   return (int)cudaErrorInvalidValue;
 }
 extern "C" int mofa_ffn_gemm_out(const void* h, const void* w2, const void* b2,
-                                 const void* resid, void* out, int R, int C, int tile_cols,
-                                 void* stream) {
+                                 const void* resid, void* out, int R, int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (C == 320) return launch_out<320>(h, w2, b2, resid, out, R, tile_cols, st);
-  if (C == 640) return launch_out<640>(h, w2, b2, resid, out, R, tile_cols, st);
+  if (C == 320) return launch_out<320>(h, w2, b2, resid, out, R, st);
+  if (C == 640) return launch_out<640>(h, w2, b2, resid, out, R, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The fused schedules, bf16 only, arguments as mofa_ln_geglu_ffn without
-// the scratch, dtype, gelu and tile_cols.
+// the scratch, dtype and gelu.
 extern "C" int mofa_ln_geglu_ffn_pipe(const void* x, const void* ls, const void* lb,
                                       const void* w0, const void* b0, const void* w2,
                                       const void* b2, void* out, int R, int C, void* stream) {

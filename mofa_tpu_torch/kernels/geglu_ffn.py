@@ -40,8 +40,6 @@ LN_EPS = 1e-5
 MIN_FUSED_ROWS = 4096
 KERNEL_DIMS = (320, 640)
 VARIANTS = ("plain", "ilv", "pipe", "tanh")
-# output columns per tile of `ffn_gemm_out` (160 or 320), by C
-OUT_TILE_COLS = {320: 320, 640: 320}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GELU = ("none", "tanh")
 
@@ -131,11 +129,10 @@ def _launch_ffn(name, x, ln, weights, approximate="none"):
     h = torch.empty(rows, 4 * c, device=dev, dtype=x2.dtype) if bf16 else None
     if ln:
         launch("mofa_ln_geglu_ffn", dev, *map(_ptr, args), _ptr(xn), _ptr(h),
-               out.data_ptr(), rows, c, _DTYPES[x2.dtype],
-               _GELU.index(approximate), OUT_TILE_COLS[c])
+               out.data_ptr(), rows, c, _DTYPES[x2.dtype], _GELU.index(approximate))
     else:
         launch("mofa_geglu_ffn", dev, *map(_ptr, args), h.data_ptr(),
-               out.data_ptr(), rows, c, OUT_TILE_COLS[c])
+               out.data_ptr(), rows, c)
     count_launch(name)
     return out.reshape(x.shape)
 
@@ -242,9 +239,9 @@ def ffn_gemm_gate(xn, w0, b0, approximate: str = "none") -> torch.Tensor:
     return h
 
 
-def ffn_gemm_out(h, w2, b2, residual=None, tile_cols: int | None = None) -> torch.Tensor:
+def ffn_gemm_out(h, w2, b2, residual=None) -> torch.Tensor:
     """Stage 3: h [rows, 4C], w2 [C, 4C], b2 [C] -> h W2^T + b2 (+ residual
-    [rows, C]); `tile_cols` (160 or 320) overrides OUT_TILE_COLS."""
+    [rows, C])."""
     tensors = [t for t in (h, w2, b2, residual) if t is not None]
     if not use_kernel(*tensors):
         return ffn_gemm_out_plain(h, w2, b2, residual)
@@ -257,11 +254,8 @@ def ffn_gemm_out(h, w2, b2, residual=None, tile_cols: int | None = None) -> torc
             or (residual is not None and residual.shape != (rows, c))):
         raise ValueError(f"ffn_gemm_out: bad shapes {tuple(h.shape)} "
                          f"{tuple(w2.shape)} {tuple(b2.shape)}")
-    tile_cols = OUT_TILE_COLS[c] if tile_cols is None else tile_cols
-    if tile_cols not in (160, 320):
-        raise ValueError(f"ffn_gemm_out: tile_cols 160 or 320; got {tile_cols}")
     h, w2, b2, residual = _stage_operands("ffn_gemm_out", h, w2, b2, residual)
     out = torch.empty(rows, c, device=h.device, dtype=h.dtype)
     launch("mofa_ffn_gemm_out", h.device, h.data_ptr(), w2.data_ptr(),
-           b2.data_ptr(), _ptr(residual), out.data_ptr(), rows, c, tile_cols)
+           b2.data_ptr(), _ptr(residual), out.data_ptr(), rows, c)
     return out

@@ -234,7 +234,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
         lambda: ffn_gemm_gate(xb, w0b[:, :10], b0b),
         lambda: ffn_gemm_gate(xb, w0b, b0b[:100]),
         lambda: ffn_gemm_gate(xb, w0b, b0b, "sigmoid"),
-        lambda: ffn_gemm_out(h, w2b, b2b, tile_cols=200),
         lambda: ffn_gemm_out(h[:, :640], w2b, b2b),
         lambda: ffn_gemm_out(h, w2b, b2b, residual=xb[:10]),
         lambda: ffn_gemm_out(h.float(), w2b, b2b)]
@@ -246,7 +245,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
              lambda: geglu_ffn(xb, w0b, b0b, w2b, b2b),
              lambda: ffn_ln_rows(xb, ls, lb),
              lambda: ffn_gemm_gate(xb, w0b, b0b, "tanh"),
-             lambda: ffn_gemm_out(h, w2b, b2b, residual=xb, tile_cols=160)]
+             lambda: ffn_gemm_out(h, w2b, b2b, residual=xb)]
     for call in taken:
         with pytest.raises(RuntimeError, match="launch"):
             call()
