@@ -1240,7 +1240,7 @@ def phase_gn_conv(dev) -> dict:
 
 def phase_profile(dev, steps: int = 2) -> None:
     """torch.profiler over the main path at `steps` steps, without the VAE
-    decode: device time by kernel name, top 25 (a breakdown, not a
+    decode: device time by kernel name, top 40 (a breakdown, not a
     timing: the profiler adds overhead)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1257,7 +1257,7 @@ def phase_profile(dev, steps: int = 2) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40,
                                   max_name_column_width=60))
 
 

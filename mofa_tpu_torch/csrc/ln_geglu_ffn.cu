@@ -525,17 +525,15 @@ __global__ void __launch_bounds__(256) ffn_ln_rows_kernel(
   uint4 v[PER];
   float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
+  for (int i = 0; i < PER; ++i) {                  // a lane past the row reads zeros
     const int c = lane + 32 * i;
-    if (c < V) {
-      v[i] = xr[c];
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
+    v[i] = c < V ? xr[c] : make_uint4(0u, 0u, 0u, 0u);
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p[e]);
-        s1 += f.x + f.y;
-        s2 += f.x * f.x + f.y * f.y;
-      }
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(p[e]);
+      s1 += f.x + f.y;
+      s2 += f.x * f.x + f.y * f.y;
     }
   }
   s1 = mofa::warp_sum(s1);
