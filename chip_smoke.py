@@ -15,8 +15,11 @@ Phases, each printed as it finishes:
      PyTorch call's times (CUDA events, median of 5) and, for the FFN,
      GroupNorm and fused-conv kernels, the stock chain the port's models
      run; flash also timed beside SDPA at the main path's own /8 shape
-     (B*T = 50, no plain version: its logits would not fit); then planted
-     faults, which the bf16 bounds must reject;
+     (B*T = 50, no plain version: its logits would not fit); the FFN at
+     both widths, and its bf16 route's three stages (LN pass, gate GEMM,
+     out GEMM) each alone against its plain stage, timed beside one
+     cuBLAS call of the same product; then planted faults, which the
+     bf16 bounds must reject;
      3b. the FFN variants (tools/bench_ffn.py's A/B): plain, ilv, pipe,
      tanh, geglu_ffn and the stock chain at the main path's three FF
      shapes, their agreement with "plain" and one pass's launch counts;

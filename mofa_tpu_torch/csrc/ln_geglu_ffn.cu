@@ -19,23 +19,27 @@
 // - `ffn_gemm_gate`: h = gate(xn W0^T + b0), [M, 4C] bf16. A block tile is
 //   128 rows (two consumer warpgroups of 64) x 128 gate columns; a
 //   producer warpgroup (its registers handed to the consumers with
-//   `setmaxnreg`) issues the TMA copies into a ring of shared-memory
+//   `setmaxnreg`) issues the TMA copies into a ring of four shared-memory
 //   stages, each holding a k-tile of 64: the xn rows, W0 rows
 //   [n0, n0 + 128) (a) and W0 rows [4C + n0, 4C + n0 + 128) (g), all three
 //   boxes 128-byte swizzled. The a and g boxes lie back to back, so one
 //   `wgmma.m64n256k16` per k16 makes both halves, and a_j and g_j land in
 //   the same thread at accumulator offsets j and 64 + j: the epilogue adds
-//   b0, applies the gate in fp32 (erff, or tanhf for "tanh") and stores
-//   bf16 pairs, masking rows past M.
+//   b0, applies the gate in fp32 (erf as the TPU kernel's own
+//   Abramowitz-Stegun polynomial, or tanhf for "tanh") and stores bf16
+//   pairs, masking rows past M.
 // - `ffn_gemm_out`: out = h W2^T + b2 (+ x), the same mainloop with h as
-//   the A operand and W2 rows as B: a tile is 128 rows x TN output columns
-//   (TN = 160 or 320, one or two `wgmma.m64n160k16` per k16); the
-//   epilogue adds b2 and the residual in fp32 and rounds once.
+//   the A operand and W2 rows as B, a tile of 128 rows x 160 output columns
+//   (one `wgmma.m64n160k16` per k16, B as two 80-row boxes) and five ring
+//   stages; the epilogue stages 32 columns at a time in fp32 through
+//   shared memory and writes rows of 4-column pieces with the residual
+//   added, rounded once.
 // Both GEMMs are persistent (one block per SM walks the tiles, N
 // fastest, so a row tile's A operand is re-read from L2, not HBM, and the
 // weights stay resident in L2); the producer runs ahead into the next
-// tile's k-tiles while the consumers run the epilogue. TMA zero-fills the
-// rows past M. The rounding points are the TPU kernel's: LN rounded to
+// tile's k-tiles while the consumers run the epilogue, whose bias (and
+// residual) loads are issued before the tile's products. TMA zero-fills
+// the rows past M. The rounding points are the TPU kernel's: LN rounded to
 // bf16, fp32 accumulation plus bias, the gate in fp32 rounded to bf16,
 // fp32 accumulation plus bias plus residual rounded once. So h in device
 // memory changes no result; its round trip costs 2 M 4C 2 bytes each way,
@@ -44,11 +48,11 @@
 // the fused kernel's whole [64, C] fp32 output accumulator takes 64 C / 128
 // registers a thread, 320 at C = 640, over the 255 limit; splitting the
 // output columns across warpgroups that share each gate chunk through
-// shared memory would need a schedule of its own. PR 3's fused `mma.sync`
-// kernel read all of W0 and W2 from L2 for every 64 rows and lost to the
-// stock cuBLAS chain at both widths.
+// shared memory would need a schedule of its own. The fused `mma.sync`
+// design this route replaced read all of W0 and W2 from L2 for every 64
+// rows and lost to the stock cuBLAS chain at both widths.
 //
-// ilv / pipe (entry points only): PR 3's fused schedules on
+// ilv / pipe (entry points only): fused schedules on
 // `mma.sync.m16n8k16` fed by `ldmatrix`: a block puts a 64-row tile
 // (normalised) into shared memory once and walks the 4C inner axis in
 // chunks (32 wide at C=320, 16 at C=640): the chunk's W0 rows (a and g)
@@ -97,10 +101,7 @@ __device__ __forceinline__ float gelu_erf(float g) {
 __device__ __forceinline__ float gelu_tanh(float g) {
   return 0.5f * g * (1.0f + tanhf(0.7978845608028654f * (g + 0.044715f * g * g * g)));
 }
-template <bool TANH>
-__device__ __forceinline__ float gelu_gate(float a, float g) {
-  return a * (TANH ? gelu_tanh(g) : gelu_erf(g));
-}
+__device__ __forceinline__ float gelu_gate(float a, float g) { return a * gelu_erf(g); }
 // erf as Abramowitz-Stegun 7.1.26 (max abs error 1.5e-7), the TPU
 // kernel's own formula: one reciprocal, five FMAs and one exp2
 __device__ __forceinline__ float gelu_erf_as(float g) {
@@ -231,7 +232,7 @@ __device__ __forceinline__ void gemm1(float (&ha)[BfLayout<C>::KW / 8][4],
 
 // gate = (a + b0a) * gelu(g + b0g) of one warp's fragments, as bf16 into
 // the 16 rows at Aw (pitch LDA), columns of the chunk starting at j0
-template <int C, bool TANH>
+template <int C>
 __device__ __forceinline__ void gate_store(const float (&ha)[BfLayout<C>::KW / 8][4],
                                            const float (&hg)[BfLayout<C>::KW / 8][4],
                                            const bf16* __restrict__ b0, int j0, bf16* Aw, int cg,
@@ -247,11 +248,11 @@ __device__ __forceinline__ void gate_store(const float (&ha)[BfLayout<C>::KW / 8
     const float bg1 = __bfloat162float(b0[I4 + j0 + col + 1]);
     bf16* r0p = Aw + g * LDA + col;
     *reinterpret_cast<__nv_bfloat162*>(r0p) =
-        __floats2bfloat162_rn(gelu_gate<TANH>(ha[j][0] + ba0, hg[j][0] + bg0),
-                              gelu_gate<TANH>(ha[j][1] + ba1, hg[j][1] + bg1));
+        __floats2bfloat162_rn(gelu_gate(ha[j][0] + ba0, hg[j][0] + bg0),
+                              gelu_gate(ha[j][1] + ba1, hg[j][1] + bg1));
     *reinterpret_cast<__nv_bfloat162*>(r0p + 8 * LDA) =
-        __floats2bfloat162_rn(gelu_gate<TANH>(ha[j][2] + ba0, hg[j][2] + bg0),
-                              gelu_gate<TANH>(ha[j][3] + ba1, hg[j][3] + bg1));
+        __floats2bfloat162_rn(gelu_gate(ha[j][2] + ba0, hg[j][2] + bg0),
+                              gelu_gate(ha[j][3] + ba1, hg[j][3] + bg1));
   }
 }
 
@@ -283,8 +284,8 @@ __device__ __forceinline__ void zero_acc(float (&acc)[BfLayout<C>::NC / 8][4]) {
   for (int n = 0; n < BfLayout<C>::NC / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 }
 
-// epilogue of one warp: out rows [rbase, rbase + 16) = acc + b2 (+ x)
-template <int C, bool RESID>
+// epilogue of one warp: out rows [rbase, rbase + 16) = acc + b2 + x
+template <int C>
 __device__ __forceinline__ void store_out(const float (&acc)[BfLayout<C>::NC / 8][4],
                                           const bf16* __restrict__ b2, const bf16* __restrict__ x,
                                           bf16* __restrict__ out, long long rbase, long long R,
@@ -299,12 +300,9 @@ __device__ __forceinline__ void store_out(const float (&acc)[BfLayout<C>::NC / 8
     for (int h = 0; h < 2; ++h) {
       const long long row = rbase + g + 8 * h;
       if (row < R) {
-        float v0 = acc[n][2 * h] + c0, v1 = acc[n][2 * h + 1] + c1;
-        if constexpr (RESID) {
-          const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + row * C + col);
-          v0 += __low2float(xr);
-          v1 += __high2float(xr);
-        }
+        const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + row * C + col);
+        const float v0 = acc[n][2 * h] + c0 + __low2float(xr);
+        const float v1 = acc[n][2 * h + 1] + c1 + __high2float(xr);
         *reinterpret_cast<__nv_bfloat162*>(out + row * C + col) = __floats2bfloat162_rn(v0, v1);
       }
     }
@@ -357,7 +355,7 @@ __global__ void __launch_bounds__(BfLayout<C>::NW * 32, 1) ffn_pipe_kernel(
     mofa::cp_async_wait<1>();                       // W0(ch+1), W2(ch)
     __syncthreads();
     gemm1<C>(na, ngt, Xw, W0s + ((ch + 1) & 1) * Lt::W0T, cg, lane);
-    gate_store<C, false>(ca, cgt, b0, ch * KC, Aw, cg, lane);
+    gate_store<C>(ca, cgt, b0, ch * KC, Aw, cg, lane);
     __syncthreads();
     gemm2<C>(acc, Aw, W2s + (ch & 1) * Lt::W2T, cg, lane);
 #pragma unroll
@@ -368,10 +366,10 @@ __global__ void __launch_bounds__(BfLayout<C>::NW * 32, 1) ffn_pipe_kernel(
   // the drain: the last chunk's gate and GEMM2
   mofa::cp_async_wait<0>();
   __syncthreads();
-  gate_store<C, false>(ca, cgt, b0, (NCH - 1) * KC, Aw, cg, lane);
+  gate_store<C>(ca, cgt, b0, (NCH - 1) * KC, Aw, cg, lane);
   __syncthreads();
   gemm2<C>(acc, Aw, W2s + ((NCH - 1) & 1) * Lt::W2T, cg, lane);
-  store_out<C, true>(acc, b2, x, out, row0 + rt * 16, R, cg, lane);
+  store_out<C>(acc, b2, x, out, row0 + rt * 16, R, cg, lane);
 }
 
 // variant "ilv": BR / 16 row sub-tiles, each a group of CG warps that
@@ -442,13 +440,13 @@ __global__ void __launch_bounds__(IlvLayout<C>::NT, 1) ffn_ilv_kernel(
     float ha[Lt::KW / 8][4], hg[Lt::KW / 8][4];
     gemm1<C>(ha, hg, Xw, W0s + s * Lt::W0T, cg, lane);
     if constexpr (Il::AB == 1) mofa::named_bar_sync(bar_id, CG * 32);  // last gate read
-    gate_store<C, false>(ha, hg, b0, ch * KC, Aw, cg, lane);
+    gate_store<C>(ha, hg, b0, ch * KC, Aw, cg, lane);
     mofa::named_bar_sync(bar_id, CG * 32);
     gemm2<C>(acc, Aw, W2s + s * Lt::W2T, cg, lane);
     __syncwarp();
     if (lane == 0) mofa::mbar_arrive(empty + 8 * s);
   }
-  store_out<C, true>(acc, b2, x, out, row0 + grp * 16, R, cg, lane);
+  store_out<C>(acc, b2, x, out, row0 + grp * 16, R, cg, lane);
 }
 
 constexpr int F32_BR = 16, F32_NT = 256;
@@ -484,7 +482,7 @@ __global__ void __launch_bounds__(F32_NT) ffn_f32_kernel(
     __syncthreads();
     for (int o = tid; o < F32_BR * KC; o += F32_NT) {
       const int r = o / KC, j = o % KC;
-      As[r][j] = gelu_gate<false>(Hs[r][j], Hs[r][KC + j]);
+      As[r][j] = gelu_gate(Hs[r][j], Hs[r][KC + j]);
     }
     __syncthreads();
 #pragma unroll

@@ -22,7 +22,7 @@ own entry point and plain version here:
 The wrappers allocate the xn and h scratch per call and count one launch
 per call; the stage entry points launch one stage each and count nothing
 (`chip_smoke.py` uses them to place a fault in its stage). "ilv" and "pipe"
-keep PR 3's fused schedules on `mma.sync` (the [rows, 8C] intermediate
+keep fused schedules on `mma.sync` (the [rows, 8C] intermediate
 never leaves the block); the source note describes each design. Weights
 use torch Linear layouts: w0 [8C, C], w2 [C, 4C]. The "plain" kernel also
 has an fp32 path (plain FMA); the others take bf16 only and raise on fp32
@@ -214,6 +214,7 @@ def ffn_ln_rows(x, ln_weight, ln_bias) -> torch.Tensor:
                          f"{tuple(ln_weight.shape)} {tuple(ln_bias.shape)}")
     (x,) = _stage_operands("ffn_ln_rows", x)
     ls, lb = (p.float().contiguous() for p in (ln_weight, ln_bias))
+    ls, lb = (p.clone() if p.data_ptr() % 32 else p for p in (ls, lb))
     xn = torch.empty_like(x)
     launch("mofa_ffn_ln_rows", x.device, x.data_ptr(), ls.data_ptr(),
            lb.data_ptr(), xn.data_ptr(), x.shape[0], c)
