@@ -18,8 +18,13 @@ Phases, each printed as it finishes:
      (B*T = 50, no plain version: its logits would not fit); the FFN at
      both widths, and its bf16 route's three stages (LN pass, gate GEMM,
      out GEMM) each alone against its plain stage, timed beside one
-     cuBLAS call of the same product; then planted faults, which the
-     bf16 bounds must reject;
+     cuBLAS call of the same product; softsplat at the adapter's four
+     warp sites from the feature map broadcast over 24 flows (every mode,
+     the raw sums and normaliser plane), with the whole 'avg' call timed
+     against the wrapper path before the redesign; the 3x3 conv's two
+     stages (activation pass, wgmma GEMM) each alone, timed beside one
+     cuDNN conv of the same product; then planted faults, which the bf16
+     bounds must reject;
      3b. the FFN variants (tools/bench_ffn.py's A/B): plain, ilv, pipe,
      tanh, geglu_ffn and the stock chain at the main path's three FF
      shapes, their agreement with "plain" and one pass's launch counts;
@@ -147,7 +152,7 @@ KERNEL_META = {
         source="mofa_tpu_torch/csrc/channel_sums.cu",
         replaces="mofa_tpu/kernels/group_norm.py:92"),
     "gn_silu_conv3x3": dict(
-        source="mofa_tpu_torch/csrc/conv_fused.cu",
+        source="mofa_tpu_torch/csrc/conv3x3.cu",
         replaces="mofa_tpu/kernels/conv_fused.py:190"),
     "gn_silu_tconv3": dict(
         source="mofa_tpu_torch/csrc/conv_fused.cu",
@@ -185,6 +190,7 @@ TOL_FP32 = {"flash_attention": 1e-4, "short_attention_tmajor": 1e-4,
             "short_attention": 1e-4, "ln_geglu_ffn": 1e-3, "softsplat": 1e-4,
             "channel_sums": (1e-5, 1e-5)}
 TOL_BF16 = {"flash_attention": (2e-2, 7e-3),
+            "softsplat": (1e-2, 1e-3),
             "short_attention_tmajor": (2e-2, 7e-3),
             "short_attention": (2e-2, 7e-3),
             "ln_geglu_ffn": (2e-2, 1e-2),
@@ -361,7 +367,10 @@ def planted_faults() -> list:
     inner chunk, the pipeline's drain (pipe FFN), drops the gate half of b0
     (geglu_ffn), computes the erf gelu instead of the tanh form (tanh FFN,
     at gate inputs where the two differ), skips the last S-slab of a block
-    (channel sums), or drops the centre tap (3x3 conv) or the t-1 tap
+    (channel sums), reads the other CFG half's feature map for the last
+    frame or leaves one tap out of the normaliser plane (softsplat 'avg'),
+    drops the centre tap, pads the border with silu(b) instead of 0 or
+    skips one tap's first 64-channel box (3x3 conv), or drops the t-1 tap
     (temporal conv). Every one must MISS; returns the labels of those that
     passed."""
     import torch
@@ -476,6 +485,55 @@ def planted_faults() -> list:
         return (lambda: channel_sums(x3),
                 lambda: channel_sums_plain(x3[:, :cut]))
 
+    def splat_case(fault):
+        from mofa_tpu_torch.kernels.softsplat import softsplat, splat_plain
+        h, w, c = SPLAT_SITES[0]
+        fr = SPLAT_FRAMES
+        src, flow, _ = splat_inputs(g, h, w, c, bf)
+        run = lambda: softsplat(src, flow, None, "avg", fr)
+        if fault == "source":           # the last frame reads the other half's map
+            frame_src = torch.arange(2 * fr, device=dev) // fr
+            frame_src[-1] = 0
+            return run, lambda: softsplat(src[frame_src], flow, None, "avg")
+
+        def norm_tap_skipped():         # tap (x1, y1) never reaches the plane
+            acc = splat_plain(src, flow, None, fr)
+            wsum = splat_plain(torch.ones_like(src[..., :1]), flow, None, fr)
+            f = flow.float()
+            tx = torch.arange(w, device=dev) + f[..., 0]
+            ty = torch.arange(h, device=dev)[:, None] + f[..., 1]
+            x1, y1 = torch.floor(tx) + 1, torch.floor(ty) + 1
+            w3 = (tx - x1 + 1) * (ty - y1 + 1)
+            inside = ((x1 >= 0) & (x1 < w) & (y1 >= 0) & (y1 < h)
+                      & torch.isfinite(tx) & torch.isfinite(ty))
+            flat = (y1.clamp(0, h - 1) * w + x1.clamp(0, w - 1)).long()
+            tap3 = torch.zeros(2 * fr, h * w + 1, device=dev)
+            tap3.scatter_add_(1, torch.where(inside, flat, h * w).reshape(2 * fr, -1),
+                              torch.where(inside, w3, 0.0).reshape(2 * fr, -1))
+            norm = wsum - tap3[:, :h * w].reshape(2 * fr, h, w, 1)
+            return (acc / (norm + 1e-7)).to(bf)
+        return run, norm_tap_skipped
+
+    def conv_box_case(fault):
+        from mofa_tpu_torch.kernels.conv_fused import act_plain
+        x = randn(50, 72, 128, 320)
+        c = 320
+        a, b = randn(50, c, scale=0.3, mean=1.0).float(), randn(50, c, scale=0.2).float()
+        w = randn(3, 3, c, c, scale=1.7 / (9 * c) ** 0.5)
+        bias = randn(c, scale=0.1).float()
+        run = lambda: gn_silu_conv3x3(x, a, b, w, bias)
+        if fault == "box":              # tap (0, 0)'s first 64-channel box skipped
+            wf = w.clone()
+            wf[0, 0, :64] = 0
+            return run, lambda: gn_silu_conv3x3(x, a, b, wf, bias)
+
+        def border_silu_b():            # x padded with 0 before the activation
+            yp = act_plain(torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)), a, b)
+            out = torch.nn.functional.conv2d(yp.permute(0, 3, 1, 2),
+                                             w.permute(3, 2, 0, 1))
+            return (out.permute(0, 2, 3, 1).float() + bias).to(bf)
+        return run, border_silu_b
+
     def conv_case(temporal):
         x = randn(2, 25, 9216, 320) if temporal else randn(50, 72, 128, 320)
         n, c = x.shape[0], 320
@@ -523,8 +581,16 @@ def planted_faults() -> list:
               lambda: ffn_variant_case("tanh")),
              ("channel_sums", "[50, 9216, 320], last S-slab skipped",
               sums_case),
+             ("softsplat", "N=48 h=72 w=128 C=320 avg, last frame's source",
+              lambda: splat_case("source")),
+             ("softsplat", "N=48 h=72 w=128 C=320 avg, plane skips a tap",
+              lambda: splat_case("norm")),
              ("gn_silu_conv3x3", "[50, 72, 128, 320]->320, centre tap dropped",
               lambda: conv_case(False)),
+             ("gn_silu_conv3x3", "[50, 72, 128, 320]->320, border silu(b)",
+              lambda: conv_box_case("border")),
+             ("gn_silu_conv3x3", "[50, 72, 128, 320]->320, one tap box skipped",
+              lambda: conv_box_case("box")),
              ("gn_silu_tconv3", "[2, 25, 9216, 320]->320, t-1 tap dropped",
               lambda: conv_case(True))]
     passed = []
@@ -544,6 +610,101 @@ def planted_faults() -> list:
         del kernel_fn, faulty_fn, got, bad
         torch.cuda.empty_cache()
     return passed
+
+
+# the adapter's four warp sites at 576x1024, T = 25: (h, w, C) at /8../64,
+# N = 2 feature maps (the CFG halves) x 24 flows each
+SPLAT_SITES = ((72, 128, 320), (36, 64, 320), (18, 32, 640), (9, 16, 1280))
+SPLAT_FRAMES = 24
+
+
+def splat_inputs(g, h: int, w: int, c: int, dtype):
+    """Two distinct feature maps [2, h, w, c] (the CFG halves; the main
+    path's two are equal, so a distinct pair shows a frame reading the
+    wrong one), 48 flows [48, h, w, 2] of up to 3 px with out-of-bounds
+    and non-finite pixels, and a metric [48, h, w, 1] in [0, 1)."""
+    import torch
+    dev = g.device
+    src = torch.randn(2, h, w, c, generator=g, device=dev).to(dtype)
+    n = 2 * SPLAT_FRAMES
+    flow = torch.randn(n, h, w, 2, generator=g, device=dev) * 3.0
+    flow[:, 0, :, 0] = -40.0
+    flow[:, 1, ::7, 1] = float("nan")
+    flow[:, 2, ::5, 0] = float("inf")
+    metric = torch.rand(n, h, w, 1, generator=g, device=dev)
+    return src, flow, metric
+
+
+def softsplat_avg_old(src, flow, frames: int):
+    """The 'avg' wrapper path before the splat's redesign: the feature map
+    expanded to every frame, cast to fp32, a ones channel appended (C + 1),
+    the raw splat, then the divide and the cast, each its own pass. The
+    redesigned kernel's scalar route (C + 1 is not a multiple of 4) is the
+    first version's kernel thread for thread: one thread per (pixel,
+    channel), four scalar fp32 atomics."""
+    import torch
+    from mofa_tpu_torch.kernels.softsplat import splat_raw
+    n, h, w, c = src.shape
+    x = src[:, None].expand(n, frames, h, w, c).reshape(n * frames, h, w, c)
+    x = x.float()
+    x = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+    out = splat_raw(x, flow.float())
+    return (out[..., :-1] / (out[..., -1:] + 1e-7)).to(src.dtype)
+
+
+def softsplat_checks(results, g, dev) -> None:
+    """softsplat at the adapter's four sites with the source broadcast as
+    the adapter passes it (frames_per_source = 24, bf16): the raw splat
+    (sums and normaliser plane, fp32 bounds) and every mode against the
+    plain version; fp32 at /8. At /8 the raw splat's time (the row's ms)
+    and the whole 'avg' call, new against the old wrapper path
+    (`avg_call_ms`)."""
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.kernels.softsplat import softsplat, splat_raw
+    bf, fr = torch.bfloat16, SPLAT_FRAMES
+    for h, w, c in SPLAT_SITES:
+        timed = (h, w) == (72, 128)
+        src, flow, metric = splat_inputs(g, h, w, c, bf)
+        label = f"N=48 h={h} w={w} C={c} bf16 source x{fr}"
+        acc_bytes = 2 * fr * h * w * (c + 1) * 4
+        _check(results, "softsplat", "fp32", label + ", raw",
+               lambda: splat_raw(src, flow, None, fr, with_norm=True),
+               lambda: splat_raw(src, flow, None, fr, with_norm=True), timed,
+               work=(8 * 2 * fr * h * w * c, nbytes(src, flow) + acc_bytes,
+                     "fp32"))
+        for mode in ("sum", "avg", "linear", "soft"):
+            m = None if mode in ("sum", "avg") else metric
+            _check(results, "softsplat", "bf16", label + f", {mode}",
+                   lambda: softsplat(src, flow, m, mode, fr),
+                   lambda: softsplat(src, flow, m, mode, fr), False)
+        if timed:
+            src32 = src.float()
+            _check(results, "softsplat", "fp32", f"N=48 h={h} w={w} C={c} "
+                   f"fp32 source x{fr}, avg",
+                   lambda: softsplat(src32, flow, None, "avg", fr),
+                   lambda: softsplat(src32, flow, None, "avg", fr), False)
+            old = lambda: softsplat_avg_old(src, flow, fr)
+            new = lambda: softsplat(src, flow, None, "avg", fr)
+            with torch.no_grad():
+                got_old, got_new = old(), new()
+                err_old = agreement(got_old, got_new)
+                x321 = torch.randn(2 * fr, h, w, c + 1, generator=g, device=dev)
+                call = {"new": time_ms(new), "old_wrapper": time_ms(old)}
+                with kernels.plain_reference():
+                    call["plain"] = time_ms(new)
+                call["old_kernel_c321"] = time_ms(lambda: splat_raw(x321, flow))
+                call["bound"] = bound(8 * 2 * fr * h * w * c,
+                                      nbytes(src, flow, got_new), "fp32")[0]
+            results["softsplat"]["avg_call_ms"] = call
+            log(f"  {'softsplat':24s} bf16 avg call N=48 h={h} w={w} C={c}: "
+                + "  ".join(f"{k} {v:.3f}" for k, v in call.items())
+                + f" ms; old path vs new: max|diff| {err_old[0]:.3e}")
+            if not within("softsplat", "bf16", *err_old):
+                results["softsplat"]["ok"] = False
+            del src32, x321, got_old, got_new
+        del src, flow, metric
+        torch.cuda.empty_cache()
 
 
 def ffn_stages(results, g, c: int, rows: int) -> None:
@@ -592,7 +753,6 @@ def phase_kernels() -> dict:
                                                    fused_group_norm)
     from mofa_tpu_torch.kernels.short_attention import (short_attention,
                                                         short_attention_tmajor)
-    from mofa_tpu_torch.kernels.softsplat import splat_raw
     from mofa_tpu_torch.models.layers import GroupNorm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -737,18 +897,7 @@ def phase_kernels() -> dict:
            lambda: tanh(tail), lambda: tanh(tail), False,
            ref32_fn=lambda: tanh(upcast(*tail)))
     del tail
-    # softsplat raw splat: [N*(T-1), h, w, C+1] at /8../64, fp32; smooth
-    # flow in [-3, 3] px with some out-of-bounds and non-finite pixels
-    for h, w, c, timed in ((72, 128, 321, True), (36, 64, 321, False),
-                           (18, 32, 641, False), (9, 16, 1281, False)):
-        x = randn(48, h, w, c)
-        flow = randn(48, h, w, 2, scale=3.0)
-        flow[:, 0, :, 0] = -40.0
-        flow[:, 1, ::7, 1] = float("nan")
-        flow[:, 2, ::5, 0] = float("inf")
-        _check(results, "softsplat", "fp32", f"N=48 h={h} w={w} C={c}",
-               lambda: splat_raw(x, flow), lambda: splat_raw(x, flow), timed,
-               work=(8 * x.numel(), 2 * nbytes(x) + nbytes(flow), "fp32"))
+    softsplat_checks(results, g, dev)
     # channel sums of GroupNorm inputs [N, S, C] (activations with a mean):
     # UNet /8 and /16 resnets at CFG batch 2 x 25 frames, and the temporal
     # resnet's per-video [B, T*S, C]. Stock chain: the port's GroupNorm on
@@ -817,7 +966,50 @@ def phase_kernels() -> dict:
                    chain_fn=chain,
                    work=(2 * (x.numel() // c) * c * fan_in,
                          2 * nbytes(x) + nbytes(w, temb), "bf16"))
+        if not temporal:
+            conv_stages(results, x, a, b, w, bias, temb, res, timed)
+        del x, res
+        torch.cuda.empty_cache()
     return results
+
+
+def conv_stages(results, x, a, b, w, bias, temb, res, timed: bool) -> None:
+    """The 3x3 route's two stages alone, each against its plain stage with
+    the bf16 bounds of gn_silu_conv3x3 (the GEMM on the kernel's own
+    activated y, so a fault shows in its stage); timed: each stage beside
+    one cuDNN F.conv2d of the same product on the activated bf16 tensor
+    (no bias, temb, residual or sums), on its channels-last view and on an
+    NCHW copy, stored as the row's `stage_ms`."""
+    import torch
+    import torch.nn.functional as F
+    from mofa_tpu_torch.kernels.conv_fused import conv3x3_gemm, gn_silu_act
+    shape = list(x.shape)
+    act = lambda: gn_silu_act(x, a, b)
+    gemm = lambda: conv3x3_gemm(y, w, bias, temb, emit_sums=True)
+    with torch.no_grad():
+        y = act()
+    _check(results, "gn_silu_conv3x3", "bf16", f"{shape} act stage", act, act,
+           False)
+    _check(results, "gn_silu_conv3x3", "bf16", f"{shape} gemm stage, temb, sums",
+           gemm, gemm, False)
+    _check(results, "gn_silu_conv3x3", "bf16", f"{shape} gemm stage, residual",
+           lambda: conv3x3_gemm(y, w, bias, residual=res),
+           lambda: conv3x3_gemm(y, w, bias, residual=res), False)
+    if timed:
+        w_oihw = w.permute(3, 2, 0, 1)
+        y_cl, w_cl = y.permute(0, 3, 1, 2), w_oihw.contiguous(
+            memory_format=torch.channels_last)
+        y_nchw, w_nchw = y_cl.contiguous(), w_oihw.contiguous()
+        with torch.no_grad():
+            split = {"act": time_ms(act), "gemm": time_ms(gemm),
+                     "cudnn_nhwc": time_ms(lambda: F.conv2d(y_cl, w_cl, padding=1)),
+                     "cudnn_nchw": time_ms(lambda: F.conv2d(y_nchw, w_nchw, padding=1))}
+        results["gn_silu_conv3x3"]["stage_ms"] = split
+        log(f"  {'gn_silu_conv3x3':24s} bf16 stages {shape}: "
+            + "  ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms")
+        del y_cl, w_cl, y_nchw, w_nchw
+    del y
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------- phase 3b: the FFN variants
@@ -1369,12 +1561,15 @@ def main() -> None:
             launches[name] = source["launches"][name]
         for name in ("channel_sums", "gn_silu_conv3x3", "gn_silu_tconv3"):
             launches[name] = gn_launches[name]
+        for name in KERNEL_META:        # the 25-step spatial-major video's own
+            kres[name]["main_path_launches"] = main_run["launches"][name]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("chain_ms", "ms_b50", "library_ms_b50", "bound_ms_b50", "ms_c640",
              "plain_ms_c640", "chain_ms_c640", "bound_ms_c640", "bound_by_c640",
-             "stage_ms_c320", "stage_ms_c640")
+             "stage_ms_c320", "stage_ms_c640", "avg_call_ms", "stage_ms",
+             "main_path_launches")
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],
              **{k: kres[n][k] for k in keys},

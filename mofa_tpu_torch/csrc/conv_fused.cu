@@ -1,43 +1,41 @@
-// Fused GroupNorm-apply + SiLU + convolution, channel-last, bf16:
-//   out = conv(silu(x * a + b)) + bias [+ temb] [+ residual]
-// with a, b the folded GroupNorm affine per (n, c), and optionally the fp32
-// sums of out and out^2 per (n, o) (before the cast), for the next norm.
+// Fused GroupNorm-apply + SiLU + temporal convolution, channel-last, bf16:
+//   out = conv_(3 over T)(silu(x * a + b)) + bias [+ temb] [+ residual]
+// with a, b the folded GroupNorm affine per (b, c), and optionally the fp32
+// sums of out and out^2 per (b, o) (before the cast), for the next norm.
 //
-// Replaces mofa_tpu/kernels/conv_fused.py::_fused_conv_fwd (3x3 spatial,
-// x [N, H, W, C]) and ::_fused_tconv_fwd (3 taps over T, x [B, T, S, C]).
-// The TPU kernels hold one image's whole [H, W, C] slice in VMEM and run
-// 9 (or 3) shifted [rows, C] x [C, O] matmuls on an activated strip; a
-// Hopper block has 227 KB of shared memory and many blocks run at once, so
-// here the conv is one implicit GEMM per image: M = output pixels, N = O,
-// K = taps x C. One template serves both kernels: the output pixels are an
-// R x Q grid (H x W, or T x S), the taps 3 x KW (KW = 3: a one-pixel halo
-// in both directions; KW = 1: 3 taps over the rows, S*C elements apart).
+// Replaces mofa_tpu/kernels/conv_fused.py::_fused_tconv_fwd (x [B, T, S,
+// C], 3 taps over T). The TPU kernel holds one video's whole [T, S, C]
+// slice in VMEM and runs 3 shifted [rows, C] x [C, O] matmuls on an
+// activated strip; a Hopper block has 227 KB of shared memory and many
+// blocks run at once, so here the conv is one implicit GEMM per video: M =
+// output pixels, N = O, K = 3 taps x C. The output pixels are a T x S grid
+// (rows R = T, columns Q = S); the 3 taps are rows, S*C elements apart.
+// (The 3x3 spatial conv, which shared this template, is conv3x3.cu.)
 //
-// A block computes a 128-pixel output tile, rb rows x qb columns of the
-// grid, for 64 output channels. For each chunk of 32 input channels it
-// stages the tile's input WINDOW, (rb + 2) x (qb + 2*HX) pixels, into
+// A block computes a 128-pixel output tile, rb = 4 frames x qb = 32
+// positions of the grid, for 64 output channels. For each chunk of 32 input
+// channels it stages the tile's input WINDOW, (rb + 2) x qb pixels, into
 // shared memory once: each thread loads its 16-byte pieces of x into
 // registers one chunk ahead, applies the affine and SiLU in fp32 and
 // stores bf16. Every tap then reads its shifted view of the window: the
-// `ldmatrix` row address of output pixel (r, q) under tap (dy, dx) is
-// window pixel (r + dy, q + dx). Applied per tap instead, the affine and
-// SiLU would run 9x per input value at 3x3 and bound the kernel by that
-// arithmetic, not by the tensor cores. THE TRAP: the conv's zero padding
-// applies to the ACTIVATED tensor, so a window pixel outside the image
-// stores 0, not silu(b). The weight tile of each (chunk, tap) step,
-// [64 o][32 k] (the wrapper lays the weights out as [O, taps*C], K
-// contiguous), is double-buffered with cp.async. Eight warps, each a
-// 32 x 32 sub-tile as 2 x 4 `mma.sync.m16n8k16` (bf16 in, fp32
-// accumulate). The epilogue adds bias, temb (per (n, o), or per (n, t, o)
-// for the temporal kernel) and the residual in fp32, casts, stores, and
+// `ldmatrix` row address of output pixel (r, q) under tap dt is window
+// pixel (r + dt, q). Applied per tap instead, the affine and SiLU would run
+// 3x per input value and bound the kernel by that arithmetic, not by the
+// tensor cores. THE TRAP: the conv's zero padding applies to the ACTIVATED
+// tensor, so a window frame outside the video stores 0, not silu(b). The
+// weight tile of each (chunk, tap) step, [64 o][32 k] (the wrapper lays
+// the weights out as [O, 3*C], K contiguous), is double-buffered with
+// cp.async. Eight warps, each a 32 x 32 sub-tile as 2 x 4
+// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate). The epilogue adds bias,
+// temb (per (b, t, o)) and the residual in fp32, casts, stores, and
 // reduces the sums over its rows: warp shuffles, shared-memory atomics,
 // then one global atomicAdd per (block, o). A block never straddles two
-// images (grid z is the image), so the sums need no split.
+// videos (grid z is the video), so the sums need no split.
 //
-// Bound: tensor-core throughput. At [50, 72, 128, 320] -> 320 the conv is
-// 8.49e11 FLOP (0.86 ms at the 989 TFLOP/s bf16 peak) against 0.59 GB of
-// device memory (0.18 ms); `mma.sync` cannot reach that peak (only `wgmma`
-// can), and the window is staged again for each 64-wide output tile.
+// Bound: tensor-core throughput. At [2, 25, 9216, 320] -> 320 the conv is
+// 2.83e11 FLOP (0.29 ms at the 989 TFLOP/s bf16 peak); `mma.sync` cannot
+// reach that peak (only `wgmma` can), and the window is staged again for
+// each 64-wide output tile.
 #include "common.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -46,18 +44,17 @@ namespace {
 
 constexpr int BM = 128, BN = 64, BK = 32, NT = 256, LDS = BK + 8;
 constexpr int MAX_C = 640;
-constexpr int WMAX = 192;                           // window pixels, at most
-constexpr int WCH = (WMAX * (BK / 8) + NT - 1) / NT;  // 16-byte pieces per thread
+constexpr int TAPS = 3;
+constexpr int QB = 32, RB = BM / QB;                // the tile: 4 frames x 32 positions
+constexpr int WP = (RB + 2) * QB;                   // window pixels
+constexpr int WCH = (WP * (BK / 8) + NT - 1) / NT;  // 16-byte pieces per thread
 
-template <int KW>
-__global__ void __launch_bounds__(NT) gn_silu_conv_kernel(
+__global__ void __launch_bounds__(NT) gn_silu_tconv_kernel(
     const bf16* __restrict__ x, const float* __restrict__ fa, const float* __restrict__ fb,
     const bf16* __restrict__ wt, const float* __restrict__ bias,
     const float* __restrict__ temb, const bf16* __restrict__ res, bf16* __restrict__ out,
-    float* __restrict__ s1, float* __restrict__ s2, int R, int Q, int C, int O, int rb,
-    int silu) {
-  constexpr int TAPS = 3 * KW, HX = KW == 3 ? 1 : 0;
-  __shared__ __align__(16) bf16 Ws[2][WMAX * LDS];  // activated window, per chunk
+    float* __restrict__ s1, float* __restrict__ s2, int R, int Q, int C, int O, int silu) {
+  __shared__ __align__(16) bf16 Ws[2][WP * LDS];    // activated window, per chunk
   __shared__ __align__(16) bf16 Bs[2][BN * LDS];    // weight tile, per (chunk, tap)
   __shared__ float sa[MAX_C], sb[MAX_C];
   __shared__ float red[2][BN];
@@ -65,9 +62,8 @@ __global__ void __launch_bounds__(NT) gn_silu_conv_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp % 4, wn = warp / 4;           // 32-row / 32-column sub-tile
-  const int qb = BM / rb, WQ = qb + 2 * HX, WP = (rb + 2) * WQ;
-  const int tiles_q = (Q + qb - 1) / qb;
-  const int r0 = (blockIdx.y / tiles_q) * rb, q0 = (blockIdx.y % tiles_q) * qb;
+  const int tiles_q = (Q + QB - 1) / QB;
+  const int r0 = (blockIdx.y / tiles_q) * RB, q0 = (blockIdx.y % tiles_q) * QB;
   const int o0 = blockIdx.x * BN;
   const int n = blockIdx.z;
   const long long K = (long long)TAPS * C;
@@ -86,16 +82,15 @@ __global__ void __launch_bounds__(NT) gn_silu_conv_kernel(
 #pragma unroll
   for (int j = 0; j < WCH; ++j) {
     const int p = (tid + NT * j) >> 2;
-    const int ir = r0 + p / WQ - 1, iq = q0 + p % WQ - HX;
+    const int ir = r0 + p / QB - 1, iq = q0 + p % QB;
     wok[j] = p < WP && ir >= 0 && ir < R && iq >= 0 && iq < Q;
     woff[j] = wok[j] ? ((long long)ir * Q + iq) * C + cc : 0;
   }
-  // the window pixel of each of this lane's ldmatrix rows (tap (0, 0))
+  // the window pixel of each of this lane's ldmatrix rows (tap 0)
   int abase[2];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
-    const int rr = wm * 32 + mi * 16 + (lane & 15);
-    abase[mi] = (rr / qb) * WQ + rr % qb;
+    abase[mi] = wm * 32 + mi * 16 + (lane & 15);    // window rows are QB wide, as the tile's
   }
   const int nck = C / BK, NS = TAPS * nck;
   uint4 wreg[WCH];
@@ -158,7 +153,7 @@ __global__ void __launch_bounds__(NT) gn_silu_conv_kernel(
     const bool more = s + 1 < NS, next_chunk = chunk + 1 < nck;
     if (more) load_b(buf ^ 1, s + 1);
     if (tap == 0 && next_chunk) load_w(chunk + 1);
-    const int shift = (tap / KW) * WQ + (KW == 3 ? tap % KW : 0);
+    const int shift = tap * QB;
     const bf16* Wt = Ws[wbuf];
     const bf16* Bt = Bs[buf] + wn * 32 * LDS;
 #pragma unroll
@@ -194,12 +189,12 @@ __global__ void __launch_bounds__(NT) gn_silu_conv_kernel(
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int rr = wm * 32 + mi * 16 + g + 8 * hh;
-      const int orow = r0 + rr / qb, ocol = q0 + rr % qb;
+      const int orow = r0 + rr / QB, ocol = q0 + rr % QB;
       if (orow >= R || ocol >= Q) continue;
       const long long m = (long long)orow * Q + ocol;
       const long long ooff = ((long long)n * R * Q + m) * O;
       const float* tb = nullptr;
-      if (temb) tb = temb + (KW == 1 ? (long long)n * R + orow : (long long)n) * O;
+      if (temb) tb = temb + ((long long)n * R + orow) * O;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int o = o0 + wn * 32 + j * 8 + 2 * t;
@@ -248,41 +243,30 @@ __global__ void __launch_bounds__(NT) gn_silu_conv_kernel(
   }
 }
 
-template <int KW>
 int launch(const void* x, const void* a, const void* b, const void* wt, const void* bias,
            const void* temb, const void* res, void* out, void* s1, void* s2, int N, int R,
            int Q, int C, int O, int silu, cudaStream_t st) {
   if (C % BK || O % BN || C > MAX_C || C <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
-  // tile shape rb x qb = 128 pixels, its window (rb + 2) x (qb + 2*HX) <= WMAX
-  const int qb = KW == 3 ? (Q > 8 ? 16 : 8) : 32, rb = BM / qb;
-  const long long tiles = (long long)((R + rb - 1) / rb) * ((Q + qb - 1) / qb);
+  const long long tiles = (long long)((R + RB - 1) / RB) * ((Q + QB - 1) / QB);
   if (N > 0 && tiles > 0)
-    gn_silu_conv_kernel<KW><<<dim3(O / BN, (unsigned)tiles, N), NT, 0, st>>>(
+    gn_silu_tconv_kernel<<<dim3(O / BN, (unsigned)tiles, N), NT, 0, st>>>(
         (const bf16*)x, (const float*)a, (const float*)b, (const bf16*)wt,
         (const float*)bias, (const float*)temb, (const bf16*)res, (bf16*)out, (float*)s1,
-        (float*)s2, R, Q, C, O, rb, silu);
+        (float*)s2, R, Q, C, O, silu);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x [N, H, W, C] bf16; a, b [N, C] fp32; wt [O, 9*C] bf16 (HWIO re-laid out
-// as rows of O); bias [O] fp32; temb [N, O] fp32 or null; res [N, H, W, O]
-// bf16 or null; out [N, H, W, O] bf16; s1/s2 [N, O] fp32 zero-filled, or
-// null. All contiguous and 16-byte aligned; C % 32 == 0, C <= 640, O % 64 == 0.
-extern "C" int mofa_gn_silu_conv3x3(const void* x, const void* a, const void* b,
-                                    const void* wt, const void* bias, const void* temb,
-                                    const void* res, void* out, void* s1, void* s2, int N,
-                                    int H, int W, int C, int O, int silu, void* stream) {
-  return launch<3>(x, a, b, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, silu,
-                   (cudaStream_t)stream);
-}
-
-// The same over x [B, T, S, C] with 3 taps over T: wt [O, 3*C]; temb [B, T, O].
+// x [B, T, S, C] bf16; a, b [B, C] fp32; wt [O, 3*C] bf16 (the [3, C, O]
+// taps re-laid out as rows of O); bias [O] fp32; temb [B, T, O] fp32 or
+// null; res [B, T, S, O] bf16 or null; out [B, T, S, O] bf16; s1/s2 [B, O]
+// fp32 zero-filled, or null. All contiguous and 16-byte aligned; C % 32 ==
+// 0, C <= 640, O % 64 == 0.
 extern "C" int mofa_gn_silu_tconv3(const void* x, const void* a, const void* b,
                                    const void* wt, const void* bias, const void* temb,
                                    const void* res, void* out, void* s1, void* s2, int B,
                                    int T, int S, int C, int O, int silu, void* stream) {
-  return launch<1>(x, a, b, wt, bias, temb, res, out, s1, s2, B, T, S, C, O, silu,
-                   (cudaStream_t)stream);
+  return launch(x, a, b, wt, bias, temb, res, out, s1, s2, B, T, S, C, O, silu,
+                (cudaStream_t)stream);
 }

@@ -28,7 +28,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # C entry points: name -> argtypes (restype is c_int = cudaError_t)
 _SIGNATURES = {
-    "mofa_softsplat_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "mofa_softsplat": [_P] * 5 + [_I] * 6 + [_P],
+    "mofa_softsplat_normalize": [_P] * 3 + [_I] * 4 + [_P],
     "mofa_tmajor_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mofa_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mofa_ln_geglu_ffn": [_P] * 10 + [_I] * 4 + [_P],
@@ -40,7 +41,9 @@ _SIGNATURES = {
     "mofa_ffn_gemm_out": [_P] * 5 + [_I] * 2 + [_P],
     "mofa_short_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mofa_channel_sums": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "mofa_gn_silu_conv3x3": [_P] * 10 + [_I] * 6 + [_P],
+    "mofa_gn_silu_conv3x3": [_P] * 11 + [_I] * 6 + [_P],
+    "mofa_gn_silu_act": [_P] * 4 + [_I] * 5 + [_P],
+    "mofa_conv3x3_gemm": [_P] * 8 + [_I] * 5 + [_P],
     "mofa_gn_silu_tconv3": [_P] * 10 + [_I] * 6 + [_P],
 }
 

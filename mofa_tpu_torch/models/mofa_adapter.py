@@ -51,11 +51,12 @@ class FirstFrameEncoder(nn.Module):
 
 def batched_warp(cond: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
     """cond [N, h, w, c], flows [N, T-1, h, w, 2] -> [N, T-1, h, w, c]
-    ('avg' softsplat of the same features along every frame's flow)."""
+    ('avg' softsplat of the same features along every frame's flow; the
+    splat reads each of the N feature maps once for its T-1 frames)."""
     n, tm1 = flows.shape[:2]
     h, w, c = cond.shape[1:]
-    rep = cond[:, None].expand(n, tm1, h, w, c).reshape(n * tm1, h, w, c)
-    warped = softsplat(rep, flows.reshape(n * tm1, h, w, 2), None, "avg")
+    warped = softsplat(cond, flows.reshape(n * tm1, h, w, 2), None, "avg",
+                       frames_per_source=tm1)
     return warped.reshape(n, tm1, h, w, c)
 
 

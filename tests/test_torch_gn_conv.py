@@ -25,9 +25,11 @@ from mofa_tpu.kernels.group_norm import _gn_ref
 from mofa_tpu.kernels.group_norm import channel_sums as j_channel_sums
 from mofa_tpu.kernels.group_norm import fused_group_norm as j_fused_gn
 
-from mofa_tpu_torch.kernels.conv_fused import (fused_conv_applicable,
+from mofa_tpu_torch.kernels.conv_fused import (conv3x3_gemm,
+                                               fused_conv_applicable,
                                                fused_tconv_applicable,
-                                               gn_silu_conv3x3, gn_silu_tconv3)
+                                               gn_silu_act, gn_silu_conv3x3,
+                                               gn_silu_tconv3)
 from mofa_tpu_torch.kernels.group_norm import (channel_sums, fused_group_norm,
                                                group_norm_plain)
 from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
@@ -115,6 +117,30 @@ def test_conv3x3_epilogues_and_sums_match_pallas_interpret():
     _close(out, _ref_chain(*[_j(v) for v in case], True), 1e-4)
     np.testing.assert_allclose(s1.numpy(), _np(j1), rtol=5e-4, atol=1e-4)
     np.testing.assert_allclose(s2.numpy(), _np(j2), rtol=5e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("silu,temb,res,sums", [(True, True, True, True),
+                                                (False, False, False, False),
+                                                (True, False, True, False),
+                                                (False, True, False, True)])
+def test_conv3x3_stages_match_pallas_interpret(silu, temb, res, sums):
+    """The 3x3 route's two stages: the activation pass, then the conv of
+    the activated tensor (zero padding at the border rows and columns),
+    composed, against the JAX kernel `_fused_conv_fwd` in interpret mode."""
+    case = _conv_case(temb=temb, res=res, seed=20 + 2 * silu + temb)
+    x, a, b, w, bias, tb, rr = [_t(v) for v in case]
+    y = gn_silu_act(x, a, b, silu)
+    got = conv3x3_gemm(y, w, bias, tb, rr, emit_sums=sums)
+    ref = j_conv(*[_j(v) for v in case], silu, sums)
+    if sums:
+        (got, s1, s2), (ref, j1, j2) = got, ref
+        np.testing.assert_allclose(s1.numpy(), _np(j1), rtol=5e-4, atol=1e-4)
+        np.testing.assert_allclose(s2.numpy(), _np(j2), rtol=5e-4, atol=1e-4)
+    _close(got, ref, 1e-4)
+    border = lambda v: np.concatenate([_np(v)[:, [0, -1]].reshape(-1),
+                                       _np(v)[:, :, [0, -1]].reshape(-1)])
+    _close(border(got), border(ref), 1e-4)
+    _close(gn_silu_conv3x3(x, a, b, w, bias, tb, rr, silu), got, 0)
 
 
 def test_tconv3_epilogues_and_sums_match_pallas_interpret():

@@ -14,14 +14,15 @@ import pytest
 import torch
 
 from mofa_tpu_torch import kernels
-from mofa_tpu_torch.kernels.conv_fused import gn_silu_conv3x3, gn_silu_tconv3
+from mofa_tpu_torch.kernels.conv_fused import (conv3x3_gemm, gn_silu_act,
+                                               gn_silu_conv3x3, gn_silu_tconv3)
 from mofa_tpu_torch.kernels.flash_attention import flash_attention
 from mofa_tpu_torch.kernels.geglu_ffn import (ffn_gemm_gate, ffn_gemm_out,
                                               ffn_ln_rows, geglu_ffn, ln_geglu_ffn)
 from mofa_tpu_torch.kernels.group_norm import channel_sums
 from mofa_tpu_torch.kernels.short_attention import (short_attention,
                                                     short_attention_tmajor)
-from mofa_tpu_torch.kernels.softsplat import splat_raw
+from mofa_tpu_torch.kernels.softsplat import softsplat, splat_raw
 
 
 @pytest.mark.gpu
@@ -182,6 +183,64 @@ def test_ffn_route_on_card(rows, c, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sum", "avg", "linear-zeroeps", "soft-clipeps"])
+@pytest.mark.parametrize("c,dt", [(320, torch.bfloat16), (64, torch.float32),
+                                  (6, torch.bfloat16), (5, torch.float32)])
+def test_softsplat_on_card(c, dt, mode):
+    """The splat (vector reductions at C % 4 == 0, scalar ones otherwise)
+    and its normalising pass, from a source broadcast over 3 frames each
+    (two distinct sources), with out-of-bounds and non-finite flow, against
+    the plain version: the raw sums and the normaliser plane in fp32, then
+    the whole mode in the source dtype; one launch count per call."""
+    rn = _card(c + len(mode))
+    src = rn(2, 9, 13, c).to(dt)
+    flow = rn(6, 9, 13, 2) * 3
+    flow[:, 0, :, 0] = -40.0
+    flow[1, 2, ::3, 1] = float("nan")
+    metric = rn(6, 9, 13, 1).abs()
+    m = None if mode in ("sum", "avg") else metric
+    kernels.reset_launch_counts()
+    acc, norm = splat_raw(src, flow, metric, 3, with_norm=True)
+    with kernels.plain_reference():
+        ref_acc, ref_norm = splat_raw(src, flow, metric, 3, with_norm=True)
+    for got, ref in ((acc, ref_acc), (norm, ref_norm)):
+        assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+    _assert_like_plain(lambda: softsplat(src, flow, m, mode, frames_per_source=3), dt)
+    assert kernels.launch_counts()["softsplat"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,c,o", [(2, 5, 7, 64, 128), (3, 12, 40, 96, 192),
+                                       (1, 33, 64, 320, 320), (2, 9, 128, 32, 64),
+                                       (1, 4, 200, 640, 640)])
+def test_conv3x3_route_on_card(n, h, w, c, o):
+    """The 3x3 route: the activation pass and the wgmma implicit GEMM
+    (output-channel tiles of 160, 128 and 64; pixel tiles of 8 to 128
+    columns, ragged at the image's edge; channels past C zero-filled at C =
+    96 and 32), each stage alone and composed, with and without SiLU, temb,
+    residual and the sums, against their plain versions; one launch count
+    per call of the route, none for the stages."""
+    rn = _card(n * h * w + c + o)
+    bf = torch.bfloat16
+    x = (rn(n, h, w, c) * 1.5).to(bf)
+    a, b = rn(n, c) * 0.3 + 1, rn(n, c) * 0.2
+    wk = (rn(3, 3, c, o) / (3 * c ** 0.5)).to(bf)
+    bias, temb, res = rn(o) * 0.1, rn(n, o) * 0.3, rn(n, h, w, o).to(bf)
+    kernels.reset_launch_counts()
+    for silu in (True, False):
+        _assert_like_plain(lambda: gn_silu_act(x, a, b, silu), bf)
+    y = gn_silu_act(x, a, b)
+    _assert_like_plain(lambda: conv3x3_gemm(y, wk, bias, temb, res), bf)
+    assert sum(kernels.launch_counts().values()) == 0
+    full = lambda: gn_silu_conv3x3(x, a, b, wk, bias, temb, res, emit_sums=True)
+    for i in range(3):                  # the output, then each of its sums
+        _assert_like_plain(lambda: full()[i], bf)
+    _assert_like_plain(lambda: gn_silu_conv3x3(x, a, b, wk, bias, silu=False), bf)
+    counts = kernels.launch_counts()
+    assert counts["gn_silu_conv3x3"] == 4 and sum(counts.values()) == 4
+
+
+@pytest.mark.gpu
 def test_kernels_raise_under_grad():
     """The kernels are forward only: on a card, a wrapper raises when grad
     is enabled and an input requires grad, and launches under no_grad."""
@@ -192,18 +251,24 @@ def test_kernels_raise_under_grad():
     ls, lb = rn(320) + 1, rn(320)
     w0, b0 = (rn(2560, 320) / 18).to(bf), rn(2560).to(bf)
     w2, b2 = (rn(320, 1280) / 36).to(bf), rn(320).to(bf)
+    src, flow = rn(1, 8, 8, 64).to(bf).requires_grad_(), rn(2, 8, 8, 2)
+    xc, a = rn(2, 8, 8, 64).to(bf).requires_grad_(), rn(2, 64)
+    w3, bias = (rn(3, 3, 64, 64) / 24).to(bf), rn(64)
+    calls = {"flash_attention": lambda: flash_attention(q, q, q),
+             "ln_geglu_ffn": lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
+             "softsplat": lambda: softsplat(src, flow, None, "avg", 2),
+             "gn_silu_conv3x3": lambda: gn_silu_conv3x3(xc, a, a, w3, bias)}
     kernels.reset_launch_counts()
-    with pytest.raises(RuntimeError, match="flash_attention.*forward only"):
-        flash_attention(q, q, q)
-    with pytest.raises(RuntimeError, match="ln_geglu_ffn.*forward only"):
-        ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}.*forward only"):
+            call()
     assert sum(kernels.launch_counts().values()) == 0
     with torch.no_grad():
-        flash_attention(q, q, q)
-        ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2)
+        for call in calls.values():
+            call()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == counts["ln_geglu_ffn"] == 1
+    assert all(counts[name] == 1 for name in calls)
 
 
 @pytest.mark.gpu

@@ -159,6 +159,45 @@ def test_softsplat_modes_match_jax(mode):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
+def _broadcast_case(seed, frames=3, c=6):
+    """Two distinct source maps, each splatted along `frames` flows, and
+    a metric in [0, 1); the flow as in _splat_case."""
+    inp, flow = _splat_case(b=2 * frames, c=c, seed=seed)
+    src = np.random.RandomState(seed + 1).randn(2, *inp.shape[1:]).astype(np.float32)
+    metric = np.random.RandomState(seed + 2).rand(*flow.shape[:3], 1).astype(np.float32)
+    return src, flow, metric, np.repeat(src, frames, axis=0)
+
+
+@pytest.mark.parametrize("mode", ["sum", "avg", "linear", "soft"])
+def test_softsplat_broadcast_source_matches_jax(mode):
+    """frames_per_source = 3: the port splats each of two maps along three
+    flows; JAX splats the expanded copy."""
+    src, flow, metric, expanded = _broadcast_case(seed=11)
+    m = None if mode in ("sum", "avg") else metric
+    got = softsplat(_t(src), _t(flow), None if m is None else _t(m), mode,
+                    frames_per_source=3).numpy()
+    ref = _np(j_softsplat(jnp.asarray(expanded), jnp.asarray(flow),
+                          None if m is None else jnp.asarray(m), mode))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric_kind", ["ones", "metric"])
+def test_splat_norm_plane_matches_pallas_interpret(metric_kind):
+    """The raw splat with its normaliser plane, from a broadcast source:
+    the sums of (x * m) * w and the plane of m * w against the Pallas
+    kernel (interpret mode) on the JAX wrapper's concatenated [x * m, m]."""
+    src, flow, metric, expanded = _broadcast_case(seed=12)
+    m = np.ones_like(metric) if metric_kind == "ones" else metric
+    acc, norm = splat_raw(_t(src), _t(flow),
+                          None if metric_kind == "ones" else _t(m), 3,
+                          with_norm=True)
+    cat = np.concatenate([expanded * m, m], axis=-1)
+    pallas = _np(splat_pallas(jnp.asarray(cat), jnp.asarray(np.nan_to_num(
+        flow, nan=1e9, posinf=1e9))))
+    np.testing.assert_allclose(acc.numpy(), pallas[..., :-1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(norm.numpy(), pallas[..., -1], rtol=0, atol=1e-5)
+
+
 # ------------------------------------------------------ device discipline
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
