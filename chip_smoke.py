@@ -657,7 +657,8 @@ def softsplat_checks(results, g, dev) -> None:
     the adapter passes it (frames_per_source = 24, bf16): the raw splat
     (sums and normaliser plane, fp32 bounds) and every mode against the
     plain version; fp32 at /8. At /8 the raw splat's time (the row's ms)
-    and the whole 'avg' call, new against the old wrapper path
+    and the whole 'avg' call, new against the old wrapper path, with the
+    accumulator's zero fill and the raw splat along a smooth flow
     (`avg_call_ms`)."""
     import torch
     from mofa_tpu_torch import kernels
@@ -694,6 +695,17 @@ def softsplat_checks(results, g, dev) -> None:
                 with kernels.plain_reference():
                     call["plain"] = time_ms(new)
                 call["old_kernel_c321"] = time_ms(lambda: splat_raw(x321, flow))
+                # where the raw splat's time goes: the accumulator's zero
+                # fill, and the same splat along a smooth flow (the main
+                # path's flows are smooth; the checks' are random per pixel)
+                call["zero_fill"] = time_ms(lambda: torch.zeros(
+                    2 * fr, h, w, c, device=dev, dtype=torch.float32))
+                smooth = torch.nn.functional.interpolate(
+                    torch.randn(2 * fr, 2, h // 8, w // 8, generator=g, device=dev)
+                    * 3.0, size=(h, w), mode="bilinear").permute(0, 2, 3, 1)
+                smooth = smooth.contiguous()
+                call["raw_smooth_flow"] = time_ms(
+                    lambda: splat_raw(src, smooth, None, fr, with_norm=True))
                 call["bound"] = bound(8 * 2 * fr * h * w * c,
                                       nbytes(src, flow, got_new), "fp32")[0]
             results["softsplat"]["avg_call_ms"] = call
@@ -702,7 +714,7 @@ def softsplat_checks(results, g, dev) -> None:
                 + f" ms; old path vs new: max|diff| {err_old[0]:.3e}")
             if not within("softsplat", "bf16", *err_old):
                 results["softsplat"]["ok"] = False
-            del src32, x321, got_old, got_new
+            del src32, x321, got_old, got_new, smooth
         del src, flow, metric
         torch.cuda.empty_cache()
 
@@ -979,7 +991,8 @@ def conv_stages(results, x, a, b, w, bias, temb, res, timed: bool) -> None:
     activated y, so a fault shows in its stage); timed: each stage beside
     one cuDNN F.conv2d of the same product on the activated bf16 tensor
     (no bias, temb, residual or sums), on its channels-last view and on an
-    NCHW copy, stored as the row's `stage_ms`."""
+    NCHW copy, and the GEMM's other epilogue forms (neither temb nor sums;
+    the residual), stored as the row's `stage_ms`."""
     import torch
     import torch.nn.functional as F
     from mofa_tpu_torch.kernels.conv_fused import conv3x3_gemm, gn_silu_act
@@ -1002,6 +1015,9 @@ def conv_stages(results, x, a, b, w, bias, temb, res, timed: bool) -> None:
         y_nchw, w_nchw = y_cl.contiguous(), w_oihw.contiguous()
         with torch.no_grad():
             split = {"act": time_ms(act), "gemm": time_ms(gemm),
+                     "gemm_no_temb_sums": time_ms(lambda: conv3x3_gemm(y, w, bias)),
+                     "gemm_residual": time_ms(
+                         lambda: conv3x3_gemm(y, w, bias, residual=res)),
                      "cudnn_nhwc": time_ms(lambda: F.conv2d(y_cl, w_cl, padding=1)),
                      "cudnn_nchw": time_ms(lambda: F.conv2d(y_nchw, w_nchw, padding=1))}
         results["gn_silu_conv3x3"]["stage_ms"] = split

@@ -13,7 +13,7 @@
 //   over [N, H, W, C] with 16-byte loads and stores. Bound: bytes, 2 N H W
 //   C x 2 (0.18 ms at [50, 72, 128, 320] on 3.35 TB/s).
 // - `conv_gemm_kernel`: the conv as an implicit GEMM on `wgmma`, M = output
-//   pixels, N = O, K = 9 taps x C. A tile is 128 output pixels, a TH x TW
+//   pixels, N = O, K = 9 taps x C. A tile is 256 output pixels, a TH x TW
 //   rectangle of one image (TW = 128 at /8, 64 at /16, ...), for TN output
 //   channels (160, 128 or 64: the widest that divides O). A producer warp
 //   issues, per k-tile (one tap, 64 channels), a TMA load of the tap's
@@ -24,16 +24,23 @@
 //   ACTIVATED tensor (THE TRAP: padding with silu(b) would be wrong), and
 //   also zeroes the channels past C when C % 64 != 0 (the weight box then
 //   runs into the next tap's columns, which multiply those zeros). Two
-//   consumer warpgroups, 64 pixels each, accumulate 64 x TN in fp32 with
-//   one `wgmma.m64nTNk16` per k16 from the 128-byte swizzled ring stages.
+//   consumer warpgroups, 128 pixels each, accumulate 128 x TN in fp32 with
+//   two `wgmma.m64nTNk16` per k16 (one per 64-pixel block, sharing the
+//   weight tile) from the 128-byte swizzled ring stages.
 //   The grid is persistent (a block per SM walks the tiles, output-channel
 //   tile fastest, so a pixel tile's taps are re-read from L2), and the
-//   producer runs into the next tile while the consumers run the epilogue:
-//   bias, temb per (n, o) and the residual added in fp32, cast, stored;
-//   the sums reduced over the tile's pixels (warp shuffles, shared-memory
-//   atomics, one global atomic per (tile, column)). A tile never straddles
-//   two images. Bound: operations, 2 N H W O 9 C (0.86 ms at [50, 72, 128,
-//   320] -> 320 on the 989 TFLOP/s bf16 peak).
+//   producer runs into the next tile while the consumers run the epilogue,
+//   32 columns at a time: acc + bias + temb (per (n, o)) staged in fp32
+//   through shared memory, then written as row-contiguous 4-column pieces
+//   with the residual (its loads issued before the staging) added in fp32
+//   and rounded once; the sums reduced over the tile's pixels (warp
+//   shuffles, each warp's partials stored to shared memory and summed in
+//   order by one thread per column, one global atomic per (tile, column);
+//   shared-memory float atomics there cost more than all the stores). A
+//   tile never straddles two images. Bound: operations, 2 N H W O 9 C
+//   (0.86 ms at [50, 72, 128, 320] -> 320 on the 989 TFLOP/s bf16 peak).
+//   Measured slower on the H100: a 128-pixel tile (one m64 block a
+//   warpgroup), and storing the fragments directly instead of staging.
 #include <algorithm>
 
 #include "hopper.cuh"
@@ -42,22 +49,29 @@ using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BM = 128;             // output pixels per tile: two consumer warpgroups of 64
+constexpr int BM = 256;             // output pixels per tile
+constexpr int MI = BM / 128;        // m64 row blocks per consumer warpgroup
 constexpr int KTILE = 64;           // channels per k-tile: one 128-byte swizzled row
 constexpr int THREADS = 384;        // two consumer warpgroups, one producer
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
 constexpr int MAX_TN = 160;
+constexpr int STATIC_SMEM = 2 * 8 * MAX_TN * 4 + 1024;   // the sums' partials, the barriers
+constexpr int OUT_CH = 32;          // output columns per staged chunk of the epilogue
+constexpr int OUT_PITCH = 40;       // its fp32 row pitch: conflict-free float2 / float4
+constexpr int EPI_WG_BYTES = BM / 2 * OUT_PITCH * 4;     // a warpgroup's staged chunk
 
+// a tile: BM output pixels (two consumer warpgroups of MI m64 row blocks)
+// x TN output channels
 template <int TN>
 struct ConvCfg {
   static constexpr int A_BYTES = BM * 128;
   static constexpr int B_BYTES = TN * 128;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-  // the static shared memory (barriers, the sums' reduction) stays below 2 KB
-  static constexpr int STAGES_FIT = (SMEM_LIMIT - 1024 - 2048) / STAGE_BYTES;
+  static constexpr int EPI_BYTES = 2 * EPI_WG_BYTES;
+  static constexpr int STAGES_FIT = (SMEM_LIMIT - 1024 - STATIC_SMEM - EPI_BYTES) / STAGE_BYTES;
   static constexpr int STAGES = STAGES_FIT < 8 ? STAGES_FIT : 8;
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;   // + alignment
-  static constexpr int ACC = TN / 2;                         // fp32 accumulators a thread
+  static constexpr int SMEM = STAGES * STAGE_BYTES + EPI_BYTES + 1024;   // + alignment
+  static constexpr int ACC = MI * TN / 2;                    // fp32 accumulators a thread
   static_assert(B_BYTES % 1024 == 0, "stages keep the 1024-byte swizzle atoms");
   static_assert(STAGES >= 3, "a ring");
 };
@@ -114,7 +128,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
   using G = ConvCfg<TN>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * G::STAGES];
-  __shared__ float red[2][MAX_TN];
+  __shared__ __align__(16) float part[2][8][MAX_TN];  // the sums' partials per consumer warp
   // swizzled tiles start on 1024-byte boundaries (the 8-row swizzle atom)
   const uint32_t base = (mofa::smem_addr(smem_raw) + 1023) & ~1023u;
   auto sa = [&](int s) { return base + s * G::STAGE_BYTES; };
@@ -142,7 +156,6 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (tid < 2 * MAX_TN) red[tid / MAX_TN][tid % MAX_TN] = 0.0f;
   __syncthreads();
 
   if (wg == 2) {
@@ -167,10 +180,9 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
     return;
   }
 
-  // ---- consumers: 64 pixels of the tile each
+  // ---- consumers: MI row blocks of 64 pixels each
   mofa::setmaxnreg_inc<240>();
   const int warp = (tid % 128) / 32, lane = tid % 32, t = lane & 3, g = lane >> 2;
-  const int row0 = wg * 64 + warp * 16 + g;         // the fragment's first row in the tile
   float acc[G::ACC];
   auto fence_acc = [&]() {
 #pragma unroll
@@ -187,14 +199,17 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
     for (int kt = 0; kt < KT; ++kt, ++it) {
       const int s = it % G::STAGES;
       mofa::mbar_wait(full(s), (it / G::STAGES) & 1);
-      const uint32_t a = sa(s) + wg * 64 * 128;
+      const uint32_t a = sa(s) + wg * MI * 64 * 128;
       fence_acc();
       mofa::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KTILE / 16; ++kk) {     // a k16 step is 32 bytes of the row
-        const uint64_t da = mofa::gmma_desc_sw128(a + kk * 32, 16, 1024);
         const uint64_t db = mofa::gmma_desc_sw128(sb(s) + kk * 32, 16, 1024);
-        wgmma_tile<TN>(acc, da, db, kt > 0 || kk > 0);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const uint64_t da = mofa::gmma_desc_sw128(a + mi * 64 * 128 + kk * 32, 16, 1024);
+          wgmma_tile<TN>(acc + mi * TN / 2, da, db, kt > 0 || kk > 0);
+        }
       }
       mofa::wgmma_commit();
       fence_acc();
@@ -207,65 +222,101 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
     fence_acc();
     release(it - 1);
 
-    // ---- epilogue: fragment (warp, lane) holds rows row0 and row0 + 8 of
-    // every n8 block j at columns 8j + 2t, 8j + 2t + 1
-    long long pix[2];
-    bool valid[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = row0 + 8 * hh, ph = h0 + r / TW, pw = w0 + r % TW;
-      valid[hh] = ph < H && pw < W;
-      pix[hh] = ((long long)n * H + ph) * W + pw;
-    }
+    // ---- epilogue: fragment (warp, lane) of row block mi holds rows
+    // 64 mi + 16 warp + g (+ 8) of every n8 block j at columns 8j + 2t (+ 1)
     const float* tb = temb ? temb + (long long)n * O : nullptr;
+    // OUT_CH columns at a time: acc + bias + temb in fp32 into shared
+    // memory, then rows of 4-column pieces (eight lanes to a row's 64
+    // bytes) with the residual added, rounded once, and the sums
+    float* const stage_out = reinterpret_cast<float*>(
+        smem_raw + (base - mofa::smem_addr(smem_raw)) + G::STAGES * G::STAGE_BYTES +
+        wg * EPI_WG_BYTES);
+    const int wt = tid % 128, c4 = 4 * (wt % 8);
+    constexpr int PIECES = BM / 2 * OUT_CH / 4 / 128;   // 4-column pieces a thread
+    long long q[PIECES];                          // this thread's pieces' offsets, or -1
 #pragma unroll
-    for (int j = 0; j < TN / 8; ++j) {
-      const int o = o0 + 8 * j + 2 * t;
-      const float2 bb = *reinterpret_cast<const float2*>(bias + o);
-      const float2 te = tb ? *reinterpret_cast<const float2*>(tb + o) : make_float2(0.f, 0.f);
-      float u1[2] = {0.f, 0.f}, u2[2] = {0.f, 0.f};
+    for (int i = 0; i < PIECES; ++i) {
+      const int rt = wg * (BM / 2) + wt / 8 + 16 * i;
+      const int ph = h0 + rt / TW, pw = w0 + rt % TW;
+      q[i] = ph < H && pw < W ? (((long long)n * H + ph) * W + pw) * O + o0 + c4 : -1;
+    }
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        if (!valid[hh]) continue;
-        float v0 = acc[4 * j + 2 * hh] + bb.x + te.x;
-        float v1 = acc[4 * j + 2 * hh + 1] + bb.y + te.y;
-        if (res) {
-          const float2 r2 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(res + pix[hh] * O + o));
-          v0 += r2.x;
-          v1 += r2.y;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + pix[hh] * O + o) = __floats2bfloat162_rn(v0, v1);
-        u1[0] += v0;
-        u1[1] += v1;
-        u2[0] = fmaf(v0, v0, u2[0]);
-        u2[1] = fmaf(v1, v1, u2[1]);
+    for (int ch = 0; ch < TN / OUT_CH; ++ch) {
+      uint2 xr[PIECES];                           // the residual, loaded before the staging
+#pragma unroll
+      for (int i = 0; i < PIECES; ++i)
+        xr[i] = res && q[i] >= 0
+                    ? __ldg(reinterpret_cast<const uint2*>(res + q[i] + ch * OUT_CH))
+                    : make_uint2(0u, 0u);
+      mofa::named_bar_sync(2 + wg, 128);          // the last chunk's copy-out is done
+#pragma unroll
+      for (int jj = 0; jj < OUT_CH / 8; ++jj) {
+        const int o = o0 + ch * OUT_CH + 8 * jj + 2 * t;
+        const int j = ch * OUT_CH / 8 + jj;
+        const float2 bb = *reinterpret_cast<const float2*>(bias + o);
+        const float2 te = tb ? *reinterpret_cast<const float2*>(tb + o) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(stage_out + (mi * 64 + warp * 16 + g + 8 * hh) * OUT_PITCH +
+                                       8 * jj + 2 * t) =
+                make_float2(acc[mi * TN / 2 + 4 * j + 2 * hh] + bb.x + te.x,
+                            acc[mi * TN / 2 + 4 * j + 2 * hh + 1] + bb.y + te.y);
       }
-      if (s1) {                                     // uniform over the block
+      mofa::named_bar_sync(2 + wg, 128);
+      float u1[4] = {0.f, 0.f, 0.f, 0.f}, u2[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
+      for (int i = 0; i < PIECES; ++i) {
+        if (q[i] < 0) continue;
+        float4 v = *reinterpret_cast<const float4*>(stage_out + (wt / 8 + 16 * i) * OUT_PITCH + c4);
+        const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[i].x));
+        const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[i].y));
+        v.x += x01.x;                             // + 0 without a residual
+        v.y += x01.y;
+        v.z += x23.x;
+        v.w += x23.y;
+        *reinterpret_cast<uint2*>(out + q[i] + ch * OUT_CH) =
+            make_uint2(mofa::pack_bf16(v.x, v.y), mofa::pack_bf16(v.z, v.w));
+        u1[0] += v.x;
+        u1[1] += v.y;
+        u1[2] += v.z;
+        u1[3] += v.w;
+        u2[0] = fmaf(v.x, v.x, u2[0]);
+        u2[1] = fmaf(v.y, v.y, u2[1]);
+        u2[2] = fmaf(v.z, v.z, u2[2]);
+        u2[3] = fmaf(v.w, v.w, u2[3]);
+      }
+      if (s1) {                                   // over the lanes of one column piece
 #pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {  // over the 8 row groups g
-            u1[e] += __shfl_xor_sync(0xffffffffu, u1[e], off);
-            u2[e] += __shfl_xor_sync(0xffffffffu, u2[e], off);
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int off = 8; off < 32; off <<= 1) {
+            u1[k] += __shfl_xor_sync(0xffffffffu, u1[k], off);
+            u2[k] += __shfl_xor_sync(0xffffffffu, u2[k], off);
           }
         }
-        if (g == 0) {
-          atomicAdd(&red[0][8 * j + 2 * t], u1[0]);
-          atomicAdd(&red[0][8 * j + 2 * t + 1], u1[1]);
-          atomicAdd(&red[1][8 * j + 2 * t], u2[0]);
-          atomicAdd(&red[1][8 * j + 2 * t + 1], u2[1]);
+        if (lane < 8) {
+          *reinterpret_cast<float4*>(&part[0][wg * 4 + warp][ch * OUT_CH + c4]) =
+              make_float4(u1[0], u1[1], u1[2], u1[3]);
+          *reinterpret_cast<float4*>(&part[1][wg * 4 + warp][ch * OUT_CH + c4]) =
+              make_float4(u2[0], u2[1], u2[2], u2[3]);
         }
       }
     }
     if (s1) {
-      mofa::named_bar_sync(1, 256);                 // every consumer warp's share is in
-      if (tid < TN) {
-        atomicAdd(s1 + (long long)n * O + o0 + tid, red[0][tid]);
-        atomicAdd(s2 + (long long)n * O + o0 + tid, red[1][tid]);
-        red[0][tid] = red[1][tid] = 0.0f;
+      mofa::named_bar_sync(1, 256);                 // every consumer warp's partials are in
+      if (tid < TN) {                               // a column's 8 partials, in order
+        float a1 = 0.0f, a2 = 0.0f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          a1 += part[0][w][tid];
+          a2 += part[1][w][tid];
+        }
+        atomicAdd(s1 + (long long)n * O + o0 + tid, a1);
+        atomicAdd(s2 + (long long)n * O + o0 + tid, a2);
       }
-      mofa::named_bar_sync(1, 256);                 // cleared before the next tile adds
+      mofa::named_bar_sync(1, 256);                 // read before the next tile writes
     }
   }
 }
@@ -295,17 +346,17 @@ int launch_gemm_tn(const void* y, const void* wt, const void* bias, const void* 
                    const void* res, void* out, void* s1, void* s2, int N, int H, int W, int C,
                    int O, cudaStream_t st) {
   using G = ConvCfg<TN>;
-  // the pixel tile: TW = the power of two >= W, from 8 to 128; TH = 128 / TW
+  // the pixel tile: TW = the power of two >= W, from 8 to 128; TH = BM / TW
   int TW = 8;
-  while (TW < W && TW < BM) TW *= 2;
+  while (TW < W && TW < 128) TW *= 2;
+  const int TH = BM / TW;
   CUtensorMap ty, tw;
-  if (!mofa::bf16_nhwc_map(&ty, y, N, H, W, C, TW, BM / TW) ||
+  if (!mofa::bf16_nhwc_map(&ty, y, N, H, W, C, TW, TH) ||
       !mofa::bf16_rows_map(&tw, wt, O, 9 * C, TN))
     return (int)cudaErrorNotSupported;
   auto kernel = conv_gemm_kernel<TN>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-  const long long tiles = (long long)N * ((H + BM / TW - 1) / (BM / TW)) * ((W + TW - 1) / TW) *
-                          (O / TN);
+  const long long tiles = (long long)N * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (O / TN);
   kernel<<<(unsigned)std::min(tiles, (long long)sm_count()), THREADS, G::SMEM, st>>>(
       ty, tw, (const float*)bias, (const float*)temb, (const bf16*)res, (bf16*)out, (float*)s1,
       (float*)s2, N, H, W, C, O, TW);

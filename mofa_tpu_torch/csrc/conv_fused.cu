@@ -10,7 +10,7 @@
 // blocks run at once, so here the conv is one implicit GEMM per video: M =
 // output pixels, N = O, K = 3 taps x C. The output pixels are a T x S grid
 // (rows R = T, columns Q = S); the 3 taps are rows, S*C elements apart.
-// (The 3x3 spatial conv, which shared this template, is conv3x3.cu.)
+// (The 3x3 spatial conv is conv3x3.cu.)
 //
 // A block computes a 128-pixel output tile, rb = 4 frames x qb = 32
 // positions of the grid, for 64 output channels. For each chunk of 32 input

@@ -64,8 +64,10 @@ def fused_conv_applicable(x_shape, o_channels: int,
 fused_tconv_applicable = fused_conv_applicable
 
 
-def _activate(x, a, b, silu: bool):
-    """silu(x*a + b) in fp32 over [N, ..., C], cast to x's dtype."""
+def act_plain(x, a, b, silu: bool = True):
+    """silu(x*a + b) in fp32 over [N, ..., C], cast to x's dtype (the plain
+    version of `gn_silu_act`, and the first step of both convs' plain
+    versions)."""
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
     y = x.float() * a.float().reshape(shape) + b.float().reshape(shape)
     return (F.silu(y) if silu else y).to(x.dtype)
@@ -98,7 +100,7 @@ def tconv3_plain(x, a, b, w, bias, temb_bias=None, residual=None,
                  silu: bool = True, emit_sums: bool = False):
     """Plain version (mofa_tpu `_tref_chain`): as `conv3x3_plain`, with a
     3-tap conv over T (zero frames beyond both ends)."""
-    y = _activate(x, a, b, silu).permute(0, 3, 1, 2)              # [B, C, T, S]
+    y = act_plain(x, a, b, silu).permute(0, 3, 1, 2)              # [B, C, T, S]
     wk = w.to(x.dtype).permute(2, 1, 0)[..., None]                 # [O, C, 3, 1]
     out = F.conv2d(y, wk, padding=(1, 0))
     temb = None if temb_bias is None else temb_bias.float()[:, :, None, :]
@@ -193,11 +195,6 @@ def gn_silu_conv3x3(x, a, b, w, bias, temb_bias=None, residual=None,
 
 
 # ------------------------------------- the 3x3 route's stage entry points
-
-def act_plain(x, a, b, silu: bool = True):
-    """Stage 1's plain version: silu(x*a + b) in fp32, cast to x's dtype."""
-    return _activate(x, a, b, silu)
-
 
 def conv3x3_gemm_plain(y, w, bias, temb_bias=None, residual=None,
                        emit_sums: bool = False):
