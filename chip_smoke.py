@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --phase kernels  # build + kernel checks only
     python3 chip_smoke.py --phase profile  # torch.profiler table, 2 steps
+    python3 chip_smoke.py --phase gate_ab  # the FFN gate schedules' ablation
 
 Phases, each printed as it finishes:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -14,14 +15,16 @@ Phases, each printed as it finishes:
      TOL_FP32 / TOL_BF16, with the kernel's, the plain version's and one
      PyTorch call's times (CUDA events, median of 5) and, for the FFN,
      GroupNorm and fused-conv kernels, the stock chain the port's models
-     run; flash also timed beside SDPA at the main path's own /8 shape
-     (B*T = 50, no plain version: its logits would not fit); the FFN at
+     run; flash also timed beside SDPA at each of the main path's sites
+     (B*T = 50; no plain version: its logits would not fit); the FFN at
      both widths, and its bf16 route's three stages (LN pass, gate GEMM,
      out GEMM) each alone against its plain stage, timed beside one
-     cuBLAS call of the same product; softsplat at the adapter's four
-     warp sites from the feature map broadcast over 24 flows (every mode,
-     the raw sums and normaliser plane), with the whole 'avg' call timed
-     against the wrapper path before the redesign; the 3x3 conv's two
+     cuBLAS call of the same product, with the gate GEMM's "ilv" and
+     "pipe" schedules checked and timed beside plain's; softsplat at the
+     adapter's four warp sites from the feature map broadcast over 24
+     flows (every mode, the raw sums and normaliser plane), with the
+     whole 'avg' call timed against the wrapper path before the
+     redesign; the 3x3 conv's two
      stages (activation pass, wgmma GEMM) each alone, timed beside one
      cuDNN conv of the same product; then planted faults, which the bf16
      bounds must reject;
@@ -46,6 +49,9 @@ Phases, each printed as it finishes:
   6. the GroupNorm / fused-conv entry points: a spatial and a temporal
      resnet block at full width built from `gn_affine`, `gn_silu_conv3x3`
      and `gn_silu_tconv3`, held against the port's stock resnet blocks.
+`--phase gate_ab` runs none of these: it builds variants of the FFN's
+gate schedules (no multicast, no epilogue, no erf, plain's gelu) and times
+them in turns, with the SM clock and power under each.
 The second line from the end is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
@@ -362,9 +368,11 @@ def planted_faults() -> list:
     the last task of every warp's walk unwritten (classic short attention),
     drops a 16-wide chunk of the FFN's inner axis, takes the gate GEMM's
     g box from the a rows in one N tile (a * gelu(a)), skips the out
-    GEMM's last k-tile (inner columns 4C-64..4C-1), leaves
-    one 16-row sub-tile of every block unwritten (ilv FFN), skips the last
-    inner chunk, the pipeline's drain (pipe FFN), drops the gate half of b0
+    GEMM's last k-tile (inner columns 4C-64..4C-1), writes the second
+    warpgroup's 64 rows over the first's in every 128 (ilv FFN: the turn
+    skipped), gives gate-column tile 0 tile 1's products and tile 1 tile
+    0's (pipe FFN: an epilogue reading the other accumulator set; W0's a
+    and g rows of the two tiles swapped, b0 kept), drops the gate half of b0
     (geglu_ffn), computes the erf gelu instead of the tanh form (tanh FFN,
     at gate inputs where the two differ), skips the last S-slab of a block
     (channel sums), reads the other CFG half's feature map for the last
@@ -460,17 +468,20 @@ def planted_faults() -> list:
         c, rows = 320, 460800
         args = ffn_operands(g, c, rows, bf, tail=fault == "tanh")
         x, ls, lb, w0, b0, w2, b2 = args
-        if fault == "ilv":                  # sub-tile 1 of every block unwritten
-            def faulty():
+        if fault == "ilv":                  # the turn skipped: rows 0-63 of
+            def faulty():                   # every 128 written over 64-127
                 out = ln_geglu_ffn(*args)
-                out.view(-1, 64, c)[:, 16:32] = 0
+                blocks = out.view(-1, 128, c)
+                blocks[:, 64:] = blocks[:, :64]
                 return out
             return lambda: ln_geglu_ffn(*args, variant="ilv"), faulty
-        if fault == "pipe":                 # the drain skipped: last chunk lost
-            w2f = w2.clone()
-            w2f[:, -32:] = 0
+        if fault == "pipe":                 # tile j's epilogue from j + 1's set
+            w0f = w0.clone()
+            for half in (0, 4 * c):         # the a rows, then the g rows
+                w0f[half:half + 64] = w0[half + 64:half + 128]
+                w0f[half + 64:half + 128] = w0[half:half + 64]
             return (lambda: ln_geglu_ffn(*args, variant="pipe"),
-                    lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2f, b2))
+                    lambda: ln_geglu_ffn(x, ls, lb, w0f, b0, w2, b2))
         if fault == "geglu":                # the gate half of b0 dropped
             b0f = b0.clone()
             b0f[4 * c:] = 0
@@ -571,9 +582,9 @@ def planted_faults() -> list:
               lambda: ffn_stage_case("gbox")),
              ("ln_geglu_ffn", "rows=460800 C=320, out GEMM last k-tile",
               lambda: ffn_stage_case("ktile")),
-             ("ln_geglu_ffn_ilv", "rows=460800 C=320, rows 16-31 unwritten",
+             ("ln_geglu_ffn_ilv", "rows=460800 C=320, 2nd tile over 1st's rows",
               lambda: ffn_variant_case("ilv")),
-             ("ln_geglu_ffn_pipe", "rows=460800 C=320, drain skipped",
+             ("ln_geglu_ffn_pipe", "rows=460800 C=320, tile j holds j+1's set",
               lambda: ffn_variant_case("pipe")),
              ("geglu_ffn", "rows=460800 C=320, gate half of b0 dropped",
               lambda: ffn_variant_case("geglu")),
@@ -723,32 +734,59 @@ def ffn_stages(results, g, c: int, rows: int) -> None:
     """The bf16 FFN route's three stages alone at rows x c: each against
     its plain version on the same inputs with the bf16 bounds of
     ln_geglu_ffn (h from the gate GEMM alone, so a fault shows in its
-    stage), and each one's time beside one cuBLAS call of the same product
-    (F.linear without bias, gate or residual: no stock call computes the
-    stages' epilogues), stored as the row's `stage_ms_c<c>`."""
+    stage), and the gate GEMM's "ilv" and "pipe" schedules against the same
+    plain version with their variants' bounds; each stage's time beside
+    one cuBLAS call of the same product (F.linear without bias, gate or
+    residual: no stock call computes the stages' epilogues), stored as the
+    row's `stage_ms_c<c>`. The three gate schedules are timed in turns
+    (plain, ilv, pipe, pipe, ilv, plain; the mean of each pair), and each
+    schedule's row gets its gate time beside plain's and cuBLAS's."""
     import torch
     import torch.nn.functional as F
-    from mofa_tpu_torch.kernels.geglu_ffn import (ffn_gemm_gate, ffn_gemm_out,
-                                                  ffn_ln_rows)
+    from mofa_tpu_torch.kernels.geglu_ffn import (SCHEDULES, ffn_gemm_gate,
+                                                  ffn_gemm_out, ffn_ln_rows)
     x, ls, lb, w0, b0, w2, b2 = ffn_operands(g, c, rows, torch.bfloat16)
     with torch.no_grad():
         xn = ffn_ln_rows(x, ls, lb)
         h = ffn_gemm_gate(xn, w0, b0)
-    runs = {"ln": lambda: ffn_ln_rows(x, ls, lb),
-            "gate": lambda: ffn_gemm_gate(xn, w0, b0),
+    gate = {s: (lambda s=s: ffn_gemm_gate(xn, w0, b0, schedule=s))
+            for s in SCHEDULES}
+    runs = {"ln": lambda: ffn_ln_rows(x, ls, lb), "gate": gate["plain"],
             "out": lambda: ffn_gemm_out(h, w2, b2, x)}
     for stage, fn in runs.items():
         _check(results, "ln_geglu_ffn", "bf16", f"{stage} stage rows={rows} C={c}",
                fn, fn, False)
+    for s in SCHEDULES[1:]:
+        _check(results, f"ln_geglu_ffn_{s}", "bf16",
+               f"gate stage rows={rows} C={c}", gate[s], gate["plain"], False)
     with torch.no_grad():
-        split = {stage: time_ms(fn) for stage, fn in runs.items()}
+        gate_ms = dict.fromkeys(SCHEDULES, 0.0)
+        for s in SCHEDULES + SCHEDULES[::-1]:
+            gate_ms[s] += time_ms(gate[s]) / 2
+        split = {"ln": time_ms(runs["ln"]), "gate": gate_ms["plain"],
+                 **{f"gate_{s}": gate_ms[s] for s in SCHEDULES[1:]},
+                 "out": time_ms(runs["out"])}
         split["cublas_gate"] = time_ms(lambda: F.linear(xn, w0))
         split["cublas_out"] = time_ms(lambda: F.linear(h, w2))
     results["ln_geglu_ffn"][f"stage_ms_c{c}"] = split
+    for s in SCHEDULES[1:]:
+        results[f"ln_geglu_ffn_{s}"][f"stage_ms_c{c}"] = {
+            "gate": gate_ms[s], "plain_gate": gate_ms["plain"],
+            "cublas_gate": split["cublas_gate"]}
     log(f"  {'ln_geglu_ffn':24s} bf16 stages rows={rows} C={c}: "
         + "  ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms")
-    del x, xn, h, runs
+    del x, xn, h, runs, gate
     torch.cuda.empty_cache()
+
+
+# flash's main-path sites besides /8 (timed at B*T = 50 as `ms_b50`): the
+# self-attention of the UNet's and the ControlNet trunk's spatial
+# transformer blocks at L >= 576, SVD-XT heads (UNet 5 / 10 / 20, trunk
+# 5 / 10 / 10 at /8 / /16 / /32); launches a video, 25 steps: per step /8
+# 5 + 2, /16 5 + 2, /32 5 (UNet) and 2 (trunk), 525 in all with /8's 175
+FLASH_SITES = (("/16", 50, 2304, 10, 64, 175),
+               ("/32 UNet", 50, 576, 20, 64, 125),
+               ("/32 trunk", 50, 576, 10, 128, 50))
 
 
 def phase_kernels() -> dict:
@@ -809,16 +847,21 @@ def phase_kernels() -> dict:
     log(f"  {'flash_attention':24s} bf16 {'B=50 L=9216 H=5 D=64 (timing only)':38s} "
         f"ms {r['ms_b50']:.3f}  library_ms {r['library_ms_b50']:.3f}  bound "
         f"{r['bound_ms_b50']:.3f} ms (operations)")
-    # and beside SDPA at the trunk's /32 site (the main path's D = 128
-    # shape), at the UNet's /32 site (D = 64, the same short L) and at
-    # D = 128 with a long L: short rows against two consumer warpgroups
-    for B, L, H, D in ((50, 576, 10, 128), (50, 576, 20, 64), (2, 9216, 5, 128)):
+    # and beside SDPA at the main path's other sites (FLASH_SITES: its
+    # launches a video, stored as the row's `sites`) and at D = 128 with a
+    # long L (short rows against two consumer warpgroups)
+    r["sites"] = {}
+    for site, B, L, H, D, video in FLASH_SITES + (("D=128 long L", 2, 9216, 5, 128, 0),):
         q, k, v = (randn(B, L, H, D, dtype=torch.bfloat16) for _ in range(3))
         with torch.no_grad():
             ms, lib_ms = time_ms(lambda: flash_attention(q, k, v)), time_ms(sdpa(q, k, v))
+        b_ms = bound(4 * B * H * L * L * D, 4 * nbytes(q), "bf16")[0]
+        if video:
+            r["sites"][site] = dict(shape=[B, L, H, D], launches_per_video=video, ms=ms,
+                                    library_ms=lib_ms, bound_ms=b_ms)
         label = f"B={B} L={L} H={H} D={D} (timing only)"
         log(f"  {'flash_attention':24s} bf16 {label:38s} ms {ms:.3f}  library_ms "
-            f"{lib_ms:.3f}  bound {bound(4 * B * H * L * L * D, 4 * nbytes(q), 'bf16')[0]:.3f} ms")
+            f"{lib_ms:.3f}  bound {b_ms:.3f} ms ({site})")
         del q, k, v
         torch.cuda.empty_cache()
     # tmajor: T=25, CFG batch 2 -> B*T=50 rows of [S, H*D]
@@ -1449,6 +1492,114 @@ def phase_gn_conv(dev) -> dict:
     return launches
 
 
+def under_load(fn, seconds: float = 1.0) -> str:
+    """The card's SM clock (MHz) and power draw (W), medians of nvidia-smi
+    samples every 50 ms while fn() runs back to back for `seconds`."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    rows = [r.split(",") for r in smi.communicate()[0].split("\n") if r.count(",") == 1]
+    rows = rows[len(rows) // 4:] or rows          # past the ramp
+    med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")
+    return (f"SM clock {med([float(r[0]) for r in rows]):.0f} MHz, power "
+            f"{med([float(r[1]) for r in rows]):.0f} W ({len(rows)} samples)")
+
+
+# The gate GEMM schedules' ablation (`--phase gate_ab`): variants of
+# csrc/ln_geglu_ffn.cu by text substitution, each a library of its own.
+GATE_AB_VARIANTS = {
+    "as built": [],
+    "no multicast": [("constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 1;")],
+    "no epilogue": [("wg.store(", "(void)("), ("wg.flush(", "(void)(")],
+    "product gate": [
+        ("gate_ftz(acc[4 * j + 2 * hh] + ba.x, acc[TN / 2 + 4 * j + 2 * hh] + bg.x)",
+         "(acc[4 * j + 2 * hh] + ba.x) * (acc[TN / 2 + 4 * j + 2 * hh] + bg.x)"),
+        ("gate_ftz(acc[4 * j + 2 * hh + 1] + ba.y, acc[TN / 2 + 4 * j + 2 * hh + 1] + bg.y)",
+         "(acc[4 * j + 2 * hh + 1] + ba.y) * (acc[TN / 2 + 4 * j + 2 * hh + 1] + bg.y)")],
+    "plain's gelu": [("gate_ftz(acc", "gate_of<0>(acc")],
+}
+
+
+def phase_gate_ab(dev) -> None:
+    """The gate GEMM's three schedules in variants of their source: as
+    built; in clusters of one block (each block loads both W0 boxes, no
+    multicast); without the epilogue (the products alone: no gate, no
+    staging, no stores); with a product a * g in place of a * gelu(g)
+    (the erf's share); with plain's gelu (`gate_of<0>`, whose reciprocal
+    and exp keep subnormals) in place of `gate_ftz`. Plain's kernel is
+    the same in every variant, the control. Each library times the
+    schedules on the same inputs at the main path's two shapes, in turns
+    (each variant's plain / ilv / pipe, then the reverse; the two medians
+    of 10 each); at C = 320 the SM clock and power are sampled under each
+    one (`under_load`)."""
+    import ctypes
+    import torch
+    from mofa_tpu_torch.kernels import _build
+    from mofa_tpu_torch.kernels.geglu_ffn import SCHEDULES
+
+    src = (_build.CSRC / "ln_geglu_ffn.cu").read_text()
+    out = _build.BUILD_DIR / "gate_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, subs) in enumerate(GATE_AB_VARIANTS.items()):
+        text = src
+        for a, b in subs:
+            if a not in text:
+                fail(f"gate_ab: variant {name!r} no longer applies to the source")
+            text = text.replace(a, b)
+        (out / f"v{i}.cu").write_text(text)
+        lib = out / f"v{i}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC", "-shared", "-I", str(_build.CSRC),
+             "-o", str(lib), str(out / f"v{i}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    gates = {}
+    for name, (lib, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"gate_ab: variant {name!r} failed to build:\n{err[-2000:]}")
+        fn = ctypes.CDLL(str(lib)).mofa_ffn_gemm_gate
+        fn.argtypes = _build._SIGNATURES["mofa_ffn_gemm_gate"]
+        fn.restype = ctypes.c_int
+        gates[name] = fn
+    g = torch.Generator(device=dev).manual_seed(12)
+    for c, rows in ((320, 460800), (640, 115200)):
+        xn = torch.randn(rows, c, generator=g, device=dev).to(torch.bfloat16)
+        w0 = (torch.randn(8 * c, c, generator=g, device=dev) * c ** -0.5).to(torch.bfloat16)
+        b0 = (torch.randn(8 * c, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        h = torch.empty(rows, 4 * c, device=dev, dtype=torch.bfloat16)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run(name, sched):
+            err = gates[name](xn.data_ptr(), w0.data_ptr(), b0.data_ptr(), h.data_ptr(),
+                              rows, c, 0, SCHEDULES.index(sched), stream)
+            if err:
+                fail(f"gate_ab: {name} {sched}: CUDA error {err}")
+        turns = [(name, s) for name in gates for s in SCHEDULES]
+        ms = {k: [] for k in turns}
+        for k in turns + turns[::-1]:
+            ms[k].append(time_ms(lambda: run(*k), iters=10, warmup=2))
+        for name in gates:
+            log(f"  C={c} rows={rows} {name:13s}: " + "  ".join(
+                f"{s} {' / '.join(f'{t:.3f}' for t in ms[(name, s)])}"
+                for s in SCHEDULES) + " ms")
+        if c == 320:                    # SM clock and power under each one
+            for k in turns:
+                log(f"  C={c} {k[0]:13s} {k[1]:5s} under load: {under_load(lambda: run(*k))}")
+        del xn, w0, b0, h
+        torch.cuda.empty_cache()
+
+
 def phase_profile(dev, steps: int = 2) -> None:
     """torch.profiler over the main path at `steps` steps, without the VAE
     decode: device time by kernel name, top 40 (a breakdown, not a
@@ -1476,7 +1627,7 @@ def phase_profile(dev, steps: int = 2) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "profile"),
+    ap.add_argument("--phase", choices=("all", "kernels", "profile", "gate_ab"),
                     default="all")
     args = ap.parse_args()
 
@@ -1503,6 +1654,10 @@ def main() -> None:
 
     if args.phase == "profile":
         phase_profile(torch.device("cuda"))
+        return
+    if args.phase == "gate_ab":
+        log("[gate_ab] the gate GEMM schedules in variants of their source, ms")
+        phase_gate_ab(torch.device("cuda"))
         return
 
     # 2. build
@@ -1584,7 +1739,7 @@ def main() -> None:
             "library_ms")
     extra = ("chain_ms", "ms_b50", "library_ms_b50", "bound_ms_b50", "ms_c640",
              "plain_ms_c640", "chain_ms_c640", "bound_ms_c640", "bound_by_c640",
-             "stage_ms_c320", "stage_ms_c640", "avg_call_ms", "stage_ms",
+             "sites", "stage_ms_c320", "stage_ms_c640", "avg_call_ms", "stage_ms",
              "main_path_launches")
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],

@@ -92,13 +92,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "r"(parity)
       : "memory");
 }
-// one arrival on `bar` once every cp.async this thread issued so far has landed
-__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 // barrier `id` (1..15) over `nthreads` threads, whole warps; 0 is __syncthreads
 __device__ __forceinline__ void named_bar_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
@@ -136,6 +129,66 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint3
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
+// TMA store: the box of a 2-D tensor map at (c0, c1) from shared memory at
+// `src` (elements outside the tensor are not written), as a bulk group of
+// this thread; make the block's writes of `src` visible to TMA first with
+// fence_proxy_async and a barrier
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// ---- thread block clusters (sm_90)
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster; orders the barrier inits
+// before any other block's remote arrival or multicast into this block
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// one arrival on the mbarrier at `bar` (a shared address of this block) in
+// the cluster's block `rank`; the default .release.cta semantics, as for a
+// local arrival (a .cluster release would first wait for this thread's
+// global stores to reach cluster scope)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+// TMA multicast: the box of a 2-D tensor map at (c0, c1) into shared memory
+// at `dst` of every block of the cluster in `mask`, each counting the bytes
+// on its own mbarrier at `bar`
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const void* map, uint32_t bar,
+                                                      int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "h"(mask)
+      : "memory");
+}
+
 // wgmma shared-memory matrix descriptor, 128-byte swizzle (the layout TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B); byte offsets, 16-byte units
 __device__ __forceinline__ uint64_t gmma_desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -162,6 +215,11 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ float rcp_ftz(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 __device__ __forceinline__ float ex2(float x) {
   float y;

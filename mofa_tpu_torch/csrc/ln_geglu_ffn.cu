@@ -6,7 +6,8 @@
 // Replaces mofa_tpu/kernels/geglu_ffn.py: `_ln_ffn_kernel` (:390; variant
 // "plain", and "tanh" with the tanh-form gelu), `_ln_ffn_kernel_ilv`
 // (:344, "ilv"), `_ln_ffn_kernel_pipe` (:363, "pipe") and `_ffn_kernel`
-// (:93, `geglu_ffn`). The TPU kernels hold both weight matrices and the
+// (:93, `geglu_ffn`): one route of three stages, the gate GEMM in one of
+// three schedules. The TPU kernels hold both weight matrices and the
 // whole [rows, 8C] intermediate in VMEM; a Hopper block has 227 KB of
 // shared memory, and W0 alone is 6.5 MB at C=640.
 //
@@ -49,37 +50,68 @@
 // registers a thread, 320 at C = 640, over the 255 limit; splitting the
 // output columns across warpgroups that share each gate chunk through
 // shared memory would need a schedule of its own. The fused `mma.sync`
-// design this route replaced read all of W0 and W2 from L2 for every 64
-// rows and lost to the stock cuBLAS chain at both widths.
+// designs this route replaced, for plain and then for ilv and pipe, read
+// all of W0 and W2 from L2 for every 64 rows and lost to the stock cuBLAS
+// chain at both widths.
 //
-// ilv / pipe (entry points only): fused schedules on
-// `mma.sync.m16n8k16` fed by `ldmatrix`: a block puts a 64-row tile
-// (normalised) into shared memory once and walks the 4C inner axis in
-// chunks (32 wide at C=320, 16 at C=640): the chunk's W0 rows (a and g)
-// and W2 columns are double-buffered in shared memory with `cp.async`
-// (streamed from L2), GEMM1 makes the chunk's [a | g] in registers, the
-// gate runs there in fp32, and GEMM2 adds into fp32 accumulators held in
-// registers for the block's whole [64, C] output; the [rows, 8C]
-// intermediate never reaches device memory. 8 warps, two per 16-row tile,
-// each owning half of the output columns and half of each chunk's gate
-// columns. Bound: tensor-core issue and the L2 reads of the weight tiles
-// (each 64-row block reads all of W0 and W2: 64 FLOP per byte).
-// - pipe (`ffn_pipe_kernel`): a two-stage software pipeline over the inner
-//   axis. GEMM1 of chunk k+1 is issued before the gate and GEMM2 of chunk
-//   k, so two chunks' [a | g] fragments are live in registers and the
-//   gate's FP32 erf work has independent tensor-core work beside it in the
-//   same warp; the W0 tiles are staged one chunk ahead of the W2 tiles, and
-//   the last chunk drains after the loop. The TPU pipelined over row
-//   blocks because VMEM held the whole [rows, 8C] intermediate; here the
-//   price is registers (-Xptxas -v reports them).
-// - ilv (`ffn_ilv_kernel`): row sub-tiles that never wait on one another.
-//   Each 16-row sub-tile is a group of two warps that runs LN -> GEMM1 ->
-//   gate -> GEMM2 on its own rows and synchronises only its own warps
-//   (named barriers); a ninth, producer warp streams the weight chunks into
-//   a two-stage ring of shared memory, signalled by mbarriers (full: its
-//   cp.asyncs landed; empty: all eight consumer warps are done with the
-//   stage). The groups drift out of phase, so one group's erf gate overlaps
-//   another's tensor-core GEMMs: what the TPU's sub-block split was for.
+// ilv / pipe (entry points only): the same three stages and rounding
+// points (the TPU schedules compute plain's function), with a gate GEMM of
+// their own. Both TPU schedules overlap the gate's vector work (the erf
+// polynomial) with the matrix unit; on this card the gate is the gate
+// GEMM's epilogue, which in plain's kernel runs after its tile's products.
+// Both keep plain's persistent grid, producer warpgroup (`setmaxnreg`),
+// 128-byte swizzle and bias pairs loaded before the products.
+// - pipe (`ffn_gate_pipe_kernel`, the TPU's next block's first GEMM issued
+//   before this block's gate): a software pipeline inside each consumer
+//   warpgroup. A tile is 128 rows (64 a warpgroup) x 64 gate columns, one
+//   `wgmma.m64n128k16` per k16 over B = W0's a rows and g rows, 64
+//   accumulators a thread, so two accumulator sets fit. A warpgroup issues
+//   tile j + 1's k-tiles into one set (one commit group each) and runs
+//   tile j's epilogue from the other in slices between them, so tile j's
+//   gate runs while the tensor cores work on j + 1; each stage is released
+//   as its group retires (`wgmma.wait_group 1`: a tile has 10 k-tiles at
+//   C = 640 and the ring 6 stages of 32 KB, so holding a tile's stages
+//   until its epilogue would stall the producer). The tile loop is unrolled
+//   by two so that each set's registers are named at compile time (a set
+//   indexed at run time, or touched between issue and wait, makes ptxas
+//   serialise the wgmma).
+// - ilv (`ffn_gate_ilv_kernel`, the TPU's row sub-blocks that never wait
+//   on one another): ping-pong consumer warpgroups. Each owns whole tiles
+//   of 64 rows x 128 gate columns (plain's `wgmma.m64n256k16`, 128
+//   accumulators a thread), the two taking alternate tiles of the block's
+//   sequence; the producer loads the tiles' k-tiles in tile order into a
+//   ring of four 40 KB stages, each released by its owner's four warps (in
+//   both blocks of the cluster, below). The turn to issue products passes
+//   in tile order on named barriers (`bar.sync` / `bar.arrive`, one id per
+//   warpgroup), and a warpgroup hands it on before its epilogue, so one
+//   warpgroup's erf gate runs while the other's products run. A turn is
+//   handed on only to a tile that exists, so with an odd tile count the
+//   warpgroup left without a last tile is never waited for.
+// What was in their way, in the order it was found (`chip_smoke.py
+// --phase gate_ab` times each cause's variant of this source):
+// - L2 reads: the smaller tiles read more operand bytes from L2 per
+//   product than plain's 128 x 128 (64 and 51 FLOP a byte against 85), so
+//   both run in clusters of two blocks that take two row tiles at one n0:
+//   each block loads its own xn box and one of the two W0 boxes, multicast
+//   to both, and a consumer releases a stage in both blocks (its empty
+//   barrier counts the warps of both). That brings both to plain's L2
+//   bytes per product. The remote arrival keeps the default .release.cta
+//   semantics: a .cluster release waits for the thread's global stores.
+// - The stores: plain's 4-byte fragment stores to h, eight rows a warp
+//   instruction, cost more than the erf, so each warpgroup stages its gated
+//   tile in shared memory (bf16, in TMA's 128-byte swizzle, which spreads a
+//   warp's eight rows over all 32 banks) and one thread writes it with a
+//   TMA store, which also skips the rows past M (pipe: two staging buffers
+//   a warpgroup, the next tile's slices filling one while the other is
+//   stored; ilv: one, its tiles being two apart).
+// - The erf's instructions: __fdividef and __expf compile to subnormal
+//   fix-ups (a compare and conditional multiplies each); `gate_ftz`
+//   computes the same values without them. In pipe, ptxas spreads a slice's math
+//   between the HGMMAs of the k-tile issued before it, so that work still
+//   delays the tensor cores there; ilv's products are issued by a warp
+//   that runs no epilogue at the time.
+// Bound of either gate GEMM: operations, 2 M C 8C (0.763 ms at M =
+// 460,800, C = 320).
 // fp32 (composition checks, tests; plain variant only): the chunked
 // schedule in plain FMA, 16 rows per block, exact fp32.
 #include <algorithm>
@@ -113,6 +145,21 @@ __device__ __forceinline__ float gelu_erf_as(float g) {
                0.254829592f);
   const float erf = copysignf(1.0f - poly * __expf(-ax * ax), xs);
   return 0.5f * g * (1.0f + erf);
+}
+// gelu_erf_as with the reciprocal and exp2 approximations that flush
+// subnormals: the same values (the denominator is >= 1, and where the exp
+// would be subnormal the erf is already +-1) without the subnormal fix-ups
+// that __fdividef and __expf compile to; the ilv and pipe schedules'
+// epilogue, which runs beside the tensor cores
+__device__ __forceinline__ float gate_ftz(float a, float g) {
+  const float xs = g * 0.70710678118654752f, ax = fabsf(xs);
+  const float t = mofa::rcp_ftz(fmaf(0.3275911f, ax, 1.0f));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  const float erf = copysignf(1.0f - poly * mofa::ex2(-ax * ax * 1.4426950408889634f), xs);
+  return a * (0.5f * g * (1.0f + erf));
 }
 // the gate of the gate GEMM's epilogue: GELU 0 = erf (Abramowitz-Stegun),
 // 1 = the tanh form
@@ -149,304 +196,6 @@ __device__ __forceinline__ void layer_norm_rows(TD* dst, int ldx, const T* __res
     for (int c = lane; c < C; c += 32)
       dst[r * ldx + c] = mofa::from_f32<TD>((mofa::to_f32(xr[c]) - mean) * rstd * ls[c] + lb[c]);
   }
-}
-
-// A fragment (16x16) of a row-major bf16 tile at p (pitch ld)
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* p, int ld, int lane) {
-  mofa::ldsm_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
-}
-// B fragments (k16 x n8, "col") of two n-tiles whose rows (n) start at
-// row_lo and row_hi of a [n][k] row-major tile: r[0..1] and r[2..3]
-__device__ __forceinline__ void load_b2(uint32_t* r, const bf16* p, int ld, int row_lo,
-                                        int row_hi, int lane) {
-  const int m = lane >> 3, i = lane & 7;
-  mofa::ldsm_x4(r, p + ((m < 2 ? row_lo : row_hi) + i) * ld + (m & 1) * 8);
-}
-
-template <int C>
-struct BfLayout {
-  static constexpr int BR = 64;                    // rows per block
-  static constexpr int KC = C <= 320 ? 32 : 16;    // inner chunk (shared memory)
-  static constexpr int NCH = 4 * C / KC;           // chunks
-  static constexpr int CG = 2;                     // warps sharing a 16-row tile
-  static constexpr int NW = BR / 16 * CG;          // warps per block
-  static constexpr int NC = C / CG;                // output columns per warp
-  static constexpr int KW = KC / CG;               // gate columns per warp
-  static constexpr int LDX = C + 8;                // bf16 pitch of LN(x), W0 tile
-  static constexpr int LDA = KC + 8;               // bf16 pitch of gate, W2 tile
-  static constexpr int W0T = 2 * KC * LDX;         // W0 tile elements
-  static constexpr int W2T = C * LDA;              // W2 tile elements
-  static constexpr size_t bytes = (size_t)(BR * LDX + 2 * W0T + 2 * W2T + BR * LDA) * 2;
-  static_assert(KW % 8 == 0 && NC % 16 == 0, "mma n-tiles, in pairs");
-  static_assert(bytes <= 232448, "fits one block's shared memory");
-};
-
-// The weight tiles of inner chunk [j0, j0 + KC), issued by threads tid of
-// nt: W0's a and g rows into d0 [2KC][LDX], W2's columns into d2 [C][LDA].
-template <int C>
-__device__ __forceinline__ void stage_w0(bf16* d0, const bf16* __restrict__ w0, int j0, int tid,
-                                         int nt) {
-  using Lt = BfLayout<C>;
-  for (int i = tid; i < 2 * Lt::KC * (C / 8); i += nt) {
-    const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-    const int wrow = r < Lt::KC ? j0 + r : 4 * C + j0 + (r - Lt::KC);
-    mofa::cp_async16(d0 + r * Lt::LDX + c, w0 + (long long)wrow * C + c);
-  }
-}
-template <int C>
-__device__ __forceinline__ void stage_w2(bf16* d2, const bf16* __restrict__ w2, int j0, int tid,
-                                         int nt) {
-  using Lt = BfLayout<C>;
-  for (int i = tid; i < C * (Lt::KC / 8); i += nt) {
-    const int r = i / (Lt::KC / 8), c = (i % (Lt::KC / 8)) * 8;
-    mofa::cp_async16(d2 + r * Lt::LDA + c, w2 + (long long)r * 4 * C + j0 + c);
-  }
-}
-
-// GEMM1 of one warp: its KW gate columns of a and g for the 16 rows at Xw,
-// contraction over C, from the chunk's W0 tile
-template <int C>
-__device__ __forceinline__ void gemm1(float (&ha)[BfLayout<C>::KW / 8][4],
-                                      float (&hg)[BfLayout<C>::KW / 8][4], const bf16* Xw,
-                                      const bf16* W0t, int cg, int lane) {
-  using Lt = BfLayout<C>;
-  constexpr int KW = Lt::KW;
-#pragma unroll
-  for (int j = 0; j < KW / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ha[j][e] = hg[j][e] = 0.0f;
-#pragma unroll 4
-  for (int kk = 0; kk < C / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, Xw + kk * 16, Lt::LDX, lane);
-#pragma unroll
-    for (int j = 0; j < KW / 8; ++j) {
-      uint32_t b[4];                                // a-rows tile, g-rows tile
-      const int row = cg * KW + j * 8;
-      load_b2(b, W0t + kk * 16, Lt::LDX, row, Lt::KC + row, lane);
-      mofa::mma_bf16(ha[j], a, b[0], b[1]);
-      mofa::mma_bf16(hg[j], a, b[2], b[3]);
-    }
-  }
-}
-
-// gate = (a + b0a) * gelu(g + b0g) of one warp's fragments, as bf16 into
-// the 16 rows at Aw (pitch LDA), columns of the chunk starting at j0
-template <int C>
-__device__ __forceinline__ void gate_store(const float (&ha)[BfLayout<C>::KW / 8][4],
-                                           const float (&hg)[BfLayout<C>::KW / 8][4],
-                                           const bf16* __restrict__ b0, int j0, bf16* Aw, int cg,
-                                           int lane) {
-  using Lt = BfLayout<C>;
-  constexpr int LDA = Lt::LDA, I4 = 4 * C;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < Lt::KW / 8; ++j) {
-    const int col = cg * Lt::KW + j * 8 + 2 * t;
-    const float ba0 = __bfloat162float(b0[j0 + col]), ba1 = __bfloat162float(b0[j0 + col + 1]);
-    const float bg0 = __bfloat162float(b0[I4 + j0 + col]);
-    const float bg1 = __bfloat162float(b0[I4 + j0 + col + 1]);
-    bf16* r0p = Aw + g * LDA + col;
-    *reinterpret_cast<__nv_bfloat162*>(r0p) =
-        __floats2bfloat162_rn(gelu_gate(ha[j][0] + ba0, hg[j][0] + bg0),
-                              gelu_gate(ha[j][1] + ba1, hg[j][1] + bg1));
-    *reinterpret_cast<__nv_bfloat162*>(r0p + 8 * LDA) =
-        __floats2bfloat162_rn(gelu_gate(ha[j][2] + ba0, hg[j][2] + bg0),
-                              gelu_gate(ha[j][3] + ba1, hg[j][3] + bg1));
-  }
-}
-
-// GEMM2 of one warp: acc (16 x NC) += gate (the 16 rows at Aw, KC wide)
-// times W2[this warp's output columns, chunk]^T
-template <int C>
-__device__ __forceinline__ void gemm2(float (&acc)[BfLayout<C>::NC / 8][4], const bf16* Aw,
-                                      const bf16* W2t, int cg, int lane) {
-  using Lt = BfLayout<C>;
-  constexpr int NC = Lt::NC;
-#pragma unroll
-  for (int kk = 0; kk < Lt::KC / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, Aw + kk * 16, Lt::LDA, lane);
-#pragma unroll
-    for (int n = 0; n < NC / 8; n += 2) {
-      uint32_t b[4];
-      const int row = cg * NC + n * 8;
-      load_b2(b, W2t + kk * 16, Lt::LDA, row, row + 8, lane);
-      mofa::mma_bf16(acc[n], a, b[0], b[1]);
-      mofa::mma_bf16(acc[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void zero_acc(float (&acc)[BfLayout<C>::NC / 8][4]) {
-#pragma unroll
-  for (int n = 0; n < BfLayout<C>::NC / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-}
-
-// epilogue of one warp: out rows [rbase, rbase + 16) = acc + b2 + x
-template <int C>
-__device__ __forceinline__ void store_out(const float (&acc)[BfLayout<C>::NC / 8][4],
-                                          const bf16* __restrict__ b2, const bf16* __restrict__ x,
-                                          bf16* __restrict__ out, long long rbase, long long R,
-                                          int cg, int lane) {
-  constexpr int NC = BfLayout<C>::NC;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NC / 8; ++n) {
-    const int col = cg * NC + n * 8 + 2 * t;
-    const float c0 = __bfloat162float(b2[col]), c1 = __bfloat162float(b2[col + 1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = rbase + g + 8 * h;
-      if (row < R) {
-        const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + row * C + col);
-        const float v0 = acc[n][2 * h] + c0 + __low2float(xr);
-        const float v1 = acc[n][2 * h + 1] + c1 + __high2float(xr);
-        *reinterpret_cast<__nv_bfloat162*>(out + row * C + col) = __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
-}
-
-// variant "pipe": GEMM1 of chunk k+1 before the gate and GEMM2 of chunk k.
-// The W0 tiles run one chunk ahead of the W2 tiles: the commit group issued
-// in iteration k holds W0(k+2) and W2(k+1).
-template <int C>
-__global__ void __launch_bounds__(BfLayout<C>::NW * 32, 1) ffn_pipe_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ ls, const float* __restrict__ lb,
-    const bf16* __restrict__ w0, const bf16* __restrict__ b0, const bf16* __restrict__ w2,
-    const bf16* __restrict__ b2, bf16* __restrict__ out, long long R) {
-  using Lt = BfLayout<C>;
-  constexpr int BR = Lt::BR, KC = Lt::KC, NW = Lt::NW, NT = NW * 32, NCH = Lt::NCH;
-  constexpr int HW = Lt::KW / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* W0s = Xs + BR * Lt::LDX;
-  bf16* W2s = W0s + 2 * Lt::W0T;
-  bf16* As = W2s + 2 * Lt::W2T;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rt = warp / Lt::CG, cg = warp % Lt::CG;
-  const long long row0 = (long long)blockIdx.x * BR;
-  auto stage = [&](int w0_chunk, int w2_chunk) {    // chunk indices past NCH: none
-    if (w0_chunk < NCH)
-      stage_w0<C>(W0s + (w0_chunk & 1) * Lt::W0T, w0, w0_chunk * KC, tid, NT);
-    if (w2_chunk < NCH)
-      stage_w2<C>(W2s + (w2_chunk & 1) * Lt::W2T, w2, w2_chunk * KC, tid, NT);
-    mofa::cp_async_commit();
-  };
-
-  stage(0, NCH);                                    // W0(0)
-  stage(1, 0);                                      // W0(1), W2(0)
-  layer_norm_rows<bf16, bf16, C>(Xs, Lt::LDX, x, ls, lb, row0, BR, R, warp, NW, lane);
-  float acc[Lt::NC / 8][4];
-  zero_acc<C>(acc);
-  const bf16* Xw = Xs + rt * 16 * Lt::LDX;
-  bf16* Aw = As + rt * 16 * Lt::LDA;
-
-  float ca[HW][4], cgt[HW][4], na[HW][4], ngt[HW][4];   // [a | g] of chunks k, k+1
-  mofa::cp_async_wait<1>();
-  __syncthreads();
-  gemm1<C>(ca, cgt, Xw, W0s, cg, lane);             // prologue: GEMM1 of chunk 0
-  for (int ch = 0; ch + 1 < NCH; ++ch) {
-    __syncthreads();                                // every read of the refilled buffers done
-    stage(ch + 2, ch + 1);
-    mofa::cp_async_wait<1>();                       // W0(ch+1), W2(ch)
-    __syncthreads();
-    gemm1<C>(na, ngt, Xw, W0s + ((ch + 1) & 1) * Lt::W0T, cg, lane);
-    gate_store<C>(ca, cgt, b0, ch * KC, Aw, cg, lane);
-    __syncthreads();
-    gemm2<C>(acc, Aw, W2s + (ch & 1) * Lt::W2T, cg, lane);
-#pragma unroll
-    for (int j = 0; j < HW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ca[j][e] = na[j][e], cgt[j][e] = ngt[j][e];
-  }
-  // the drain: the last chunk's gate and GEMM2
-  mofa::cp_async_wait<0>();
-  __syncthreads();
-  gate_store<C>(ca, cgt, b0, (NCH - 1) * KC, Aw, cg, lane);
-  __syncthreads();
-  gemm2<C>(acc, Aw, W2s + ((NCH - 1) & 1) * Lt::W2T, cg, lane);
-  store_out<C>(acc, b2, x, out, row0 + rt * 16, R, cg, lane);
-}
-
-// variant "ilv": BR / 16 row sub-tiles, each a group of CG warps that
-// synchronises only itself, plus one producer warp filling a two-stage
-// ring of weight tiles
-template <int C>
-struct IlvLayout {
-  using Lt = BfLayout<C>;
-  static constexpr int NT = (Lt::NW + 1) * 32;     // consumers + the producer warp
-  static constexpr size_t base = (size_t)(Lt::BR * Lt::LDX + 2 * Lt::W0T + 2 * Lt::W2T) * 2;
-  static constexpr size_t gate_bytes = (size_t)Lt::BR * Lt::LDA * 2;
-  // two gate buffers per group (one group barrier per chunk) where they fit
-  static constexpr int AB = base + 2 * gate_bytes + 32 <= 232448 ? 2 : 1;
-  static constexpr size_t bars = base + AB * gate_bytes;   // full[2], empty[2]
-  static constexpr size_t bytes = bars + 4 * 8;
-  static_assert(bytes <= 232448, "fits one block's shared memory");
-};
-
-template <int C>
-__global__ void __launch_bounds__(IlvLayout<C>::NT, 1) ffn_ilv_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ ls, const float* __restrict__ lb,
-    const bf16* __restrict__ w0, const bf16* __restrict__ b0, const bf16* __restrict__ w2,
-    const bf16* __restrict__ b2, bf16* __restrict__ out, long long R) {
-  using Lt = BfLayout<C>;
-  using Il = IlvLayout<C>;
-  constexpr int BR = Lt::BR, KC = Lt::KC, CG = Lt::CG, NW = Lt::NW, NCH = Lt::NCH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* W0s = Xs + BR * Lt::LDX;
-  bf16* W2s = W0s + 2 * Lt::W0T;
-  bf16* As = W2s + 2 * Lt::W2T;                     // AB x [BR][LDA]
-  const uint32_t full = mofa::smem_addr(smem + Il::bars), empty = full + 16;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long row0 = (long long)blockIdx.x * BR;
-  if (tid == 0) {
-    for (int s = 0; s < 2; ++s) {
-      mofa::mbar_init(full + 8 * s, 32);            // one per producer lane
-      mofa::mbar_init(empty + 8 * s, NW);           // one per consumer warp
-    }
-  }
-  __syncthreads();                                  // the only block-wide barrier
-
-  if (warp == NW) {                                 // producer
-    for (int ch = 0; ch < NCH; ++ch) {
-      const int s = ch & 1;
-      if (ch >= 2) mofa::mbar_wait(empty + 8 * s, ((ch >> 1) - 1) & 1);
-      stage_w0<C>(W0s + s * Lt::W0T, w0, ch * KC, lane, 32);
-      stage_w2<C>(W2s + s * Lt::W2T, w2, ch * KC, lane, 32);
-      mofa::cp_async_mbar_arrive(full + 8 * s);
-    }
-    mofa::cp_async_wait_all();
-    return;
-  }
-
-  const int grp = warp / CG, cg = warp % CG;        // row sub-tile, column group
-  const int bar_id = 1 + grp;                       // the group's named barrier
-  const bf16* Xw = Xs + grp * 16 * Lt::LDX;
-  layer_norm_rows<bf16, bf16, C>(Xs + grp * 16 * Lt::LDX, Lt::LDX, x, ls, lb, row0 + grp * 16,
-                                 16, R, cg, CG, lane);
-  mofa::named_bar_sync(bar_id, CG * 32);
-  float acc[Lt::NC / 8][4];
-  zero_acc<C>(acc);
-  for (int ch = 0; ch < NCH; ++ch) {
-    const int s = ch & 1;
-    bf16* Aw = As + ((Il::AB == 2 ? s : 0) * BR + grp * 16) * Lt::LDA;
-    mofa::mbar_wait(full + 8 * s, (ch >> 1) & 1);
-    float ha[Lt::KW / 8][4], hg[Lt::KW / 8][4];
-    gemm1<C>(ha, hg, Xw, W0s + s * Lt::W0T, cg, lane);
-    if constexpr (Il::AB == 1) mofa::named_bar_sync(bar_id, CG * 32);  // last gate read
-    gate_store<C>(ha, hg, b0, ch * KC, Aw, cg, lane);
-    mofa::named_bar_sync(bar_id, CG * 32);
-    gemm2<C>(acc, Aw, W2s + s * Lt::W2T, cg, lane);
-    __syncwarp();
-    if (lane == 0) mofa::mbar_arrive(empty + 8 * s);
-  }
-  store_out<C>(acc, b2, x, out, row0 + grp * 16, R, cg, lane);
 }
 
 constexpr int F32_BR = 16, F32_NT = 256;
@@ -780,43 +529,373 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
   }
 }
 
-// ---- host: launches
+// ---- the gate GEMM's "pipe" and "ilv" schedules (entry points only)
 
-template <typename Kernel>
-int launch_fused(Kernel kernel, int threads, size_t bytes, const void* x, const void* ls,
-                 const void* lb, const void* w0, const void* b0, const void* w2,
-                 const void* b2, void* out, long long R, cudaStream_t st) {
-  if (R <= 0) return (int)cudaGetLastError();
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  const long long blocks = (R + 63) / 64;           // BfLayout::BR rows per block
-  kernel<<<(unsigned)blocks, threads, bytes, st>>>(
-      (const bf16*)x, (const float*)ls, (const float*)lb, (const bf16*)w0, (const bf16*)b0,
-      (const bf16*)w2, (const bf16*)b2, (bf16*)out, R);
-  return (int)cudaGetLastError();
+enum Schedule { kPlain = 0, kIlv = 1, kPipe = 2 };   // the Python names' order
+
+// A schedule's tile: BM rows of xn x TN gate columns, its B operand W0's a
+// rows [n0, n0 + TN) and g rows [4C + n0, 4C + n0 + TN), two boxes back to
+// back, so one m64 x n(2 TN) product per k16 makes both halves; k-tiles of
+// 64 in a ring of as many stages as fit beside the epilogue's staging. The
+// blocks run in clusters of two that walk pair tiles: the two row tiles
+// [m0, m0 + 2 BM) at one n0, block rank r taking rows m0 + r BM; block r
+// loads its own xn box and W0 box r (a or g), multicast to both, so each
+// block reads half of B from L2. A warpgroup's gated [64, TN] tile is
+// staged in shared memory (EPI_BUFS buffers a warpgroup, 64-column
+// sub-tiles of 8 KB in the 128-byte swizzle) and written by a TMA store.
+constexpr int CLUSTER = 2;
+template <int C, int BM_, int TN_, int EPI_BUFS_>
+struct SchedCfg {
+  static constexpr int BM = BM_, TN = TN_, EPI_BUFS = EPI_BUFS_;
+  static constexpr int KT = C / KTILE;
+  static constexpr int N_TILES = 4 * C / TN;       // gate-column tiles
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int BOX_BYTES = TN * 128;
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * BOX_BYTES;
+  static constexpr int EPI_TILE = 64 * TN * 2;     // a warpgroup's gated tile, bf16
+  static constexpr int EPI_BYTES = 2 * EPI_BUFS * EPI_TILE;
+  static constexpr int STAGES_FIT = (SMEM_LIMIT - 1024 - 256 - EPI_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = STAGES_FIT < 8 ? STAGES_FIT : 8;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + EPI_BYTES + 1024;  // + alignment
+  static_assert(C % KTILE == 0 && (4 * C) % TN == 0 && TN % 64 == 0, "whole tiles");
+  static_assert(A_BYTES % 1024 == 0 && BOX_BYTES % 1024 == 0, "1024-byte swizzle atoms");
+  static_assert(STAGES >= 3, "a ring");
+};
+// pipe: 128 rows (a warpgroup's 64 each) x 64 gate columns, 32 KB stages,
+// two staging buffers a warpgroup (a tile's stores overlap the next tile's
+// epilogue); ilv: 64 rows (one warpgroup's tile) x 128 gate columns, 40 KB
+// stages, one staging buffer a warpgroup (its tiles are two apart)
+template <int C> using PipeCfg = SchedCfg<C, GEMM_BM, 64, 2>;
+template <int C> using IlvCfg = SchedCfg<C, 64, 128, 1>;
+// named barriers: 1 + w, warpgroup w's epilogue; 3 + w, the ilv turn of w
+constexpr int EPI_BAR = 1, TURN_BAR = 3;
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mofa::fence_operand(acc[i]);
 }
 
-enum Variant { kPipe, kIlv };
+// The pair tiles of M rows, and this block's count of them (its cluster
+// walks pair tiles cluster, cluster + clusters, ...)
+template <typename Cfg>
+__device__ __forceinline__ int pair_tiles(int M) {
+  return (M + CLUSTER * Cfg::BM - 1) / (CLUSTER * Cfg::BM) * Cfg::N_TILES;
+}
+template <typename Cfg>
+__device__ __forceinline__ int block_tiles(int M) {
+  const int cluster = blockIdx.x / CLUSTER, clusters = gridDim.x / CLUSTER;
+  return (pair_tiles<Cfg>(M) - cluster + clusters - 1) / clusters;
+}
+// the origin (m0, n0) of tile i of this block (of cluster rank `rank`)
+template <typename Cfg>
+__device__ __forceinline__ void tile_origin(int i, uint32_t rank, int& m0, int& n0) {
+  const int p = blockIdx.x / CLUSTER + i * (gridDim.x / CLUSTER);
+  m0 = (p / Cfg::N_TILES * CLUSTER + (int)rank) * Cfg::BM;
+  n0 = p % Cfg::N_TILES * Cfg::TN;
+}
 
+// The producer: one thread walks the block's tiles in order; for each
+// k-tile, once the ring stage is empty in both blocks of the cluster, it
+// loads the block's xn box and multicasts W0 box `rank` (the a rows, or
+// the g rows) into the stage of both blocks. At the end it waits until
+// every stage's last use is released by both blocks' consumers, so no
+// remote arrival targets this block after it exits.
+template <typename Cfg, int C>
+__device__ __forceinline__ void gate_produce(const CUtensorMap* ta, const CUtensorMap* tb,
+                                             uint32_t base, uint64_t* bars, int M,
+                                             uint32_t rank) {
+  const int n = block_tiles<Cfg>(M);
+  auto empty = [&](int s) { return mofa::smem_addr(&bars[Cfg::STAGES + s]); };
+  int it = 0;
+  for (int i = 0; i < n; ++i) {
+    int m0, n0;
+    tile_origin<Cfg>(i, rank, m0, n0);
+    for (int kt = 0; kt < Cfg::KT; ++kt, ++it) {
+      const int s = it % Cfg::STAGES, round = it / Cfg::STAGES;
+      const uint32_t full = mofa::smem_addr(&bars[s]), st = base + s * Cfg::STAGE_BYTES;
+      if (round > 0) mofa::mbar_wait(empty(s), (round - 1) & 1);
+      mofa::mbar_arrive_expect_tx(full, Cfg::STAGE_BYTES);
+      mofa::tma_load_2d(st, ta, full, kt * KTILE, m0);
+      for (int b = rank; b < 2; b += CLUSTER)
+        mofa::tma_load_2d_multicast(st + Cfg::A_BYTES + b * Cfg::BOX_BYTES, tb, full,
+                                    kt * KTILE, b * 4 * C + n0, (1 << CLUSTER) - 1);
+    }
+  }
+  for (int k = 0; k < Cfg::STAGES; ++k, ++it)
+    if (it >= Cfg::STAGES) mofa::mbar_wait(empty(it % Cfg::STAGES), (it / Cfg::STAGES - 1) & 1);
+}
+
+// A consumer warpgroup of a schedule. Its accumulator of a tile holds TN
+// fp32 a thread: a_j at [4j + e] and g_j at [TN / 2 + 4j + e] for n8 block
+// j < TN / 8, rows wrow + 8 (e / 2) of its 64, column 8j + 2t + e % 2.
+template <typename Cfg, int C>
+struct GateWarpgroup {
+  static constexpr int TN = Cfg::TN;
+  uint32_t base;            // the ring
+  uint64_t* bars;           // full[STAGES], empty[STAGES]
+  uint32_t epi;             // this warpgroup's staging buffers
+  int w;                    // the warpgroup
+  int row_off;              // its first row in a tile; in bytes of the xn box, row_off * 128
+  int wrow, t, lane;        // the fragment's first row of the 64; lane % 4; lane
+  bool leader;              // the thread that issues the warpgroup's TMA stores
+  int it;                   // the ring position of the next k-tile to issue
+
+  // k-tile kt of a tile into acc: four k16 products, one commit group
+  __device__ __forceinline__ void issue(float (&acc)[TN], int kt) {
+    const int s = it % Cfg::STAGES;
+    mofa::mbar_wait(mofa::smem_addr(&bars[s]), (it / Cfg::STAGES) & 1);
+    const uint32_t a = base + s * Cfg::STAGE_BYTES + row_off * 128;
+    const uint32_t b = base + s * Cfg::STAGE_BYTES + Cfg::A_BYTES;
+    fence_acc(acc);
+    mofa::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KTILE / 16; ++kk) {   // a k16 step is 32 bytes of the row
+      const uint64_t da = mofa::gmma_desc_sw128(a + kk * 32, 16, 1024);
+      const uint64_t db = mofa::gmma_desc_sw128(b + kk * 32, 16, 1024);
+      const int accumulate = kt > 0 || kk > 0;
+      if constexpr (TN == 64) mofa::wgmma_m64n128k16_ss(acc, da, db, accumulate);
+      else mofa::wgmma_m64n256k16_ss(acc, da, db, accumulate);
+    }
+    mofa::wgmma_commit();
+    fence_acc(acc);
+    ++it;
+  }
+  // the stage of ring position pos may be refilled (its group retired):
+  // one arrival on its empty barrier in each block of the cluster
+  __device__ __forceinline__ void release(int pos) const {
+    __syncwarp();
+    if (lane < CLUSTER)
+      mofa::mbar_arrive_cluster(mofa::smem_addr(&bars[Cfg::STAGES + pos % Cfg::STAGES]), lane);
+  }
+  // the bias pairs of this thread's columns n0 + 8j + 2t: a at [j], g at [TN / 8 + j]
+  __device__ __forceinline__ void load_bias(uint32_t (&bias)[TN / 4], const bf16* __restrict__ b0,
+                                            int n0) const {
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      bias[j] = __ldg(reinterpret_cast<const unsigned*>(b0 + n0 + 8 * j + 2 * t));
+      bias[TN / 8 + j] =
+          __ldg(reinterpret_cast<const unsigned*>(b0 + 4 * C + n0 + 8 * j + 2 * t));
+    }
+  }
+  // the epilogue of n8 block j: the gate in fp32, rounded to bf16, into
+  // staging buffer buf at rows wrow, wrow + 8, columns 8j + 2t, + 1 (the
+  // 16-byte chunk j % 8 of a 128-byte row r lies at chunk (j % 8) ^ (r % 8),
+  // and r % 8 = lane / 4: a warp's eight rows hit 32 distinct banks)
+  __device__ __forceinline__ void store(const float (&acc)[TN], const uint32_t (&bias)[TN / 4],
+                                        int j, int buf) const {
+    const float2 ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bias[j]));
+    const float2 bg =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bias[TN / 8 + j]));
+    const uint32_t sub = epi + buf * Cfg::EPI_TILE + j / 8 * 8192;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = wrow + 8 * hh;
+      mofa::st_shared_b32(
+          sub + r * 128 + (((j % 8) ^ (lane / 4)) << 4) + 4 * t,
+          mofa::pack_bf16(
+              gate_ftz(acc[4 * j + 2 * hh] + ba.x, acc[TN / 2 + 4 * j + 2 * hh] + bg.x),
+              gate_ftz(acc[4 * j + 2 * hh + 1] + ba.y, acc[TN / 2 + 4 * j + 2 * hh + 1] + bg.y)));
+    }
+  }
+  // staging buffer buf holds the warpgroup's rows of the tile at (m0, n0):
+  // the leader waits until its previous store has read its buffer, then,
+  // once every thread's writes are visible to TMA, stores the buffer's
+  // 64-column sub-tiles (rows past M are not written)
+  __device__ __forceinline__ void flush(const CUtensorMap* th, int m0, int n0, int buf) const {
+    mofa::fence_proxy_async();
+    if (leader) mofa::bulk_wait_read<0>();
+    mofa::named_bar_sync(EPI_BAR + w, 128);
+    if (leader) {
+#pragma unroll
+      for (int q = 0; q < TN / 64; ++q)
+        mofa::tma_store_2d(th, epi + buf * Cfg::EPI_TILE + q * 8192, n0 + 64 * q, m0 + row_off);
+      mofa::bulk_commit();
+    }
+  }
+};
+
+// shared set-up of both schedules: the ring's barriers (empty: `consumers`
+// warps of each block of the cluster arrive), then the producer
+// warpgroup's branch; returns false there
+template <typename Cfg, int C>
+__device__ __forceinline__ bool gate_setup(const CUtensorMap* ta, const CUtensorMap* tb,
+                                           uint32_t base, uint64_t* bars, int M, uint32_t rank,
+                                           int consumers) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < Cfg::STAGES; ++s) {
+      mofa::mbar_init(mofa::smem_addr(&bars[s]), 1);
+      mofa::mbar_init(mofa::smem_addr(&bars[Cfg::STAGES + s]), consumers * CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  mofa::cluster_sync();
+  if (tid >= 256) {
+    mofa::setmaxnreg_dec<24>();
+    if (tid == 256) gate_produce<Cfg, C>(ta, tb, base, bars, M, rank);
+    return false;
+  }
+  mofa::setmaxnreg_inc<240>();
+  return true;
+}
+
+// a consumer warpgroup of schedule Cfg in the kernel's block
+template <typename Cfg, int C>
+__device__ __forceinline__ GateWarpgroup<Cfg, C> gate_warpgroup(uint32_t base, uint64_t* bars,
+                                                                int row_off) {
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 128;
+  return {base, bars, base + Cfg::STAGES * Cfg::STAGE_BYTES + w * Cfg::EPI_BUFS * Cfg::EPI_TILE,
+          w, row_off, (tid % 128) / 32 * 16 + lane / 4, lane % 4, lane, tid % 128 == 0, 0};
+}
+
+// pipe, one step of a consumer warpgroup: tile i + 1's products (at n0n)
+// into nxt, each k-tile's stage released as its group retires, and tile
+// i's epilogue (at m0, n0, staging buffer buf) from cur in KT slices
+// between them (n8 block j in slice j KT / 8), so the erf work runs beside
+// the tensor cores. On entry cur's last group may be in flight; on exit
+// nxt's last is.
 template <int C>
-int launch_variant(Variant v, const void* x, const void* ls, const void* lb, const void* w0,
-                   const void* b0, const void* w2, const void* b2, void* out, long long R,
-                   cudaStream_t st) {
-  using Lt = BfLayout<C>;
-  if (v == kPipe)
-    return launch_fused(ffn_pipe_kernel<C>, Lt::NW * 32, Lt::bytes, x, ls, lb, w0, b0, w2, b2,
-                        out, R, st);
-  return launch_fused(ffn_ilv_kernel<C>, IlvLayout<C>::NT, IlvLayout<C>::bytes, x, ls, lb, w0,
-                      b0, w2, b2, out, R, st);
+__device__ __forceinline__ void pipe_step(GateWarpgroup<PipeCfg<C>, C>& wg, float (&nxt)[64],
+                                          uint32_t (&bn)[16], float (&cur)[64],
+                                          const uint32_t (&bc)[16], int m0, int n0, int n0n,
+                                          int buf, const bf16* __restrict__ b0,
+                                          const CUtensorMap* th) {
+  constexpr int KT = PipeCfg<C>::KT;
+  wg.load_bias(bn, b0, n0n);
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    wg.issue(nxt, kt);
+    if (kt == 0) {                     // cur's last group retired: its epilogue may start
+      mofa::wgmma_wait<1>();
+      wg.release(wg.it - 2);
+      fence_acc(cur);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j * KT / 8 == kt) wg.store(cur, bc, j, buf);
+    if (kt > 0) {                      // nxt's k-tile kt - 1 retired
+      mofa::wgmma_wait<1>();
+      wg.release(wg.it - 2);
+    }
+  }
+  wg.flush(th, m0, n0, buf);
 }
 
-int launch_fused_variant(Variant v, const void* x, const void* ls, const void* lb,
-                         const void* w0, const void* b0, const void* w2, const void* b2,
-                         void* out, int R, int C, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (C == 320) return launch_variant<320>(v, x, ls, lb, w0, b0, w2, b2, out, R, st);
-  if (C == 640) return launch_variant<640>(v, x, ls, lb, w0, b0, w2, b2, out, R, st);
-  return (int)cudaErrorInvalidValue;
+// pipe, the block's last tile: its last group retired, then its epilogue
+template <int C>
+__device__ __forceinline__ void pipe_drain(GateWarpgroup<PipeCfg<C>, C>& wg, float (&cur)[64],
+                                           const uint32_t (&bc)[16], int m0, int n0, int buf,
+                                           const CUtensorMap* th) {
+  mofa::wgmma_wait<0>();
+  wg.release(wg.it - 1);
+  fence_acc(cur);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) wg.store(cur, bc, j, buf);
+  wg.flush(th, m0, n0, buf);
 }
+
+// "pipe": both consumer warpgroups walk the same tiles (64 rows each),
+// with two accumulator sets and two staging buffers; the tile loop is
+// unrolled by two so that each set's registers are named at compile time.
+template <int C>
+__global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gate_pipe_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+    const __grid_constant__ CUtensorMap th, const bf16* __restrict__ b0, int M) {
+  using P = PipeCfg<C>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * P::STAGES];
+  const uint32_t base = (mofa::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t rank = mofa::cluster_ctarank();
+  if (!gate_setup<P, C>(&ta, &tb, base, bars, M, rank, 8)) return;
+
+  auto wg = gate_warpgroup<P, C>(base, bars, threadIdx.x / 128 * 64);
+  const int n = block_tiles<P>(M);
+  auto m0_of = [&](int i) { int m0, n0; tile_origin<P>(i, rank, m0, n0); return m0; };
+  auto n0_of = [&](int i) { int m0, n0; tile_origin<P>(i, rank, m0, n0); return n0; };
+  float acc0[64], acc1[64];
+  uint32_t bias0[16], bias1[16];
+  // the prologue: tile 0's products into acc0
+  wg.load_bias(bias0, b0, n0_of(0));
+#pragma unroll
+  for (int kt = 0; kt < P::KT; ++kt) {
+    wg.issue(acc0, kt);
+    if (kt > 0) {
+      mofa::wgmma_wait<1>();
+      wg.release(wg.it - 2);
+    }
+  }
+  for (int i = 0;; i += 2) {
+    if (i + 1 == n) {
+      pipe_drain<C>(wg, acc0, bias0, m0_of(i), n0_of(i), 0, &th);
+      break;
+    }
+    pipe_step<C>(wg, acc1, bias1, acc0, bias0, m0_of(i), n0_of(i), n0_of(i + 1), 0, b0, &th);
+    if (i + 2 == n) {
+      pipe_drain<C>(wg, acc1, bias1, m0_of(i + 1), n0_of(i + 1), 1, &th);
+      break;
+    }
+    pipe_step<C>(wg, acc0, bias0, acc1, bias1, m0_of(i + 1), n0_of(i + 1), n0_of(i + 2), 1, b0,
+                 &th);
+  }
+  if (wg.leader) mofa::bulk_wait_read<0>();   // the staging read before the block exits
+}
+
+// "ilv": the consumer warpgroups take alternate tiles of the block's
+// sequence (warpgroup w tiles i = w, w + 2, ...), each a whole 64-row tile;
+// the turn to issue products passes in tile order on named barriers, and a
+// warpgroup hands it on before its epilogue, so one warpgroup's erf work
+// runs beside the other's products.
+template <int C>
+__global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gate_ilv_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+    const __grid_constant__ CUtensorMap th, const bf16* __restrict__ b0, int M) {
+  using I = IlvCfg<C>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * I::STAGES];
+  const uint32_t base = (mofa::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t rank = mofa::cluster_ctarank();
+  // a stage belongs to one warpgroup's tile: its four warps release it
+  if (!gate_setup<I, C>(&ta, &tb, base, bars, M, rank, 4)) return;
+
+  auto wg = gate_warpgroup<I, C>(base, bars, 0);
+  const int w = wg.w, n = block_tiles<I>(M);
+  float acc[128];
+  uint32_t bias[32];
+  for (int i = w; i < n; i += 2) {
+    int m0, n0;
+    tile_origin<I>(i, rank, m0, n0);
+    wg.load_bias(bias, b0, n0);
+    wg.it = i * I::KT;                 // the producer loads the tiles' k-tiles in tile order
+    // the turn: tile i - 1 (the other warpgroup's) has issued its products.
+    // Every turn handed on is taken: tile i + 1 exists whenever tile i hands
+    // it on, so a warpgroup left without a last tile is never waited for.
+    // Before taking it the leader sees this warpgroup's last store read its
+    // staging buffer, which the epilogue below refills.
+    if (i > 0) {
+      if (wg.leader) mofa::bulk_wait_read<0>();
+      mofa::named_bar_sync(TURN_BAR + w, 256);
+    }
+#pragma unroll
+    for (int kt = 0; kt < I::KT; ++kt) {
+      wg.issue(acc, kt);
+      if (kt > 0) {
+        mofa::wgmma_wait<1>();
+        wg.release(wg.it - 2);
+      }
+    }
+    if (i + 1 < n) mofa::named_bar_arrive(TURN_BAR + 1 - w, 256);
+    mofa::wgmma_wait<0>();
+    wg.release(wg.it - 1);
+    fence_acc(acc);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) wg.store(acc, bias, j, 0);
+    wg.flush(&th, m0, n0, 0);
+  }
+  if (wg.leader) mofa::bulk_wait_read<0>();   // the staging read before the block exits
+}
+
+// ---- host: launches
 
 template <int C>
 int launch_ln_rows(const void* x, const void* ls, const void* lb, void* xn, int R,
@@ -853,11 +932,53 @@ int launch_gemm(const void* a, const void* b, const void* bias, const void* resi
   return (int)cudaGetLastError();
 }
 
+// one schedule's gate GEMM: xn, W0 and h as 2-D tensor maps (boxes of the
+// schedule's rows and gate columns; h in boxes of 64 x 64), a persistent
+// grid of as many two-block clusters as can be resident at once
+template <int C, typename Cfg>
+int launch_schedule(void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, const bf16*, int),
+                    const void* xn, const void* w0, const void* b0, void* h, int M,
+                    cudaStream_t st) {
+  if (M <= 0) return (int)cudaGetLastError();
+  CUtensorMap ta, tb, th;
+  if (!mofa::bf16_rows_map(&ta, xn, M, C, Cfg::BM) ||
+      !mofa::bf16_rows_map(&tb, w0, 8 * C, C, Cfg::TN) ||
+      !mofa::bf16_rows_map(&th, h, M, 4 * C, 64))
+    return (int)cudaErrorNotSupported;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER);
+  cfg.blockDim = dim3(GEMM_THREADS);
+  cfg.dynamicSmemBytes = Cfg::SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const int pairs = (M + CLUSTER * Cfg::BM - 1) / (CLUSTER * Cfg::BM) * Cfg::N_TILES;
+  cfg.gridDim = dim3(CLUSTER * std::min(pairs, clusters));
+  return (int)cudaLaunchKernelEx(&cfg, kernel, ta, tb, th, (const bf16*)b0, M);
+}
+
+// schedule: kPlain (gelu 0 = erf, 1 = tanh), kIlv or kPipe (erf only)
 template <int C>
 int launch_gate(const void* xn, const void* w0, const void* b0, void* h, int R, int gelu,
-                cudaStream_t st) {
-  if (gelu == 0) return launch_gemm<C, true, 0, false>(xn, w0, b0, nullptr, h, R, st);
-  if (gelu == 1) return launch_gemm<C, true, 1, false>(xn, w0, b0, nullptr, h, R, st);
+                int sched, cudaStream_t st) {
+  if (sched == kPlain && gelu == 0)
+    return launch_gemm<C, true, 0, false>(xn, w0, b0, nullptr, h, R, st);
+  if (sched == kPlain && gelu == 1)
+    return launch_gemm<C, true, 1, false>(xn, w0, b0, nullptr, h, R, st);
+  if (sched == kIlv && gelu == 0)
+    return launch_schedule<C, IlvCfg<C>>(ffn_gate_ilv_kernel<C>, xn, w0, b0, h, R, st);
+  if (sched == kPipe && gelu == 0)
+    return launch_schedule<C, PipeCfg<C>>(ffn_gate_pipe_kernel<C>, xn, w0, b0, h, R, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -872,10 +993,10 @@ int launch_out(const void* h, const void* w2, const void* b2, const void* resid,
 template <int C>
 int launch_ffn(const void* x, const void* ls, const void* lb, const void* w0, const void* b0,
                const void* w2, const void* b2, void* xn, void* h, void* out, int R, int gelu,
-               cudaStream_t st) {
+               int sched, cudaStream_t st) {
   const bool ln = ls != nullptr;
   int err = ln ? launch_ln_rows<C>(x, ls, lb, xn, R, st) : 0;
-  if (err == 0) err = launch_gate<C>(ln ? xn : x, w0, b0, h, R, gelu, st);
+  if (err == 0) err = launch_gate<C>(ln ? xn : x, w0, b0, h, R, gelu, sched, st);
   if (err == 0) err = launch_out<C>(h, w2, b2, ln ? x : nullptr, out, R, st);
   return err;
 }
@@ -889,6 +1010,17 @@ int launch_f32(const void* x, const void* ls, const void* lb, const void* w0, co
       (const float*)x, (const float*)ls, (const float*)lb, (const float*)w0,
       (const float*)b0, (const float*)w2, (const float*)b2, (float*)out, R);
   return (int)cudaGetLastError();
+}
+
+// ln_geglu_ffn with schedule S's gate GEMM (bf16, erf)
+template <Schedule S>
+int launch_variant(const void* x, const void* ls, const void* lb, const void* w0,
+                   const void* b0, const void* w2, const void* b2, void* xn, void* h, void* out,
+                   int R, int C, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 320) return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, 0, S, st);
+  if (C == 640) return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, 0, S, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -906,9 +1038,9 @@ extern "C" int mofa_ln_geglu_ffn(const void* x, const void* ls, const void* lb,
   if (ls == nullptr || lb == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == mofa::kBF16) {
     if (C == 320)
-      return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, st);
+      return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, kPlain, st);
     if (C == 640)
-      return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, st);
+      return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, kPlain, st);
   } else if (dtype == mofa::kF32 && gelu == 0) {
     if (C == 320) return launch_f32<320>(x, ls, lb, w0, b0, w2, b2, out, R, st);
     if (C == 640) return launch_f32<640>(x, ls, lb, w0, b0, w2, b2, out, R, st);
@@ -922,15 +1054,16 @@ extern "C" int mofa_geglu_ffn(const void* x, const void* w0, const void* b0, con
   cudaStream_t st = (cudaStream_t)stream;
   if (C == 320)
     return launch_ffn<320>(x, nullptr, nullptr, w0, b0, w2, b2, nullptr, h, out, R, 0,
-                           st);
+                           kPlain, st);
   if (C == 640)
     return launch_ffn<640>(x, nullptr, nullptr, w0, b0, w2, b2, nullptr, h, out, R, 0,
-                           st);
+                           kPlain, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The stages one at a time (bf16): xn = LN(x); h = gate(xn W0^T + b0);
-// out = h W2^T + b2 (+ resid, which may be null).
+// The stages one at a time (bf16): xn = LN(x); h = gate(xn W0^T + b0) by
+// schedule 0 = plain, 1 = ilv, 2 = pipe (erf only); out = h W2^T + b2
+// (+ resid, which may be null).
 extern "C" int mofa_ffn_ln_rows(const void* x, const void* ls, const void* lb, void* xn, int R,
                                 int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -939,10 +1072,10 @@ extern "C" int mofa_ffn_ln_rows(const void* x, const void* ls, const void* lb, v
   return (int)cudaErrorInvalidValue;
 }
 extern "C" int mofa_ffn_gemm_gate(const void* xn, const void* w0, const void* b0, void* h, int R,
-                                  int C, int gelu, void* stream) {
+                                  int C, int gelu, int sched, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (C == 320) return launch_gate<320>(xn, w0, b0, h, R, gelu, st);
-  if (C == 640) return launch_gate<640>(xn, w0, b0, h, R, gelu, st);
+  if (C == 320) return launch_gate<320>(xn, w0, b0, h, R, gelu, sched, st);
+  if (C == 640) return launch_gate<640>(xn, w0, b0, h, R, gelu, sched, st);
   return (int)cudaErrorInvalidValue;
 }
 extern "C" int mofa_ffn_gemm_out(const void* h, const void* w2, const void* b2,
@@ -953,15 +1086,17 @@ extern "C" int mofa_ffn_gemm_out(const void* h, const void* w2, const void* b2,
   return (int)cudaErrorInvalidValue;
 }
 
-// The fused schedules, bf16 only, arguments as mofa_ln_geglu_ffn without
-// the scratch, dtype and gelu.
+// The ilv and pipe variants: the LN pass, that schedule's gate GEMM and the
+// out GEMM; bf16 only, arguments as mofa_ln_geglu_ffn without dtype and gelu.
 extern "C" int mofa_ln_geglu_ffn_pipe(const void* x, const void* ls, const void* lb,
                                       const void* w0, const void* b0, const void* w2,
-                                      const void* b2, void* out, int R, int C, void* stream) {
-  return launch_fused_variant(kPipe, x, ls, lb, w0, b0, w2, b2, out, R, C, stream);
+                                      const void* b2, void* xn, void* h, void* out, int R, int C,
+                                      void* stream) {
+  return launch_variant<kPipe>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, C, stream);
 }
 extern "C" int mofa_ln_geglu_ffn_ilv(const void* x, const void* ls, const void* lb,
                                      const void* w0, const void* b0, const void* w2,
-                                     const void* b2, void* out, int R, int C, void* stream) {
-  return launch_fused_variant(kIlv, x, ls, lb, w0, b0, w2, b2, out, R, C, stream);
+                                     const void* b2, void* xn, void* h, void* out, int R, int C,
+                                     void* stream) {
+  return launch_variant<kIlv>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, C, stream);
 }

@@ -5,28 +5,32 @@ Counterpart of mofa_tpu/kernels/geglu_ffn.py:
 - `ln_geglu_ffn(..., variant=)`: x + FF(LN(x)), with the JAX package's
   `_ln_ffn_fwd(variant=...)` names. "plain" (the default, and the only one
   a model calls) replaces `_ln_ffn_kernel`; "tanh" is that kernel with the
-  tanh-form gelu; "ilv" replaces `_ln_ffn_kernel_ilv` (row sub-tiles that
-  never wait on one another); "pipe" replaces `_ln_ffn_kernel_pipe` (GEMM1
-  of the next inner chunk issued before the gate and GEMM2 of this one).
+  tanh-form gelu; "ilv" replaces `_ln_ffn_kernel_ilv` (row sub-blocks that
+  never wait on one another) and "pipe" `_ln_ffn_kernel_pipe` (the next
+  block's first GEMM issued before this block's gate). All four compute
+  one function at the same rounding points ("tanh" with its own gelu).
 - `geglu_ffn`: FF(x) without LN or residual; replaces `_ffn_kernel`.
 
-All run one CUDA source, `csrc/ln_geglu_ffn.cu`. In bf16, "plain", "tanh"
-and `geglu_ffn` are three kernels launched in turn, each a stage with its
-own entry point and plain version here:
+All run one CUDA source, `csrc/ln_geglu_ffn.cu`. In bf16 each is three
+kernels launched in turn, each a stage with its own entry point and plain
+version here:
 
 - `ffn_ln_rows`: xn = LN(x), bf16 (skipped by `geglu_ffn`);
 - `ffn_gemm_gate`: h = a * gelu(g), [a | g] = xn W0^T + b0, bf16 [rows, 4C]
-  (a persistent `wgmma` GEMM fed by TMA, the gate in its epilogue);
+  (a persistent `wgmma` GEMM fed by TMA, the gate in its epilogue), in one
+  of three schedules: "plain" (the gate after each tile's products), and
+  for the "ilv" and "pipe" variants schedules of the same name whose gate
+  runs beside the tensor cores ("ilv": two warpgroups taking turns at the
+  products; "pipe": two accumulator sets in each warpgroup);
 - `ffn_gemm_out`: out = h W2^T + b2 (+ x), the same GEMM mainloop.
 
 The wrappers allocate the xn and h scratch per call and count one launch
-per call; the stage entry points launch one stage each and count nothing
-(`chip_smoke.py` uses them to place a fault in its stage). "ilv" and "pipe"
-keep fused schedules on `mma.sync` (the [rows, 8C] intermediate
-never leaves the block); the source note describes each design. Weights
-use torch Linear layouts: w0 [8C, C], w2 [C, 4C]. The "plain" kernel also
-has an fp32 path (plain FMA); the others take bf16 only and raise on fp32
-tensors on a card. Forward only.
+per call, under the variant's own name; the stage entry points launch one
+stage each and count nothing (`chip_smoke.py` uses them to place a fault
+in its stage and to time each gate schedule). Weights use torch Linear
+layouts: w0 [8C, C], w2 [C, 4C]. The "plain" variant also has an fp32
+path (plain FMA); the others take bf16 only and raise on fp32 tensors on
+a card. Forward only.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ LN_EPS = 1e-5
 MIN_FUSED_ROWS = 4096
 KERNEL_DIMS = (320, 640)
 VARIANTS = ("plain", "ilv", "pipe", "tanh")
+SCHEDULES = ("plain", "ilv", "pipe")       # the gate GEMM's, in the C entry's order
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GELU = ("none", "tanh")
 
@@ -115,10 +120,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_ffn(name, x, ln, weights, approximate="none"):
-    """ln_geglu_ffn ("plain", "tanh"; ln = (scale, shift)) or geglu_ffn
-    (ln = ()): the three stages in bf16 or, for "plain" in fp32, the fused
-    FMA kernel; one count per call."""
+def _launch_ffn(name, x, ln, weights, approximate="none", schedule="plain"):
+    """ln_geglu_ffn (ln = (scale, shift)) or geglu_ffn (ln = ()): the three
+    stages in bf16 with the gate GEMM's `schedule` or, for "plain" in
+    fp32, the fused FMA kernel; one count per call, under `name`."""
     from mofa_tpu_torch.kernels._build import launch
     dtypes = _DTYPES if name == "ln_geglu_ffn" else (torch.bfloat16,)
     args = _operands(name, x, ln, weights, dtypes)
@@ -127,7 +132,10 @@ def _launch_ffn(name, x, ln, weights, approximate="none"):
     out = torch.empty_like(x2)
     xn = torch.empty_like(x2) if ln and bf16 else None
     h = torch.empty(rows, 4 * c, device=dev, dtype=x2.dtype) if bf16 else None
-    if ln:
+    if schedule != "plain":
+        launch(f"mofa_{name}", dev, *map(_ptr, args), _ptr(xn), _ptr(h),
+               out.data_ptr(), rows, c)
+    elif ln:
         launch("mofa_ln_geglu_ffn", dev, *map(_ptr, args), _ptr(xn), _ptr(h),
                out.data_ptr(), rows, c, _DTYPES[x2.dtype], _GELU.index(approximate))
     else:
@@ -137,24 +145,13 @@ def _launch_ffn(name, x, ln, weights, approximate="none"):
     return out.reshape(x.shape)
 
 
-def _launch_fused(name, x, ln, weights):
-    """The "ilv" / "pipe" schedules: one fused bf16 kernel."""
-    from mofa_tpu_torch.kernels._build import launch
-    args = _operands(name, x, ln, weights, (torch.bfloat16,))
-    out = torch.empty_like(args[0])
-    launch(f"mofa_{name}", x.device, *map(_ptr, args), out.data_ptr(),
-           args[0].shape[0], x.shape[-1])
-    count_launch(name)
-    return out.reshape(x.shape)
-
-
 def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2,
                  variant: str = "plain") -> torch.Tensor:
     """x [..., C] -> x + FF(LN(x)); LN params [C]; w0 [8C, C], b0 [8C],
     w2 [C, 4C], b2 [C] (cast to x's dtype, LN params to fp32). `variant`
     picks the kernel's schedule, as the JAX package's `_ln_ffn_fwd` does:
-    "plain", "ilv" and "pipe" compute one function; "tanh" uses the
-    tanh-form gelu."""
+    "plain", "ilv" and "pipe" compute one function (the gate GEMM of the
+    schedule of that name); "tanh" uses the tanh-form gelu."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     _check_weights(x.shape[-1], w0, w2)
@@ -163,10 +160,9 @@ def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2,
         return ln_ffn_plain(x, ln_weight, ln_bias, w0, b0, w2, b2, approximate)
     name = "ln_geglu_ffn" if variant == "plain" else f"ln_geglu_ffn_{variant}"
     check_no_grad(name, x, ln_weight, ln_bias, w0, b0, w2, b2)
-    ln, weights = (ln_weight, ln_bias), (w0, b0, w2, b2)
-    if variant in ("ilv", "pipe"):
-        return _launch_fused(name, x, ln, weights)
-    return _launch_ffn(name, x, ln, weights, approximate)
+    schedule = variant if variant in SCHEDULES else "plain"
+    return _launch_ffn(name, x, (ln_weight, ln_bias), (w0, b0, w2, b2),
+                       approximate, schedule)
 
 
 def geglu_ffn(x, w0, b0, w2, b2) -> torch.Tensor:
@@ -221,10 +217,19 @@ def ffn_ln_rows(x, ln_weight, ln_bias) -> torch.Tensor:
     return xn
 
 
-def ffn_gemm_gate(xn, w0, b0, approximate: str = "none") -> torch.Tensor:
-    """Stage 2: xn [rows, C], w0 [8C, C], b0 [8C] -> a * gelu(g) [rows, 4C]."""
+def ffn_gemm_gate(xn, w0, b0, approximate: str = "none",
+                  schedule: str = "plain") -> torch.Tensor:
+    """Stage 2: xn [rows, C], w0 [8C, C], b0 [8C] -> a * gelu(g) [rows, 4C].
+    `schedule` names the GEMM's schedule ("plain", "ilv", "pipe", after the
+    variants that run it); every schedule computes one function, whose
+    plain version is `ffn_gemm_gate_plain`. "ilv" and "pipe" take the erf
+    gelu only."""
     if approximate not in _GELU:
         raise ValueError(f"approximate must be one of {_GELU}, got {approximate!r}")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+    if schedule != "plain" and approximate != "none":
+        raise ValueError(f"the {schedule!r} schedule computes the erf gelu only")
     if not use_kernel(xn, w0, b0):
         return ffn_gemm_gate_plain(xn, w0, b0, approximate)
     check_no_grad("ffn_gemm_gate", xn, w0, b0)
@@ -236,7 +241,8 @@ def ffn_gemm_gate(xn, w0, b0, approximate: str = "none") -> torch.Tensor:
     xn, w0, b0 = _stage_operands("ffn_gemm_gate", xn, w0, b0)
     h = torch.empty(xn.shape[0], 4 * c, device=xn.device, dtype=xn.dtype)
     launch("mofa_ffn_gemm_gate", xn.device, xn.data_ptr(), w0.data_ptr(),
-           b0.data_ptr(), h.data_ptr(), xn.shape[0], c, _GELU.index(approximate))
+           b0.data_ptr(), h.data_ptr(), xn.shape[0], c, _GELU.index(approximate),
+           SCHEDULES.index(schedule))
     return h
 
 

@@ -8,10 +8,11 @@ On CPU `mofa_tpu_torch.kernels.geglu_ffn` runs its plain PyTorch versions
 runs "pipe" through the plain kernel, as its own tests do) and against
 `_ln_ffn_ref` or its tanh counterpart, on the same numpy inputs at the
 kernels' widths. Tolerance, fp32: 1e-4 relative to max |ref|, as for the
-"plain" kernel in test_torch_kernels.py. The bf16 route of "plain", "tanh"
-and `geglu_ffn` runs three stages (LN, gate GEMM, out GEMM), each with an
-entry point and a plain version: their composition is held to the plain
-FFN and to the JAX kernels at a ragged row count. The plain FFN's
+"plain" kernel in test_torch_kernels.py. The bf16 route of every variant
+and of `geglu_ffn` runs three stages (LN, gate GEMM, out GEMM), each with
+an entry point and a plain version, the gate GEMM in the schedule its
+variant names: their composition is held to the plain FFN and to the JAX
+kernels at a ragged row count. The plain FFN's
 gradients are held to JAX's VJP, and the wrappers' refusals and grad guard
 are driven with use_kernel forced to True and the launch replaced. The
 CUDA kernels are tested on a GPU by tests/test_torch_gpu.py and
@@ -29,7 +30,8 @@ from mofa_tpu.kernels.geglu_ffn import geglu_ffn as j_geglu_ffn
 from mofa_tpu.kernels.geglu_ffn import ln_geglu_ffn as j_ln_geglu_ffn
 
 from mofa_tpu_torch import kernels
-from mofa_tpu_torch.kernels.geglu_ffn import (VARIANTS, ffn_gemm_gate, ffn_gemm_out,
+from mofa_tpu_torch.kernels.geglu_ffn import (SCHEDULES, VARIANTS, ffn_gemm_gate,
+                                              ffn_gemm_gate_plain, ffn_gemm_out,
                                               ffn_ln_rows, ffn_plain, geglu_ffn,
                                               ln_ffn_plain, ln_geglu_ffn)
 from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
@@ -140,11 +142,13 @@ def _ffn_plain_before(x, w0, b0, w2, b2):
 
 def _stages(x, ls, lb, w0, b0, w2, b2, kind):
     """The three stage entry points in turn (on the CPU: their plain
-    versions), as the bf16 kernels run them."""
+    versions), as the bf16 kernels run them: the gate GEMM in the schedule
+    of the variant's name ("ilv", "pipe"), else "plain"."""
     if kind == "geglu_ffn":
         return ffn_gemm_out(ffn_gemm_gate(x, w0, b0), w2, b2)
     xn = ffn_ln_rows(x, ls, lb)
-    h = ffn_gemm_gate(xn, w0, b0, "tanh" if kind == "tanh" else "none")
+    h = ffn_gemm_gate(xn, w0, b0, "tanh" if kind == "tanh" else "none",
+                      schedule=kind if kind in SCHEDULES else "plain")
     return ffn_gemm_out(h, w2, b2, x)
 
 
@@ -156,13 +160,14 @@ def _jax_ragged(fn, args, block):
     return np.asarray(fn(jnp.asarray(pad), *[jnp.asarray(a) for a in args[1:]]))[:x.shape[0]]
 
 
-@pytest.mark.parametrize("kind", ["plain", "tanh", "geglu_ffn"])
+@pytest.mark.parametrize("kind", ["plain", "tanh", "ilv", "pipe", "geglu_ffn"])
 @pytest.mark.parametrize("c", [320, 640])
 def test_stages_compose_to_the_plain_versions(c, kind):
-    """At a ragged row count: in bf16 the composed stages equal the plain
-    FFN as it was written before the split, exactly; in fp32 they match the
-    JAX kernel in interpret mode (and so the split keeps its rounding
-    points) with the tolerance of the tests above."""
+    """At a ragged row count: in bf16 the composed stages (the gate GEMM in
+    the variant's schedule) equal the plain FFN as it was written before
+    the split, exactly; in fp32 they match the JAX kernel of the variant in
+    interpret mode (and so the split keeps its rounding points) with the
+    tolerance of the tests above."""
     ops = _operands(c, 129, seed=c + 11)
     targs = _torch_args(*ops)
     bf = [t.to(torch.bfloat16) if i not in (1, 2) else t for i, t in enumerate(targs)]
@@ -173,6 +178,7 @@ def test_stages_compose_to_the_plain_versions(c, kind):
         approx = "tanh" if kind == "tanh" else "none"
         want = _ln_ffn_plain_before(*bf, approximate=approx)
         plain = ln_ffn_plain(*bf, approximate=approx)
+        assert torch.equal(ln_geglu_ffn(*bf, variant=kind), want)
     assert torch.equal(_stages(*bf, kind), want)
     assert torch.equal(plain, want)
 
@@ -184,6 +190,24 @@ def test_stages_compose_to_the_plain_versions(c, kind):
     else:
         ref = _jax_ragged(lambda *a: _ln_ffn_fwd(*a, variant=kind), ops, block)
     _close(got, ref)
+
+
+def test_gate_schedules_share_one_plain_version():
+    """`ffn_gemm_gate(schedule=)`: every schedule computes the plain gate
+    GEMM's function, so on the CPU each is `ffn_gemm_gate_plain`, in bf16
+    and fp32; an unknown schedule, or the tanh gelu in "ilv" or "pipe"
+    (erf only, as their JAX variants), raises on any device."""
+    _, _, _, w0, b0, _, _ = _torch_args(*_operands(320, 70, seed=17))
+    xn = torch.from_numpy(np.random.RandomState(18).randn(70, 320).astype(np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        args = [t.to(dt) for t in (xn, w0, b0)]
+        want = ffn_gemm_gate_plain(*args)
+        for schedule in SCHEDULES:
+            assert torch.equal(ffn_gemm_gate(*args, schedule=schedule), want)
+    for bad in (dict(schedule="fast"), dict(schedule="ilv", approximate="tanh"),
+                dict(schedule="pipe", approximate="tanh")):
+        with pytest.raises(ValueError):
+            ffn_gemm_gate(xn, w0, b0, **bad)
 
 
 def test_plain_ffn_gradients_match_jax_vjp():
@@ -234,6 +258,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
         lambda: ffn_gemm_gate(xb, w0b[:, :10], b0b),
         lambda: ffn_gemm_gate(xb, w0b, b0b[:100]),
         lambda: ffn_gemm_gate(xb, w0b, b0b, "sigmoid"),
+        lambda: ffn_gemm_gate(xb, w0b, b0b, schedule="fast"),
+        lambda: ffn_gemm_gate(xb, w0b, b0b, "tanh", schedule="pipe"),
+        lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2, variant="ilv"),  # fp32
         lambda: ffn_gemm_out(h[:, :640], w2b, b2b),
         lambda: ffn_gemm_out(h, w2b, b2b, residual=xb[:10]),
         lambda: ffn_gemm_out(h.float(), w2b, b2b)]
@@ -245,6 +272,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
              lambda: geglu_ffn(xb, w0b, b0b, w2b, b2b),
              lambda: ffn_ln_rows(xb, ls, lb),
              lambda: ffn_gemm_gate(xb, w0b, b0b, "tanh"),
+             lambda: ffn_gemm_gate(xb, w0b, b0b, schedule="ilv"),
+             lambda: ffn_gemm_gate(xb, w0b, b0b, schedule="pipe"),
+             lambda: ln_geglu_ffn(xb, ls, lb, w0b, b0b, w2b, b2b, variant="ilv"),
+             lambda: ln_geglu_ffn(xb, ls, lb, w0b, b0b, w2b, b2b, variant="pipe"),
              lambda: ffn_gemm_out(h, w2b, b2b, residual=xb)]
     for call in taken:
         with pytest.raises(RuntimeError, match="launch"):

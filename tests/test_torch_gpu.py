@@ -145,6 +145,7 @@ def test_short_body_on_card(frames, slots, dt):
 
 
 _FFN_NAMES = {"plain": "ln_geglu_ffn", "tanh": "ln_geglu_ffn_tanh",
+              "ilv": "ln_geglu_ffn_ilv", "pipe": "ln_geglu_ffn_pipe",
               "geglu_ffn": "geglu_ffn"}
 
 
@@ -154,9 +155,13 @@ _FFN_NAMES = {"plain": "ln_geglu_ffn", "tanh": "ln_geglu_ffn_tanh",
 @pytest.mark.parametrize("rows", [4096, 4096 + 7, 16384 + 1])
 def test_ffn_route_on_card(rows, c, kind):
     """The bf16 FFN route (LN pass, gate GEMM, out GEMM on wgmma) against
-    its plain version at whole and ragged 128-row tiles, one launch count
-    per call; then each stage alone against its plain stage: h from the
-    gate GEMM on the kernel's own xn, and the out GEMM on it."""
+    its plain version at whole and ragged row tiles, one launch count per
+    call; then each stage alone against its plain stage: h from the gate
+    GEMM (in the variant's schedule) on the kernel's own xn, and the out
+    GEMM on it. The ilv schedule's blocks walk pair tiles (two 64-row
+    tiles a cluster of two blocks); with the 66 clusters of an H100 five
+    of the six shapes here leave blocks an odd tile count (4103 rows, C =
+    320: 330 pair tiles, 5 a cluster), so one warpgroup has no last tile."""
     rn = _card(rows + c)
     bf = torch.bfloat16
     x = rn(rows, c).to(bf)
@@ -176,10 +181,30 @@ def test_ffn_route_on_card(rows, c, kind):
         xn = x if kind == "geglu_ffn" else ffn_ln_rows(x, ls, lb)
     if kind != "geglu_ffn":
         _assert_like_plain(lambda: ffn_ln_rows(x, ls, lb), bf)
-    _assert_like_plain(lambda: ffn_gemm_gate(xn, w0, b0, gelu), bf)
-    h = ffn_gemm_gate(xn, w0, b0, gelu)
+    schedule = kind if kind in ("ilv", "pipe") else "plain"
+    _assert_like_plain(lambda: ffn_gemm_gate(xn, w0, b0, gelu, schedule), bf)
+    h = ffn_gemm_gate(xn, w0, b0, gelu, schedule)
     resid = None if kind == "geglu_ffn" else x
     _assert_like_plain(lambda: ffn_gemm_out(h, w2, b2, resid), bf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["plain", "ilv", "pipe"])
+@pytest.mark.parametrize("c", [320, 640])
+@pytest.mark.parametrize("rows", [129, 64 * 132 * 3 + 1])
+def test_gate_schedules_on_card(rows, c, schedule):
+    """Each gate GEMM schedule alone against `ffn_gemm_gate_plain`, where a
+    block has one tile (129 rows: fewer pair tiles than clusters, so ilv's
+    second warpgroup has none, pipe only drains, and a cluster's second
+    block may hold rows past M only) and where the last row tile is ragged
+    and the blocks' tile counts differ; no launch is counted."""
+    rn = _card(rows + c + len(schedule))
+    bf = torch.bfloat16
+    xn = rn(rows, c).to(bf)
+    w0, b0 = (rn(8 * c, c) * c ** -0.5).to(bf), (rn(8 * c) * 0.1).to(bf)
+    kernels.reset_launch_counts()
+    _assert_like_plain(lambda: ffn_gemm_gate(xn, w0, b0, schedule=schedule), bf)
+    assert sum(kernels.launch_counts().values()) == 0
 
 
 @pytest.mark.gpu
