@@ -3,7 +3,6 @@
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --phase kernels  # build + kernel checks only
     python3 chip_smoke.py --phase profile  # torch.profiler table, 2 steps
-    python3 chip_smoke.py --phase gate_ab  # the FFN gate schedules' ablation
 
 Phases, each printed as it finishes:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -49,9 +48,6 @@ Phases, each printed as it finishes:
   6. the GroupNorm / fused-conv entry points: a spatial and a temporal
      resnet block at full width built from `gn_affine`, `gn_silu_conv3x3`
      and `gn_silu_tconv3`, held against the port's stock resnet blocks.
-`--phase gate_ab` runs none of these: it builds variants of the FFN's
-gate schedules (no multicast, no epilogue, no erf, plain's gelu) and times
-them in turns, with the SM clock and power under each.
 The second line from the end is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
@@ -782,11 +778,13 @@ def ffn_stages(results, g, c: int, rows: int) -> None:
 # flash's main-path sites besides /8 (timed at B*T = 50 as `ms_b50`): the
 # self-attention of the UNet's and the ControlNet trunk's spatial
 # transformer blocks at L >= 576, SVD-XT heads (UNet 5 / 10 / 20, trunk
-# 5 / 10 / 10 at /8 / /16 / /32); launches a video, 25 steps: per step /8
-# 5 + 2, /16 5 + 2, /32 5 (UNet) and 2 (trunk), 525 in all with /8's 175
-FLASH_SITES = (("/16", 50, 2304, 10, 64, 175),
-               ("/32 UNet", 50, 576, 20, 64, 125),
-               ("/32 trunk", 50, 576, 10, 128, 50))
+# 5 / 10 / 10 at /8 / /16 / /32). Each site's launches come from the main
+# path's own run (`kernels.launch_counts_by_shape`), which must reach all
+# four shapes.
+FLASH_SITES = (("/16", 50, 2304, 10, 64),
+               ("/32 UNet", 50, 576, 20, 64),
+               ("/32 trunk", 50, 576, 10, 128))
+FLASH_MAIN_SHAPES = (("/8", 50, 9216, 5, 64),) + FLASH_SITES
 
 
 def phase_kernels() -> dict:
@@ -847,18 +845,18 @@ def phase_kernels() -> dict:
     log(f"  {'flash_attention':24s} bf16 {'B=50 L=9216 H=5 D=64 (timing only)':38s} "
         f"ms {r['ms_b50']:.3f}  library_ms {r['library_ms_b50']:.3f}  bound "
         f"{r['bound_ms_b50']:.3f} ms (operations)")
-    # and beside SDPA at the main path's other sites (FLASH_SITES: its
-    # launches a video, stored as the row's `sites`) and at D = 128 with a
-    # long L (short rows against two consumer warpgroups)
+    # and beside SDPA at the main path's other sites (FLASH_SITES, stored as
+    # the row's `sites`) and at D = 128 with a long L (short rows against
+    # two consumer warpgroups)
     r["sites"] = {}
-    for site, B, L, H, D, video in FLASH_SITES + (("D=128 long L", 2, 9216, 5, 128, 0),):
+    for site, B, L, H, D in FLASH_SITES + (("D=128 long L", 2, 9216, 5, 128),):
         q, k, v = (randn(B, L, H, D, dtype=torch.bfloat16) for _ in range(3))
         with torch.no_grad():
             ms, lib_ms = time_ms(lambda: flash_attention(q, k, v)), time_ms(sdpa(q, k, v))
         b_ms = bound(4 * B * H * L * L * D, 4 * nbytes(q), "bf16")[0]
-        if video:
-            r["sites"][site] = dict(shape=[B, L, H, D], launches_per_video=video, ms=ms,
-                                    library_ms=lib_ms, bound_ms=b_ms)
+        if site.startswith("/"):
+            r["sites"][site] = dict(shape=[B, L, H, D], ms=ms, library_ms=lib_ms,
+                                    bound_ms=b_ms)
         label = f"B={B} L={L} H={H} D={D} (timing only)"
         log(f"  {'flash_attention':24s} bf16 {label:38s} ms {ms:.3f}  library_ms "
             f"{lib_ms:.3f}  bound {b_ms:.3f} ms ({site})")
@@ -1348,6 +1346,7 @@ def run_video(bundle, dev, layout: str, steps: int) -> dict:
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         launches = kernels.launch_counts()
+        flash_shapes = kernels.launch_counts_by_shape("flash_attention")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = phases["denoise_step"]
     median = sorted(step_s)[len(step_s) // 2]
@@ -1360,6 +1359,7 @@ def run_video(bundle, dev, layout: str, steps: int) -> dict:
         f"{median:.3f}), decode {phases['decode'][0]:.3f}; total {total:.3f}")
     log(f"  peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
     log(f"  kernel launches in the {layout} path: {launches}")
+    log(f"  flash launches by [B, L, H, D]: {flash_shapes}")
     check_flow(f"{layout} path", flow)
     want = (MAIN["t"], MAIN["h"], MAIN["w"], 3)
     if tuple(frames.shape) != want:
@@ -1371,7 +1371,8 @@ def run_video(bundle, dev, layout: str, steps: int) -> dict:
              f"{expected_launches(layout, steps)}")
     log(f"  frames finite, mean {float(frames.mean()):.4f}, std "
         f"{float(frames.std()):.4f}")
-    return dict(launches=launches, median_step=median, cmp_flow=app["cmp_flow"])
+    return dict(launches=launches, flash_shapes=flash_shapes, median_step=median,
+                cmp_flow=app["cmp_flow"])
 
 
 def run_brush_video(bundle, dev) -> None:
@@ -1492,114 +1493,6 @@ def phase_gn_conv(dev) -> dict:
     return launches
 
 
-def under_load(fn, seconds: float = 1.0) -> str:
-    """The card's SM clock (MHz) and power draw (W), medians of nvidia-smi
-    samples every 50 ms while fn() runs back to back for `seconds`."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                            "--format=csv,noheader,nounits", "-lms", "50"],
-                           stdout=subprocess.PIPE, text=True)
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < seconds:
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-    smi.terminate()
-    rows = [r.split(",") for r in smi.communicate()[0].split("\n") if r.count(",") == 1]
-    rows = rows[len(rows) // 4:] or rows          # past the ramp
-    med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")
-    return (f"SM clock {med([float(r[0]) for r in rows]):.0f} MHz, power "
-            f"{med([float(r[1]) for r in rows]):.0f} W ({len(rows)} samples)")
-
-
-# The gate GEMM schedules' ablation (`--phase gate_ab`): variants of
-# csrc/ln_geglu_ffn.cu by text substitution, each a library of its own.
-GATE_AB_VARIANTS = {
-    "as built": [],
-    "no multicast": [("constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 1;")],
-    "no epilogue": [("wg.store(", "(void)("), ("wg.flush(", "(void)(")],
-    "product gate": [
-        ("gate_ftz(acc[4 * j + 2 * hh] + ba.x, acc[TN / 2 + 4 * j + 2 * hh] + bg.x)",
-         "(acc[4 * j + 2 * hh] + ba.x) * (acc[TN / 2 + 4 * j + 2 * hh] + bg.x)"),
-        ("gate_ftz(acc[4 * j + 2 * hh + 1] + ba.y, acc[TN / 2 + 4 * j + 2 * hh + 1] + bg.y)",
-         "(acc[4 * j + 2 * hh + 1] + ba.y) * (acc[TN / 2 + 4 * j + 2 * hh + 1] + bg.y)")],
-    "plain's gelu": [("gate_ftz(acc", "gate_of<0>(acc")],
-}
-
-
-def phase_gate_ab(dev) -> None:
-    """The gate GEMM's three schedules in variants of their source: as
-    built; in clusters of one block (each block loads both W0 boxes, no
-    multicast); without the epilogue (the products alone: no gate, no
-    staging, no stores); with a product a * g in place of a * gelu(g)
-    (the erf's share); with plain's gelu (`gate_of<0>`, whose reciprocal
-    and exp keep subnormals) in place of `gate_ftz`. Plain's kernel is
-    the same in every variant, the control. Each library times the
-    schedules on the same inputs at the main path's two shapes, in turns
-    (each variant's plain / ilv / pipe, then the reverse; the two medians
-    of 10 each); at C = 320 the SM clock and power are sampled under each
-    one (`under_load`)."""
-    import ctypes
-    import torch
-    from mofa_tpu_torch.kernels import _build
-    from mofa_tpu_torch.kernels.geglu_ffn import SCHEDULES
-
-    src = (_build.CSRC / "ln_geglu_ffn.cu").read_text()
-    out = _build.BUILD_DIR / "gate_ab"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, subs) in enumerate(GATE_AB_VARIANTS.items()):
-        text = src
-        for a, b in subs:
-            if a not in text:
-                fail(f"gate_ab: variant {name!r} no longer applies to the source")
-            text = text.replace(a, b)
-        (out / f"v{i}.cu").write_text(text)
-        lib = out / f"v{i}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-Xcompiler", "-fPIC", "-shared", "-I", str(_build.CSRC),
-             "-o", str(lib), str(out / f"v{i}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    gates = {}
-    for name, (lib, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            fail(f"gate_ab: variant {name!r} failed to build:\n{err[-2000:]}")
-        fn = ctypes.CDLL(str(lib)).mofa_ffn_gemm_gate
-        fn.argtypes = _build._SIGNATURES["mofa_ffn_gemm_gate"]
-        fn.restype = ctypes.c_int
-        gates[name] = fn
-    g = torch.Generator(device=dev).manual_seed(12)
-    for c, rows in ((320, 460800), (640, 115200)):
-        xn = torch.randn(rows, c, generator=g, device=dev).to(torch.bfloat16)
-        w0 = (torch.randn(8 * c, c, generator=g, device=dev) * c ** -0.5).to(torch.bfloat16)
-        b0 = (torch.randn(8 * c, generator=g, device=dev) * 0.1).to(torch.bfloat16)
-        h = torch.empty(rows, 4 * c, device=dev, dtype=torch.bfloat16)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-
-        def run(name, sched):
-            err = gates[name](xn.data_ptr(), w0.data_ptr(), b0.data_ptr(), h.data_ptr(),
-                              rows, c, 0, SCHEDULES.index(sched), stream)
-            if err:
-                fail(f"gate_ab: {name} {sched}: CUDA error {err}")
-        turns = [(name, s) for name in gates for s in SCHEDULES]
-        ms = {k: [] for k in turns}
-        for k in turns + turns[::-1]:
-            ms[k].append(time_ms(lambda: run(*k), iters=10, warmup=2))
-        for name in gates:
-            log(f"  C={c} rows={rows} {name:13s}: " + "  ".join(
-                f"{s} {' / '.join(f'{t:.3f}' for t in ms[(name, s)])}"
-                for s in SCHEDULES) + " ms")
-        if c == 320:                    # SM clock and power under each one
-            for k in turns:
-                log(f"  C={c} {k[0]:13s} {k[1]:5s} under load: {under_load(lambda: run(*k))}")
-        del xn, w0, b0, h
-        torch.cuda.empty_cache()
-
-
 def phase_profile(dev, steps: int = 2) -> None:
     """torch.profiler over the main path at `steps` steps, without the VAE
     decode: device time by kernel name, top 40 (a breakdown, not a
@@ -1627,8 +1520,7 @@ def phase_profile(dev, steps: int = 2) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "profile", "gate_ab"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "profile"), default="all")
     args = ap.parse_args()
 
     try:
@@ -1654,10 +1546,6 @@ def main() -> None:
 
     if args.phase == "profile":
         phase_profile(torch.device("cuda"))
-        return
-    if args.phase == "gate_ab":
-        log("[gate_ab] the gate GEMM schedules in variants of their source, ms")
-        phase_gate_ab(torch.device("cuda"))
         return
 
     # 2. build
@@ -1734,12 +1622,20 @@ def main() -> None:
             launches[name] = gn_launches[name]
         for name in KERNEL_META:        # the 25-step spatial-major video's own
             kres[name]["main_path_launches"] = main_run["launches"][name]
+        # flash's launches at each main-path site, from the same run
+        by_site = kres["flash_attention"]["main_path_launches_by_site"] = {}
+        for site, *shape in FLASH_MAIN_SHAPES:
+            n = main_run["flash_shapes"].get(tuple(shape), 0)
+            if n == 0:
+                fail(f"flash_attention: the main path never launched site {site} {shape}")
+            by_site[site] = n
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("chain_ms", "ms_b50", "library_ms_b50", "bound_ms_b50", "ms_c640",
              "plain_ms_c640", "chain_ms_c640", "bound_ms_c640", "bound_by_c640",
-             "sites", "stage_ms_c320", "stage_ms_c640", "avg_call_ms", "stage_ms",
+             "sites", "main_path_launches_by_site", "stage_ms_c320", "stage_ms_c640",
+             "avg_call_ms", "stage_ms",
              "main_path_launches")
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],

@@ -87,8 +87,8 @@
 //   warpgroup's erf gate runs while the other's products run. A turn is
 //   handed on only to a tile that exists, so with an odd tile count the
 //   warpgroup left without a last tile is never waited for.
-// What was in their way, in the order it was found (`chip_smoke.py
-// --phase gate_ab` times each cause's variant of this source):
+// What was in their way, in the order it was found (PERF.md section 6,
+// "PR 8", has what each cause cost on an H100):
 // - L2 reads: the smaller tiles read more operand bytes from L2 per
 //   product than plain's 128 x 128 (64 and 51 FLOP a byte against 85), so
 //   both run in clusters of two blocks that take two row tiles at one n0:
@@ -1012,36 +1012,26 @@ int launch_f32(const void* x, const void* ls, const void* lb, const void* w0, co
   return (int)cudaGetLastError();
 }
 
-// ln_geglu_ffn with schedule S's gate GEMM (bf16, erf)
-template <Schedule S>
-int launch_variant(const void* x, const void* ls, const void* lb, const void* w0,
-                   const void* b0, const void* w2, const void* b2, void* xn, void* h, void* out,
-                   int R, int C, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (C == 320) return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, 0, S, st);
-  if (C == 640) return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, 0, S, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // Arguments of every entry: x/out [R, C]; ls/lb [C] fp32; w0 [8C, C], b0
 // [8C], w2 [C, 4C], b2 [C] in x's dtype; scratch xn [R, C] and h [R, 4C]
 // in x's dtype (bf16 only); all contiguous and 32-byte aligned. C in
 // {320, 640}; dtype 0 = fp32, 1 = bf16; gelu 0 = erf, 1 = tanh (bf16
-// only).
+// only); sched: the gate GEMM's schedule, 0 = plain, 1 = ilv, 2 = pipe
+// (bf16 and erf only for ilv and pipe).
 extern "C" int mofa_ln_geglu_ffn(const void* x, const void* ls, const void* lb,
                                  const void* w0, const void* b0, const void* w2,
                                  const void* b2, void* xn, void* h, void* out, int R, int C,
-                                 int dtype, int gelu, void* stream) {
+                                 int dtype, int gelu, int sched, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (ls == nullptr || lb == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == mofa::kBF16) {
     if (C == 320)
-      return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, kPlain, st);
+      return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, sched, st);
     if (C == 640)
-      return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, kPlain, st);
-  } else if (dtype == mofa::kF32 && gelu == 0) {
+      return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, sched, st);
+  } else if (dtype == mofa::kF32 && gelu == 0 && sched == kPlain) {
     if (C == 320) return launch_f32<320>(x, ls, lb, w0, b0, w2, b2, out, R, st);
     if (C == 640) return launch_f32<640>(x, ls, lb, w0, b0, w2, b2, out, R, st);
   }
@@ -1084,19 +1074,4 @@ extern "C" int mofa_ffn_gemm_out(const void* h, const void* w2, const void* b2,
   if (C == 320) return launch_out<320>(h, w2, b2, resid, out, R, st);
   if (C == 640) return launch_out<640>(h, w2, b2, resid, out, R, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// The ilv and pipe variants: the LN pass, that schedule's gate GEMM and the
-// out GEMM; bf16 only, arguments as mofa_ln_geglu_ffn without dtype and gelu.
-extern "C" int mofa_ln_geglu_ffn_pipe(const void* x, const void* ls, const void* lb,
-                                      const void* w0, const void* b0, const void* w2,
-                                      const void* b2, void* xn, void* h, void* out, int R, int C,
-                                      void* stream) {
-  return launch_variant<kPipe>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, C, stream);
-}
-extern "C" int mofa_ln_geglu_ffn_ilv(const void* x, const void* ls, const void* lb,
-                                     const void* w0, const void* b0, const void* w2,
-                                     const void* b2, void* xn, void* h, void* out, int R, int C,
-                                     void* stream) {
-  return launch_variant<kIlv>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, C, stream);
 }

@@ -26,6 +26,7 @@ KERNELS = ("flash_attention", "short_attention_tmajor", "short_attention",
            "gn_silu_tconv3", "geglu_ffn", "ln_geglu_ffn_ilv",
            "ln_geglu_ffn_pipe", "ln_geglu_ffn_tanh")
 _launches = dict.fromkeys(KERNELS, 0)
+_shape_launches: dict = {}      # (kernel name, shape) -> launches, where a wrapper names it
 _plain_depth = 0
 
 
@@ -69,9 +70,13 @@ def check_no_grad(name: str, *tensors) -> None:
             "keeps autograd")
 
 
-def count_launch(name: str) -> None:
-    """Called by a wrapper right after it launched kernel `name`."""
+def count_launch(name: str, shape: tuple | None = None) -> None:
+    """Called by a wrapper right after it launched kernel `name`; `shape`,
+    where given, also counts the launch under (name, shape)."""
     _launches[name] += 1
+    if shape is not None:
+        key = (name, tuple(shape))
+        _shape_launches[key] = _shape_launches.get(key, 0) + 1
 
 
 def launch_counts() -> dict:
@@ -79,6 +84,13 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def launch_counts_by_shape(name: str) -> dict:
+    """Shape -> launches of kernel `name` since the last reset, for the
+    wrappers that pass their shape to `count_launch`."""
+    return {shape: n for (k, shape), n in _shape_launches.items() if k == name}
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    _shape_launches.clear()

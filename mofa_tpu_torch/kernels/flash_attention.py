@@ -77,5 +77,5 @@ def flash_attention(q, k, v) -> torch.Tensor:
     out = torch.empty_like(q)
     launch("mofa_flash_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), b, lq, k.shape[1], h, d, _DTYPES[q.dtype])
-    count_launch("flash_attention")
+    count_launch("flash_attention", (b, lq, h, d))
     return out

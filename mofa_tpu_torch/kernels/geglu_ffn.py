@@ -132,12 +132,10 @@ def _launch_ffn(name, x, ln, weights, approximate="none", schedule="plain"):
     out = torch.empty_like(x2)
     xn = torch.empty_like(x2) if ln and bf16 else None
     h = torch.empty(rows, 4 * c, device=dev, dtype=x2.dtype) if bf16 else None
-    if schedule != "plain":
-        launch(f"mofa_{name}", dev, *map(_ptr, args), _ptr(xn), _ptr(h),
-               out.data_ptr(), rows, c)
-    elif ln:
+    if ln:
         launch("mofa_ln_geglu_ffn", dev, *map(_ptr, args), _ptr(xn), _ptr(h),
-               out.data_ptr(), rows, c, _DTYPES[x2.dtype], _GELU.index(approximate))
+               out.data_ptr(), rows, c, _DTYPES[x2.dtype], _GELU.index(approximate),
+               SCHEDULES.index(schedule))
     else:
         launch("mofa_geglu_ffn", dev, *map(_ptr, args), h.data_ptr(),
                out.data_ptr(), rows, c)

@@ -228,6 +228,25 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
          "ln_geglu_ffn_pipe", "ln_geglu_ffn_tanh"), 0)
 
 
+def test_flash_counts_its_launches_by_shape(monkeypatch):
+    """On a card (use_kernel forced True, the launch a no-op) flash counts
+    each launch once under its name and once under its [B, L, H, D]; a
+    reset clears both."""
+    from mofa_tpu_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "use_kernel", lambda *t: True)
+    monkeypatch.setattr("mofa_tpu_torch.kernels._build.launch", lambda *a: 0)
+    kernels.reset_launch_counts()
+    for shape in ((2, 600, 1, 64), (1, 576, 2, 128), (2, 600, 1, 64)):
+        q = torch.zeros(*shape, dtype=torch.bfloat16)
+        flash_attention(q, q, q)
+    assert kernels.launch_counts()["flash_attention"] == 3
+    assert kernels.launch_counts_by_shape("flash_attention") == {
+        (2, 600, 1, 64): 2, (1, 576, 2, 128): 1}
+    assert kernels.launch_counts_by_shape("softsplat") == {}
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts_by_shape("flash_attention") == {}
+
+
 def test_devices_without_a_kernel_or_plain_path_raise():
     x = torch.empty(1, 8, 1, 64, device="meta")
     with pytest.raises(ValueError):
