@@ -23,10 +23,10 @@ Phases, each printed as it finishes:
      adapter's four warp sites from the feature map broadcast over 24
      flows (every mode, the raw sums and normaliser plane), with the
      whole 'avg' call timed against the wrapper path before the
-     redesign; the 3x3 conv's two
-     stages (activation pass, wgmma GEMM) each alone, timed beside one
-     cuDNN conv of the same product; then planted faults, which the bf16
-     bounds must reject;
+     redesign; each fused conv's two stages (activation pass, wgmma GEMM
+     over 9 or 3 taps) each alone, timed beside one cuDNN conv of the
+     same product; then planted faults, which the bf16 bounds must
+     reject;
      3b. the FFN variants (tools/bench_ffn.py's A/B): plain, ilv, pipe,
      tanh, geglu_ffn and the stock chain at the main path's three FF
      shapes, their agreement with "plain" and one pass's launch counts;
@@ -112,6 +112,25 @@ def time_ms(fn, iters: int = 5, warmup: int = 1) -> float:
     return times[len(times) // 2]
 
 
+def time_queued_ms(fn, calls: int = 20) -> float:
+    """Milliseconds a call of fn() over `calls` calls queued back to back
+    between two CUDA events, after one warm-up call: the device's time,
+    the host's work of each call hidden behind the calls queued before it
+    (time_ms waits for each call, so it also counts the host's work
+    before the first launch)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls
+
+
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # the least time a kernel could take is the larger of its bytes over the
 # memory rate and its operations over the peak rate for their type.
@@ -157,7 +176,7 @@ KERNEL_META = {
         source="mofa_tpu_torch/csrc/conv3x3.cu",
         replaces="mofa_tpu/kernels/conv_fused.py:190"),
     "gn_silu_tconv3": dict(
-        source="mofa_tpu_torch/csrc/conv_fused.cu",
+        source="mofa_tpu_torch/csrc/conv3x3.cu",
         replaces="mofa_tpu/kernels/conv_fused.py:355"),
     "geglu_ffn": dict(
         source="mofa_tpu_torch/csrc/ln_geglu_ffn.cu",
@@ -179,11 +198,13 @@ KERNEL_META = {
 # summation order (atomics for the splat and the channel sums, tiles for
 # the rest); the channel sums grow with S, so their bound is relative.
 # bf16: (max_rel, rms_rel): max |diff| <= max_rel * max |plain| and
-# ||diff|| / ||plain|| <= rms_rel. The plain versions round P (attention),
-# the LN output and the GEMM1 result (FFN), or the conv's output before
-# its fp32 epilogue (fused convs) to bf16 at other points than the
-# kernels do, and the outputs are bf16, so the bounds scale with the
-# output. The channel sums are fp32 sums of the same bf16 values on both
+# ||diff|| / ||plain|| <= rms_rel. The plain versions round P (attention)
+# and the LN output and the GEMM1 result (FFN) to bf16 at other points
+# than the kernels do; the fused convs' plain versions round where the
+# JAX kernels and these do (the activated y, w, bias and temb; the conv
+# summed in fp32 and rounded once), so there only the summation order and
+# the fp32 SiLU's last bit differ. The outputs are bf16, so the bounds
+# scale with the output. The channel sums are fp32 sums of the same bf16 values on both
 # sides. The bf16 kernels are also held, with the same bounds, against
 # the plain version in fp32 on their upcast inputs (TF32 off). The bounds
 # sit a few times above the sound readings and below those of the planted
@@ -374,9 +395,11 @@ def planted_faults() -> list:
     (channel sums), reads the other CFG half's feature map for the last
     frame or leaves one tap out of the normaliser plane (softsplat 'avg'),
     drops the centre tap, pads the border with silu(b) instead of 0 or
-    skips one tap's first 64-channel box (3x3 conv), or drops the t-1 tap
-    (temporal conv). Every one must MISS; returns the labels of those that
-    passed."""
+    skips one tap's first 64-channel box (3x3 conv), or drops the t-1 tap,
+    pads the frames beyond both ends with silu(b) instead of 0, adds every
+    row of a tile the temb of the tile's first frame (2-frame tiles at S =
+    9216) or reads tap t+1's box at tap t's frame (temporal conv). Every
+    one must MISS; returns the labels of those that passed."""
     import torch
     from mofa_tpu_torch import kernels
     from mofa_tpu_torch.kernels.attention import attention_plain
@@ -541,6 +564,30 @@ def planted_faults() -> list:
             return (out.permute(0, 2, 3, 1).float() + bias).to(bf)
         return run, border_silu_b
 
+    def tconv_case(fault):
+        from mofa_tpu_torch.kernels.conv_fused import act_plain, tconv3_plain
+        x = randn(2, 25, 9216, 320)
+        c = 320
+        a, b = randn(2, c, scale=0.3, mean=1.0).float(), randn(2, c, scale=0.2).float()
+        w = randn(3, c, c, scale=1.7 / (3 * c) ** 0.5)
+        bias = randn(c, scale=0.1).float()
+        temb = randn(2, 25, c, scale=0.3).float()
+        if fault == "frames":           # x padded with 0 frames before the activation
+            def frames_silu_b():
+                yp = act_plain(torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1)), a, b)
+                out = torch.nn.functional.conv2d(
+                    yp.permute(0, 3, 1, 2).float(), w.float().permute(2, 1, 0)[..., None])
+                return (out.permute(0, 2, 3, 1) + bias.to(bf).float()).to(bf)
+            return lambda: gn_silu_tconv3(x, a, b, w, bias), frames_silu_b
+        if fault == "temb":             # frames 2k and 2k+1: frame 2k's temb
+            first = temb[:, torch.arange(25, device=dev) // 2 * 2]
+            return (lambda: gn_silu_tconv3(x, a, b, w, bias, temb),
+                    lambda: tconv3_plain(x, a, b, w, bias, first))
+        wf = w.clone()                  # tap t+1 read at frame t: y_t (w1 + w2)
+        wf[1], wf[2] = (w[1].float() + w[2].float()).to(bf), 0
+        return (lambda: gn_silu_tconv3(x, a, b, w, bias),
+                lambda: gn_silu_tconv3(x, a, b, wf, bias))
+
     def conv_case(temporal):
         x = randn(2, 25, 9216, 320) if temporal else randn(50, 72, 128, 320)
         n, c = x.shape[0], 320
@@ -599,7 +646,13 @@ def planted_faults() -> list:
              ("gn_silu_conv3x3", "[50, 72, 128, 320]->320, one tap box skipped",
               lambda: conv_box_case("box")),
              ("gn_silu_tconv3", "[2, 25, 9216, 320]->320, t-1 tap dropped",
-              lambda: conv_case(True))]
+              lambda: conv_case(True)),
+             ("gn_silu_tconv3", "[2, 25, 9216, 320]->320, end frames silu(b)",
+              lambda: tconv_case("frames")),
+             ("gn_silu_tconv3", "[2, 25, 9216, 320]->320, tile's 1st-frame temb",
+              lambda: tconv_case("temb")),
+             ("gn_silu_tconv3", "[2, 25, 9216, 320]->320, t+1 box at frame t",
+              lambda: tconv_case("tap"))]
     passed = []
     for name, label, make in cases:
         with torch.no_grad():
@@ -1019,50 +1072,65 @@ def phase_kernels() -> dict:
                    chain_fn=chain,
                    work=(2 * (x.numel() // c) * c * fan_in,
                          2 * nbytes(x) + nbytes(w, temb), "bf16"))
-        if not temporal:
-            conv_stages(results, x, a, b, w, bias, temb, res, timed)
+        conv_stages(results, temporal, x, a, b, w, bias, temb, res, timed)
         del x, res
         torch.cuda.empty_cache()
     return results
 
 
-def conv_stages(results, x, a, b, w, bias, temb, res, timed: bool) -> None:
-    """The 3x3 route's two stages alone, each against its plain stage with
-    the bf16 bounds of gn_silu_conv3x3 (the GEMM on the kernel's own
-    activated y, so a fault shows in its stage); timed: each stage beside
-    one cuDNN F.conv2d of the same product on the activated bf16 tensor
-    (no bias, temb, residual or sums), on its channels-last view and on an
-    NCHW copy, and the GEMM's other epilogue forms (neither temb nor sums;
-    the residual), stored as the row's `stage_ms`."""
+def conv_stages(results, temporal: bool, x, a, b, w, bias, temb, res,
+                timed: bool) -> None:
+    """A fused conv's two stages alone, each against its plain stage with
+    the bf16 bounds of its route (the GEMM on the kernel's own activated y,
+    so a fault shows in its stage); timed: each stage beside one cuDNN
+    F.conv2d of the same product on the activated bf16 tensor (no bias,
+    temb, residual or sums; the temporal conv as a (3, 1) kernel over
+    [B, C, T, S]), on its channels-last view and on an NCHW copy, and the
+    GEMM's other epilogue forms (neither temb nor sums; the residual);
+    then the route, its GEMM and the channels-last cuDNN conv queued back
+    to back (`time_queued_ms`, without the wrappers' host work); stored
+    as the row's `stage_ms`."""
     import torch
     import torch.nn.functional as F
-    from mofa_tpu_torch.kernels.conv_fused import conv3x3_gemm, gn_silu_act
+    from mofa_tpu_torch.kernels.conv_fused import (conv3x3_gemm, gn_silu_act,
+                                                   gn_silu_conv3x3,
+                                                   gn_silu_tconv3, tconv3_gemm)
+    name = "gn_silu_tconv3" if temporal else "gn_silu_conv3x3"
+    route_fn = gn_silu_tconv3 if temporal else gn_silu_conv3x3
+    gemm_fn = tconv3_gemm if temporal else conv3x3_gemm
     shape = list(x.shape)
     act = lambda: gn_silu_act(x, a, b)
-    gemm = lambda: conv3x3_gemm(y, w, bias, temb, emit_sums=True)
+    gemm = lambda: gemm_fn(y, w, bias, temb, emit_sums=True)
     with torch.no_grad():
         y = act()
-    _check(results, "gn_silu_conv3x3", "bf16", f"{shape} act stage", act, act,
-           False)
-    _check(results, "gn_silu_conv3x3", "bf16", f"{shape} gemm stage, temb, sums",
+    _check(results, name, "bf16", f"{shape} act stage", act, act, False)
+    _check(results, name, "bf16", f"{shape} gemm stage, temb, sums",
            gemm, gemm, False)
-    _check(results, "gn_silu_conv3x3", "bf16", f"{shape} gemm stage, residual",
-           lambda: conv3x3_gemm(y, w, bias, residual=res),
-           lambda: conv3x3_gemm(y, w, bias, residual=res), False)
+    _check(results, name, "bf16", f"{shape} gemm stage, residual",
+           lambda: gemm_fn(y, w, bias, residual=res),
+           lambda: gemm_fn(y, w, bias, residual=res), False)
     if timed:
-        w_oihw = w.permute(3, 2, 0, 1)
+        # cuDNN's OIHW weights: [O, C, 3, 1] over (T, S), or [O, C, 3, 3]
+        w_oihw = (w.permute(2, 1, 0)[..., None] if temporal
+                  else w.permute(3, 2, 0, 1))
+        pad = (1, 0) if temporal else 1
         y_cl, w_cl = y.permute(0, 3, 1, 2), w_oihw.contiguous(
             memory_format=torch.channels_last)
         y_nchw, w_nchw = y_cl.contiguous(), w_oihw.contiguous()
         with torch.no_grad():
             split = {"act": time_ms(act), "gemm": time_ms(gemm),
-                     "gemm_no_temb_sums": time_ms(lambda: conv3x3_gemm(y, w, bias)),
+                     "gemm_no_temb_sums": time_ms(lambda: gemm_fn(y, w, bias)),
                      "gemm_residual": time_ms(
-                         lambda: conv3x3_gemm(y, w, bias, residual=res)),
-                     "cudnn_nhwc": time_ms(lambda: F.conv2d(y_cl, w_cl, padding=1)),
-                     "cudnn_nchw": time_ms(lambda: F.conv2d(y_nchw, w_nchw, padding=1))}
-        results["gn_silu_conv3x3"]["stage_ms"] = split
-        log(f"  {'gn_silu_conv3x3':24s} bf16 stages {shape}: "
+                         lambda: gemm_fn(y, w, bias, residual=res)),
+                     "cudnn_nhwc": time_ms(lambda: F.conv2d(y_cl, w_cl, padding=pad)),
+                     "cudnn_nchw": time_ms(lambda: F.conv2d(y_nchw, w_nchw, padding=pad)),
+                     "route_queued": time_queued_ms(
+                         lambda: route_fn(x, a, b, w, bias, temb, emit_sums=True)),
+                     "gemm_queued": time_queued_ms(gemm),
+                     "cudnn_nhwc_queued": time_queued_ms(
+                         lambda: F.conv2d(y_cl, w_cl, padding=pad))}
+        results[name]["stage_ms"] = split
+        log(f"  {name:24s} bf16 stages {shape}: "
             + "  ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms")
         del y_cl, w_cl, y_nchw, w_nchw
     del y

@@ -1,46 +1,61 @@
-// Fused GroupNorm-apply + SiLU + 3x3 convolution, channel-last, bf16:
-//   out = conv3x3(silu(x * a + b)) + bias [+ temb] [+ residual]
+// Fused GroupNorm-apply + SiLU + convolution, channel-last, bf16:
+//   out = conv(silu(x * a + b)) + bias [+ temb] [+ residual]
 // with a, b the folded GroupNorm affine per (n, c), and optionally the fp32
 // sums of out and out^2 per (n, o) (before the cast), for the next norm.
+// The conv is the 3x3 spatial one over [N, H, W, C], or the (3, 1, 1)
+// temporal one over [B, T, S, C], seen here as [N = B, H = T, W = S, C].
 //
-// Replaces mofa_tpu/kernels/conv_fused.py::_fused_conv_fwd. The TPU kernel
-// holds one image's [H, W, C] slice in VMEM, rounds the activated strip to
-// the output dtype and runs 9 shifted [rows, C] x [C, O] matmuls. That
-// rounding point splits the function into two kernels here, and nothing
-// rounds where the TPU kernel does not:
+// Replaces mofa_tpu/kernels/conv_fused.py::_fused_conv_fwd (3x3) and
+// ::_fused_tconv_fwd (temporal). The TPU kernels hold one image's [H, W,
+// C] (one video's [T, S, C]) slice in VMEM, round the activated strip to
+// the output dtype and run 9 (3) shifted [rows, C] x [C, O] matmuls. That
+// rounding point splits each function into two kernels here, and nothing
+// rounds where the TPU kernels do not:
 //
 // - `act_kernel`: y = silu(x * a + b) in fp32, rounded to bf16, one pass
-//   over [N, H, W, C] with 16-byte loads and stores. Bound: bytes, 2 N H W
+//   over [N, H, W, C] with 16-byte loads and stores, so that every input
+//   element goes through the affine and SiLU once. Bound: bytes, 2 N H W
 //   C x 2 (0.18 ms at [50, 72, 128, 320] on 3.35 TB/s).
-// - `conv_gemm_kernel`: the conv as an implicit GEMM on `wgmma`, M = output
-//   pixels, N = O, K = 9 taps x C. A tile is 256 output pixels, a TH x TW
-//   rectangle of one image (TW = 128 at /8, 64 at /16, ...), for TN output
-//   channels (160, 128 or 64: the widest that divides O). A producer warp
-//   issues, per k-tile (one tap, 64 channels), a TMA load of the tap's
-//   shifted view of y, the box of a 4-D [N, H, W, C] tensor map at pixel
-//   (h0 + dy - 1, w0 + dx - 1), and of the weight tile [TN, 64] of a 2-D map
-//   over wt [O, 9 C] (K-major: column tap * C + c). TMA's zero fill of
-//   coordinates outside the tensor IS the conv's zero padding of the
-//   ACTIVATED tensor (THE TRAP: padding with silu(b) would be wrong), and
-//   also zeroes the channels past C when C % 64 != 0 (the weight box then
-//   runs into the next tap's columns, which multiply those zeros). Two
-//   consumer warpgroups, 128 pixels each, accumulate 128 x TN in fp32 with
-//   two `wgmma.m64nTNk16` per k16 (one per 64-pixel block, sharing the
-//   weight tile) from the 128-byte swizzled ring stages.
+// - `conv_gemm_kernel<TN, TAPS>`: the conv as an implicit GEMM on `wgmma`,
+//   M = output pixels, N = O, K = TAPS x C, one template for both tap
+//   geometries: TAPS = 9, tap (dy, dx) = (tap / 3 - 1, tap % 3 - 1); TAPS =
+//   3, tap dt at (dt - 1, 0), the frame before, the frame itself and the
+//   frame after. A tile is 256 output pixels, a TH x TW rectangle of one
+//   image (TW = 128 at /8, 64 at /16, ...; for the temporal conv TH frames
+//   of TW positions), for TN output channels (160, 128 or 64: the widest
+//   that divides O). A producer warp issues, per k-tile (one tap, 64
+//   channels), a TMA load of the tap's shifted view of y, the box of a 4-D
+//   [N, H, W, C] tensor map at pixel (h0 + dy, w0 + dx), and of the weight
+//   tile [TN, 64] of a 2-D map over wt [O, TAPS C] (K-major: column tap * C
+//   + c). TMA's zero fill of coordinates outside the tensor IS the conv's
+//   zero padding of the ACTIVATED tensor, the frames t = -1 and t = T
+//   included (THE TRAP: padding with silu(b) would be wrong), and also
+//   zeroes the channels past C when C % 64 != 0 (the weight box then runs
+//   into the next tap's columns, which multiply those zeros). Two consumer
+//   warpgroups, 128 pixels each, accumulate 128 x TN in fp32 with two
+//   `wgmma.m64nTNk16` per k16 (one per 64-pixel block, sharing the weight
+//   tile) from the 128-byte swizzled ring stages.
 //   The grid is persistent (a block per SM walks the tiles, output-channel
 //   tile fastest, so a pixel tile's taps are re-read from L2), and the
 //   producer runs into the next tile while the consumers run the epilogue,
-//   32 columns at a time: acc + bias + temb (per (n, o)) staged in fp32
-//   through shared memory, then written as row-contiguous 4-column pieces
-//   with the residual (its loads issued before the staging) added in fp32
-//   and rounded once; the sums reduced over the tile's pixels (warp
-//   shuffles, each warp's partials stored to shared memory and summed in
-//   order by one thread per column, one global atomic per (tile, column);
+//   32 columns at a time: acc + bias + temb staged in fp32 through shared
+//   memory (temb per (n, o) for the 3x3; per (b, t, o) for the temporal
+//   conv, read at each output row's own frame: a tile of TH > 1 frames
+//   spans several), then written as row-contiguous 4-column pieces with
+//   the residual (its loads issued before the staging) added in fp32 and
+//   rounded once; the sums reduced over the tile's pixels (warp shuffles,
+//   each warp's partials stored to shared memory and summed in order by
+//   one thread per column, one global atomic per (tile, column);
 //   shared-memory float atomics there cost more than all the stores). A
-//   tile never straddles two images. Bound: operations, 2 N H W O 9 C
-//   (0.86 ms at [50, 72, 128, 320] -> 320 on the 989 TFLOP/s bf16 peak).
+//   tile never straddles two images. Bound: operations, 2 N H W O TAPS C
+//   (0.86 ms at [50, 72, 128, 320] -> 320, 3x3; 0.29 ms at [2, 25, 9216,
+//   320] -> 320, temporal; on the 989 TFLOP/s bf16 peak).
 //   Measured slower on the H100: a 128-pixel tile (one m64 block a
 //   warpgroup), and storing the fragments directly instead of staging.
+//   The temporal conv's activation is not fused into the GEMM's window:
+//   a window of TH + 2 frames activated per k-tile per output tile would
+//   run the affine and SiLU about 3 times per element inside the
+//   compute-bound kernel, where the separate pass runs them once.
 #include <algorithm>
 
 #include "hopper.cuh"
@@ -118,8 +133,8 @@ __global__ void __launch_bounds__(256) act_kernel(const bf16* __restrict__ x,
   }
 }
 
-// ---- the implicit GEMM over the activated tensor
-template <int TN>
+// ---- the implicit GEMM over the activated tensor: TAPS = 9 (3x3) or 3 (over H)
+template <int TN, int TAPS>
 __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
     const __grid_constant__ CUtensorMap ty, const __grid_constant__ CUtensorMap tw,
     const float* __restrict__ bias, const float* __restrict__ temb,
@@ -140,7 +155,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
   const int TH = BM / TW;
   const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH, tiles_o = O / TN;
   const int tiles = N * tiles_h * tiles_w * tiles_o;
-  const int KT = 9 * ((C + KTILE - 1) / KTILE);     // k-tiles: 64 channels of one tap
+  const int KT = TAPS * ((C + KTILE - 1) / KTILE);  // k-tiles: 64 channels of one tap
   // tile -> (image, first output row, first output column, first output channel)
   auto coords = [&](int tile, int& n, int& h0, int& w0, int& o0) {
     o0 = tile % tiles_o * TN;
@@ -169,10 +184,11 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
         coords(tile, n, h0, w0, o0);
         for (int kt = 0; kt < KT; ++kt, ++it) {
           const int s = it % G::STAGES, round = it / G::STAGES;
-          const int tap = kt % 9, c0 = kt / 9 * KTILE;
+          const int tap = kt % TAPS, c0 = kt / TAPS * KTILE;
+          const int dy = TAPS == 9 ? tap / 3 - 1 : tap - 1, dx = TAPS == 9 ? tap % 3 - 1 : 0;
           if (round > 0) mofa::mbar_wait(empty(s), (round - 1) & 1);
           mofa::mbar_arrive_expect_tx(full(s), G::STAGE_BYTES);
-          mofa::tma_load_4d(sa(s), &ty, full(s), c0, w0 + tap % 3 - 1, h0 + tap / 3 - 1, n);
+          mofa::tma_load_4d(sa(s), &ty, full(s), c0, w0 + dx, h0 + dy, n);
           mofa::tma_load_2d(sb(s), &tw, full(s), tap * C + c0, o0);
         }
       }
@@ -224,7 +240,16 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
 
     // ---- epilogue: fragment (warp, lane) of row block mi holds rows
     // 64 mi + 16 warp + g (+ 8) of every n8 block j at columns 8j + 2t (+ 1)
-    const float* tb = temb ? temb + (long long)n * O : nullptr;
+    // temb: per (n, o) for the 3x3; per (n, frame, o) for the temporal conv,
+    // where fragment row r = (mi, hh) of this thread reads its own frame's
+    // row, tb + temb_row(r) (with TW >= 128 a warpgroup's rows are one frame)
+    const float* tb = temb ? temb + (long long)n * (TAPS == 3 ? H : 1) * O : nullptr;
+    const bool one_row = TAPS == 9 || TW >= BM / 2;
+    auto temb_row = [&](int r) {                    // rows past H are never stored
+      const int rt = wg * (BM / 2) + r / 2 * 64 + warp * 16 + g + 8 * (r % 2);
+      return TAPS == 3 ? min(h0 + rt / TW, H - 1) * O : 0;
+    };
+    const int row0 = temb_row(0);
     // OUT_CH columns at a time: acc + bias + temb in fp32 into shared
     // memory, then rows of 4-column pieces (eight lanes to a row's 64
     // bytes) with the residual added, rounded once, and the sums
@@ -254,15 +279,20 @@ __global__ void __launch_bounds__(THREADS, 1) conv_gemm_kernel(
         const int o = o0 + ch * OUT_CH + 8 * jj + 2 * t;
         const int j = ch * OUT_CH / 8 + jj;
         const float2 bb = *reinterpret_cast<const float2*>(bias + o);
-        const float2 te = tb ? *reinterpret_cast<const float2*>(tb + o) : make_float2(0.f, 0.f);
+        const float2 te0 = tb ? *reinterpret_cast<const float2*>(tb + row0 + o)
+                              : make_float2(0.f, 0.f);
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
+          for (int hh = 0; hh < 2; ++hh) {
+            const float2 te =
+                one_row || !tb ? te0
+                               : *reinterpret_cast<const float2*>(tb + temb_row(2 * mi + hh) + o);
             *reinterpret_cast<float2*>(stage_out + (mi * 64 + warp * 16 + g + 8 * hh) * OUT_PITCH +
                                        8 * jj + 2 * t) =
                 make_float2(acc[mi * TN / 2 + 4 * j + 2 * hh] + bb.x + te.x,
                             acc[mi * TN / 2 + 4 * j + 2 * hh + 1] + bb.y + te.y);
+          }
       }
       mofa::named_bar_sync(2 + wg, 128);
       float u1[4] = {0.f, 0.f, 0.f, 0.f}, u2[4] = {0.f, 0.f, 0.f, 0.f};
@@ -341,7 +371,7 @@ int launch_act(const void* x, const void* a, const void* b, void* y, int N, int 
   return (int)cudaGetLastError();
 }
 
-template <int TN>
+template <int TN, int TAPS>
 int launch_gemm_tn(const void* y, const void* wt, const void* bias, const void* temb,
                    const void* res, void* out, void* s1, void* s2, int N, int H, int W, int C,
                    int O, cudaStream_t st) {
@@ -352,9 +382,9 @@ int launch_gemm_tn(const void* y, const void* wt, const void* bias, const void* 
   const int TH = BM / TW;
   CUtensorMap ty, tw;
   if (!mofa::bf16_nhwc_map(&ty, y, N, H, W, C, TW, TH) ||
-      !mofa::bf16_rows_map(&tw, wt, O, 9 * C, TN))
+      !mofa::bf16_rows_map(&tw, wt, O, TAPS * C, TN))
     return (int)cudaErrorNotSupported;
-  auto kernel = conv_gemm_kernel<TN>;
+  auto kernel = conv_gemm_kernel<TN, TAPS>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   const long long tiles = (long long)N * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (O / TN);
   kernel<<<(unsigned)std::min(tiles, (long long)sm_count()), THREADS, G::SMEM, st>>>(
@@ -363,16 +393,17 @@ int launch_gemm_tn(const void* y, const void* wt, const void* bias, const void* 
   return (int)cudaGetLastError();
 }
 
+template <int TAPS>
 int launch_gemm(const void* y, const void* wt, const void* bias, const void* temb,
                 const void* res, void* out, void* s1, void* s2, int N, int H, int W, int C, int O,
                 cudaStream_t st) {
   if (C % 8 || O % 64 || C <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
   if ((long long)N * H * W <= 0) return (int)cudaGetLastError();
   if (O % 160 == 0)
-    return launch_gemm_tn<160>(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, st);
+    return launch_gemm_tn<160, TAPS>(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, st);
   if (O % 128 == 0)
-    return launch_gemm_tn<128>(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, st);
-  return launch_gemm_tn<64>(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, st);
+    return launch_gemm_tn<128, TAPS>(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, st);
+  return launch_gemm_tn<64, TAPS>(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, st);
 }
 
 }  // namespace
@@ -391,7 +422,18 @@ extern "C" int mofa_gn_silu_act(const void* x, const void* a, const void* b, voi
 extern "C" int mofa_conv3x3_gemm(const void* y, const void* wt, const void* bias,
                                  const void* temb, const void* res, void* out, void* s1, void* s2,
                                  int N, int H, int W, int C, int O, void* stream) {
-  return launch_gemm(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, (cudaStream_t)stream);
+  return launch_gemm<9>(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O,
+                        (cudaStream_t)stream);
+}
+
+// The temporal conv: y [B, T, S, C] bf16 (activated); wt [O, 3*C] bf16 (the
+// [3, C, O] taps re-laid out as rows of O); temb [B, T, O] fp32 or null;
+// res, out [B, T, S, O]; the rest as mofa_conv3x3_gemm.
+extern "C" int mofa_tconv3_gemm(const void* y, const void* wt, const void* bias,
+                                const void* temb, const void* res, void* out, void* s1, void* s2,
+                                int B, int T, int S, int C, int O, void* stream) {
+  return launch_gemm<3>(y, wt, bias, temb, res, out, s1, s2, B, T, S, C, O,
+                        (cudaStream_t)stream);
 }
 
 // The two stages in turn, through the scratch y [N, H, W, C] bf16.
@@ -401,5 +443,15 @@ extern "C" int mofa_gn_silu_conv3x3(const void* x, const void* a, const void* b,
                                     int O, int silu, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int err = launch_act(x, a, b, y, N, H, W, C, silu, st);
-  return err ? err : launch_gemm(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, st);
+  return err ? err : launch_gemm<9>(y, wt, bias, temb, res, out, s1, s2, N, H, W, C, O, st);
+}
+
+// The same for the temporal conv, x and y [B, T, S, C].
+extern "C" int mofa_gn_silu_tconv3(const void* x, const void* a, const void* b, const void* wt,
+                                   const void* bias, const void* temb, const void* res, void* y,
+                                   void* out, void* s1, void* s2, int B, int T, int S, int C,
+                                   int O, int silu, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = launch_act(x, a, b, y, B, T, S, C, silu, st);
+  return err ? err : launch_gemm<3>(y, wt, bias, temb, res, out, s1, s2, B, T, S, C, O, st);
 }

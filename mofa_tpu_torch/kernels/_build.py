@@ -42,7 +42,8 @@ _SIGNATURES = {
     "mofa_gn_silu_conv3x3": [_P] * 11 + [_I] * 6 + [_P],
     "mofa_gn_silu_act": [_P] * 4 + [_I] * 5 + [_P],
     "mofa_conv3x3_gemm": [_P] * 8 + [_I] * 5 + [_P],
-    "mofa_gn_silu_tconv3": [_P] * 10 + [_I] * 6 + [_P],
+    "mofa_tconv3_gemm": [_P] * 8 + [_I] * 5 + [_P],
+    "mofa_gn_silu_tconv3": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 _lib = None

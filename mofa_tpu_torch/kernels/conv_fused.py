@@ -16,25 +16,26 @@ statistics pass.
   w [3, C, O], temb_bias [B, T, O], residual [B, T, S, O]; replaces
   `_fused_tconv_fwd`.
 
-`gn_silu_conv3x3` runs `csrc/conv3x3.cu`, split at the TPU kernel's own
-rounding point (the activated strip rounded to the output dtype before
-its matmuls) into two stages, each with an entry point and a plain
-version here:
+Both run `csrc/conv3x3.cu`, split at the TPU kernels' own rounding point
+(the activated strip rounded to the output dtype before its matmuls) into
+two stages, each with an entry point and a plain version here:
 
-- `gn_silu_act`: y = silu(x*a + b) in fp32, rounded to bf16, one pass;
-- `conv3x3_gemm`: conv3x3(y) + bias [+ temb] [+ residual] (and the sums),
-  a persistent `wgmma` implicit GEMM fed by TMA, whose out-of-bounds zero
-  fill is the zero padding of the activated tensor.
+- `gn_silu_act`: y = silu(x*a + b) in fp32, rounded to bf16, one pass
+  (x [B, T, S, C] is seen as [N, H, W, C]);
+- `conv3x3_gemm` / `tconv3_gemm`: the conv of y + bias [+ temb]
+  [+ residual] (and the sums), one persistent `wgmma` implicit GEMM
+  template over 9 taps (dy, dx) or 3 taps over T, fed by TMA, whose
+  out-of-bounds zero fill is the zero padding of the activated tensor.
 
-The wrapper allocates y per call and counts one launch per call; the
+The wrappers allocate y per call and count one launch per call; the
 stage entry points launch one stage each and count nothing (`chip_smoke.py`
-uses them to place a fault in its stage). `gn_silu_tconv3` runs
-`csrc/conv_fused.cu`: an implicit GEMM on `mma.sync` tensor cores that
-applies the affine and SiLU in fp32 while each output tile's input window
-(3 taps over T, a stride of S*C apart) is staged into shared memory. The
-kernels take bf16 only (the main path's type); fp32 tensors on a card
-raise. As in the JAX package, no model calls these functions. Forward
-only.
+uses them to place a fault in its stage). Rounding, as the JAX kernels
+(mofa_tpu/kernels/conv_fused.py:162,199,327,364): w, bias and temb_bias
+are rounded to x's dtype before the fp32 epilogue adds them, and the conv
+accumulates in fp32 over the rounded y and w, with one rounding at the
+end; in fp32 the roundings are no-ops. The kernels take bf16 only (the
+main path's type); fp32 tensors on a card raise. As in the JAX package,
+no model calls these functions. Forward only.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import torch.nn.functional as F
 from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
 
 MAX_FUSED_CHANNELS = 640
-K_CHUNK, O_TILE = 32, 64          # the kernel's K step and output-channel tile
+K_CHUNK, O_TILE = 32, 64          # the gate's channel multiples (C, O)
 
 
 def _kernel_takes(c: int, o: int, dtype) -> bool:
@@ -67,45 +68,60 @@ fused_tconv_applicable = fused_conv_applicable
 def act_plain(x, a, b, silu: bool = True):
     """silu(x*a + b) in fp32 over [N, ..., C], cast to x's dtype (the plain
     version of `gn_silu_act`, and the first step of both convs' plain
-    versions)."""
+    versions). x*a + b is rounded to fp32 once, as the kernel's `fmaf` and
+    XLA's fused multiply-add round it: the product of a bf16 or fp32 x and
+    an fp32 a is exact in fp64."""
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
-    y = x.float() * a.float().reshape(shape) + b.float().reshape(shape)
+    y = (x.double() * a.double().reshape(shape)
+         + b.double().reshape(shape)).float()
     return (F.silu(y) if silu else y).to(x.dtype)
 
 
-def _epilogue(out, x, bias, temb, residual, emit_sums):
-    """fp32 conv output [N, A, B, O] + bias [+ temb] [+ residual] -> x's
-    dtype, with (Σ, Σ²) over the middle axes of the fp32 sum."""
-    out = out + bias.float()
+def _rounded(t, dtype):
+    """bias or temb_bias as the JAX kernels add it: rounded to the conv's
+    dtype, then fp32 (None stays None)."""
+    return None if t is None else t.to(dtype).float()
+
+
+def _epilogue(out, dtype, bias, temb, residual, emit_sums):
+    """fp32 conv output [N, A, B, O] + bias [+ temb, broadcast] [+ residual]
+    -> dtype, with (Σ, Σ²) over the middle axes of the fp32 sum."""
+    out = out + _rounded(bias, dtype)
     if temb is not None:
-        out = out + temb
+        out = out + _rounded(temb, dtype)
     if residual is not None:
         out = out + residual.float()
     if emit_sums:
-        return out.to(x.dtype), out.sum((1, 2)), (out * out).sum((1, 2))
-    return out.to(x.dtype)
+        return out.to(dtype), out.sum((1, 2)), (out * out).sum((1, 2))
+    return out.to(dtype)
+
+
+def _conv_fp32(y, w_oihw, padding):
+    """The conv of y [N, A, B, C] in fp32 on its values and w's rounded to
+    y's dtype: exact products (bf16 values pass TF32 unchanged), fp32 sums,
+    NCHW [N, O, A, B] out."""
+    return F.conv2d(y.permute(0, 3, 1, 2).float(), w_oihw.to(y.dtype).float(),
+                    padding=padding)
 
 
 def conv3x3_plain(x, a, b, w, bias, temb_bias=None, residual=None,
                   silu: bool = True, emit_sums: bool = False):
-    """Plain version (mofa_tpu `_ref_chain`): the affine and SiLU in fp32,
-    cast to x's dtype, a 3x3 conv with zero padding of the ACTIVATED
-    tensor, then bias, temb and residual added in fp32 before the cast;
-    the composition of the two stages' plain versions."""
+    """Plain version (mofa_tpu `_ref_chain`, rounded as its kernel): the
+    affine and SiLU in fp32, cast to x's dtype, a 3x3 conv with zero
+    padding of the ACTIVATED tensor, then bias, temb and residual added in
+    fp32 before the cast; the composition of the two stages' plain
+    versions."""
     return conv3x3_gemm_plain(act_plain(x, a, b, silu), w, bias, temb_bias,
                               residual, emit_sums)
 
 
 def tconv3_plain(x, a, b, w, bias, temb_bias=None, residual=None,
                  silu: bool = True, emit_sums: bool = False):
-    """Plain version (mofa_tpu `_tref_chain`): as `conv3x3_plain`, with a
-    3-tap conv over T (zero frames beyond both ends)."""
-    y = act_plain(x, a, b, silu).permute(0, 3, 1, 2)              # [B, C, T, S]
-    wk = w.to(x.dtype).permute(2, 1, 0)[..., None]                 # [O, C, 3, 1]
-    out = F.conv2d(y, wk, padding=(1, 0))
-    temb = None if temb_bias is None else temb_bias.float()[:, :, None, :]
-    return _epilogue(out.permute(0, 2, 3, 1).float(), x, bias, temb, residual,
-                     emit_sums)
+    """Plain version (mofa_tpu `_tref_chain`, rounded as its kernel): as
+    `conv3x3_plain`, with a 3-tap conv over T (zero frames beyond both
+    ends)."""
+    return tconv3_gemm_plain(act_plain(x, a, b, silu), w, bias, temb_bias,
+                             residual, emit_sums)
 
 
 def _weights_k_major(w, o, dtype):
@@ -143,37 +159,40 @@ def _refuse(name, c, o, x, residual):
                          f"O % {O_TILE} == 0; got C={c}, O={o}, {x.dtype}")
 
 
-def _launch_conv(name, entry, x, a, b, w, bias, temb_bias, residual, silu,
-                 emit_sums):
-    """One fused conv call: the temporal kernel, or the 3x3 route's two
-    stages through a y scratch allocated here; one count per call."""
-    n, rows, cols, c = x.shape
-    o = w.shape[-1]
-    _refuse(name, c, o, x, residual)
+def _launch(name, tensors, x, w, bias, temb_bias, residual, emit_sums,
+            ab=(), silu: bool = True):
+    """C entry `mofa_<name>` on the card. With ab = (a, b), a fused conv:
+    the two stages through a y scratch allocated here, one launch counted;
+    without, a GEMM stage on an activated x, no count."""
+    check_no_grad(name, *tensors)
+    n, o = x.shape[0], w.shape[-1]
+    _refuse(name, x.shape[-1], o, x, residual)
     from mofa_tpu_torch.kernels._build import launch
-    dev = x.device
-    f32 = lambda t: None if t is None else t.float()
-    args = _aligned(x, f32(a), f32(b), _weights_k_major(w, o, x.dtype),
-                    f32(bias), f32(temb_bias), residual)
-    out = torch.empty(n, rows, cols, o, device=dev, dtype=x.dtype)
-    s1, s2 = _sums(emit_sums, n, o, dev)
-    scratch = [torch.empty_like(args[0])] if name == "gn_silu_conv3x3" else []
-    launch(entry, dev, *map(_ptr, args + scratch), out.data_ptr(), _ptr(s1),
-           _ptr(s2), n, rows, cols, c, o, int(silu))
-    count_launch(name)
+    args = _aligned(x, *(t.float() for t in ab), _weights_k_major(w, o, x.dtype),
+                    _rounded(bias, x.dtype), _rounded(temb_bias, x.dtype),
+                    residual)
+    if ab:
+        args.append(torch.empty_like(args[0]))         # y
+    out = torch.empty(x.shape[:3] + (o,), device=x.device, dtype=x.dtype)
+    s1, s2 = _sums(emit_sums, n, o, x.device)
+    launch(f"mofa_{name}", x.device, *map(_ptr, args), out.data_ptr(),
+           _ptr(s1), _ptr(s2), *x.shape, o, *([int(silu)] if ab else []))
+    if ab:
+        count_launch(name)
     return (out, s1, s2) if emit_sums else out
 
 
-def _check(x, a, b, w, taps, temb_bias, temb_shape, residual, o):
-    if x.ndim != 4 or w.shape != taps + (x.shape[-1], o):
-        raise ValueError(f"bad conv shapes x {tuple(x.shape)} w {tuple(w.shape)}")
-    nc = (x.shape[0], x.shape[-1])
-    if a.shape != nc or b.shape != nc:
-        raise ValueError(f"a, b must be {nc}; got {tuple(a.shape)} {tuple(b.shape)}")
-    if temb_bias is not None and tuple(temb_bias.shape) != temb_shape:
-        raise ValueError(f"temb_bias must be {temb_shape}")
-    if residual is not None and residual.shape != x.shape[:3] + (o,):
-        raise ValueError(f"residual must be {x.shape[:3] + (o,)}")
+def _check(name, x, w, taps, temb_bias, temb_shape, residual, ab=()):
+    """x (or y) [N, A, B, C], w taps + [C, O], temb_bias of temb_shape,
+    residual [N, A, B, O], each of ab [N, C]."""
+    o, nc = w.shape[-1], (x.shape[0], x.shape[-1])
+    if (x.ndim != 4 or w.shape != taps + (x.shape[-1], o)
+            or any(t.shape != nc for t in ab)
+            or temb_bias is not None and tuple(temb_bias.shape) != temb_shape
+            or residual is not None and residual.shape != x.shape[:3] + (o,)):
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)} w "
+                         f"{tuple(w.shape)}; a, b must be {nc}, temb_bias "
+                         f"{temb_shape}, residual {x.shape[:3] + (o,)}")
 
 
 def gn_silu_conv3x3(x, a, b, w, bias, temb_bias=None, residual=None,
@@ -184,32 +203,43 @@ def gn_silu_conv3x3(x, a, b, w, bias, temb_bias=None, residual=None,
     [N, O] or None; residual [N, H, W, O] or None. Returns out, or
     (out, s1, s2) with emit_sums: [N, O] fp32 Σ and Σ² of the output."""
     o = w.shape[-1]
-    _check(x, a, b, w, (3, 3), temb_bias, (x.shape[0], o), residual, o)
+    _check("gn_silu_conv3x3", x, w, (3, 3), temb_bias, (x.shape[0], o),
+           residual, (a, b))
     tensors = [t for t in (x, a, b, w, bias, temb_bias, residual) if t is not None]
     if not use_kernel(*tensors):
         return conv3x3_plain(x, a, b, w, bias, temb_bias, residual, silu,
                              emit_sums)
-    check_no_grad("gn_silu_conv3x3", *tensors)
-    return _launch_conv("gn_silu_conv3x3", "mofa_gn_silu_conv3x3", x, a, b, w,
-                        bias, temb_bias, residual, silu, emit_sums)
+    return _launch("gn_silu_conv3x3", tensors, x, w, bias, temb_bias,
+                   residual, emit_sums, (a, b), silu)
 
 
-# ------------------------------------- the 3x3 route's stage entry points
+# --------------------------------------------------- the stage entry points
 
 def conv3x3_gemm_plain(y, w, bias, temb_bias=None, residual=None,
                        emit_sums: bool = False):
-    """Stage 2's plain version: the 3x3 conv of the activated y (zero
-    padding), then bias, temb and residual added in fp32 before the cast."""
-    out = F.conv2d(y.permute(0, 3, 1, 2), w.to(y.dtype).permute(3, 2, 0, 1),
-                   padding=1)
-    temb = None if temb_bias is None else temb_bias.float()[:, None, None, :]
-    return _epilogue(out.permute(0, 2, 3, 1).float(), y, bias, temb, residual,
+    """Stage 2's plain version, 3x3: the conv of the activated y (zero
+    padding) in fp32, then bias, temb and residual added in fp32 before
+    the cast."""
+    out = _conv_fp32(y, w.permute(3, 2, 0, 1), 1)
+    temb = None if temb_bias is None else temb_bias[:, None, None, :]
+    return _epilogue(out.permute(0, 2, 3, 1), y.dtype, bias, temb, residual,
+                     emit_sums)
+
+
+def tconv3_gemm_plain(y, w, bias, temb_bias=None, residual=None,
+                      emit_sums: bool = False):
+    """Stage 2's plain version, temporal: y [B, T, S, C], w [3, C, O], the
+    3-tap conv over T (zero frames beyond both ends) in fp32, then bias,
+    temb [B, T, O] and residual added in fp32 before the cast."""
+    out = _conv_fp32(y, w.permute(2, 1, 0)[..., None], (1, 0))   # [B, O, T, S]
+    temb = None if temb_bias is None else temb_bias[:, :, None, :]
+    return _epilogue(out.permute(0, 2, 3, 1), y.dtype, bias, temb, residual,
                      emit_sums)
 
 
 def gn_silu_act(x, a, b, silu: bool = True):
-    """Stage 1 of `gn_silu_conv3x3`: x [N, H, W, C], a/b [N, C] fp32 ->
-    silu(x*a + b) [N, H, W, C] in x's dtype."""
+    """Stage 1 of both convs: x [N, H, W, C] (or [B, T, S, C]), a/b [N, C]
+    fp32 -> silu(x*a + b) in x's shape and dtype."""
     if x.ndim != 4 or a.shape != (x.shape[0], x.shape[-1]) or b.shape != a.shape:
         raise ValueError(f"gn_silu_act: bad shapes {tuple(x.shape)} "
                          f"{tuple(a.shape)} {tuple(b.shape)}")
@@ -230,24 +260,27 @@ def conv3x3_gemm(y, w, bias, temb_bias=None, residual=None,
     """Stage 2 of `gn_silu_conv3x3`: y [N, H, W, C] (activated), w [3, 3,
     C, O], bias [O], temb_bias [N, O] or None, residual [N, H, W, O] or
     None -> out, or (out, s1, s2) with emit_sums."""
-    n, o = y.shape[0], w.shape[-1]
-    if y.ndim != 4 or w.shape != (3, 3, y.shape[-1], o):
-        raise ValueError(f"conv3x3_gemm: bad shapes y {tuple(y.shape)} "
-                         f"w {tuple(w.shape)}")
+    _check("conv3x3_gemm", y, w, (3, 3), temb_bias, (y.shape[0], w.shape[-1]),
+           residual)
     tensors = [t for t in (y, w, bias, temb_bias, residual) if t is not None]
     if not use_kernel(*tensors):
         return conv3x3_gemm_plain(y, w, bias, temb_bias, residual, emit_sums)
-    check_no_grad("conv3x3_gemm", *tensors)
-    _refuse("conv3x3_gemm", y.shape[-1], o, y, residual)
-    from mofa_tpu_torch.kernels._build import launch
-    f32 = lambda t: None if t is None else t.float()
-    args = _aligned(y, _weights_k_major(w, o, y.dtype), f32(bias),
-                    f32(temb_bias), residual)
-    out = torch.empty(y.shape[:3] + (o,), device=y.device, dtype=y.dtype)
-    s1, s2 = _sums(emit_sums, n, o, y.device)
-    launch("mofa_conv3x3_gemm", y.device, *map(_ptr, args), out.data_ptr(),
-           _ptr(s1), _ptr(s2), *y.shape, o)
-    return (out, s1, s2) if emit_sums else out
+    return _launch("conv3x3_gemm", tensors, y, w, bias, temb_bias, residual,
+                   emit_sums)
+
+
+def tconv3_gemm(y, w, bias, temb_bias=None, residual=None,
+                emit_sums: bool = False):
+    """Stage 2 of `gn_silu_tconv3`: y [B, T, S, C] (activated), w [3, C,
+    O], bias [O], temb_bias [B, T, O] or None, residual [B, T, S, O] or
+    None -> out, or (out, s1, s2) with emit_sums."""
+    _check("tconv3_gemm", y, w, (3,), temb_bias,
+           (y.shape[0], y.shape[1], w.shape[-1]), residual)
+    tensors = [t for t in (y, w, bias, temb_bias, residual) if t is not None]
+    if not use_kernel(*tensors):
+        return tconv3_gemm_plain(y, w, bias, temb_bias, residual, emit_sums)
+    return _launch("tconv3_gemm", tensors, y, w, bias, temb_bias, residual,
+                   emit_sums)
 
 
 def gn_silu_tconv3(x, a, b, w, bias, temb_bias=None, residual=None,
@@ -257,11 +290,11 @@ def gn_silu_tconv3(x, a, b, w, bias, temb_bias=None, residual=None,
     x [B, T, S, C]; a/b [B, C] fp32; w [3, C, O]; bias [O]; temb_bias
     [B, T, O] or None; residual [B, T, S, O] or None."""
     o = w.shape[-1]
-    _check(x, a, b, w, (3,), temb_bias, (x.shape[0], x.shape[1], o), residual, o)
+    _check("gn_silu_tconv3", x, w, (3,), temb_bias,
+           (x.shape[0], x.shape[1], o), residual, (a, b))
     tensors = [t for t in (x, a, b, w, bias, temb_bias, residual) if t is not None]
     if not use_kernel(*tensors):
         return tconv3_plain(x, a, b, w, bias, temb_bias, residual, silu,
                             emit_sums)
-    check_no_grad("gn_silu_tconv3", *tensors)
-    return _launch_conv("gn_silu_tconv3", "mofa_gn_silu_tconv3", x, a, b, w,
-                        bias, temb_bias, residual, silu, emit_sums)
+    return _launch("gn_silu_tconv3", tensors, x, w, bias, temb_bias,
+                   residual, emit_sums, (a, b), silu)

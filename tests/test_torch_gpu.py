@@ -15,7 +15,8 @@ import torch
 
 from mofa_tpu_torch import kernels
 from mofa_tpu_torch.kernels.conv_fused import (conv3x3_gemm, gn_silu_act,
-                                               gn_silu_conv3x3, gn_silu_tconv3)
+                                               gn_silu_conv3x3, gn_silu_tconv3,
+                                               tconv3_gemm)
 from mofa_tpu_torch.kernels.flash_attention import flash_attention
 from mofa_tpu_torch.kernels.geglu_ffn import (ffn_gemm_gate, ffn_gemm_out,
                                               ffn_ln_rows, geglu_ffn, ln_geglu_ffn)
@@ -263,6 +264,40 @@ def test_conv3x3_route_on_card(n, h, w, c, o):
     _assert_like_plain(lambda: gn_silu_conv3x3(x, a, b, wk, bias, silu=False), bf)
     counts = kernels.launch_counts()
     assert counts["gn_silu_conv3x3"] == 4 and sum(counts.values()) == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,s,c,o", [(2, 5, 200, 64, 128), (2, 3, 35, 96, 192),
+                                       (1, 25, 300, 320, 320), (2, 7, 130, 32, 64),
+                                       (1, 4, 1000, 640, 640)])
+def test_tconv3_route_on_card(n, t, s, c, o):
+    """The temporal route: the activation pass and the 3-tap wgmma GEMM
+    (output-channel tiles of 128, 64 and 160; zero frames beyond both ends;
+    ragged T and S; pixel tiles of TH frames x TW positions, so that a tile
+    spans frames and each row reads temb at its own frame; channels past C
+    zero-filled at C = 96 and 32), the GEMM alone and the route composed,
+    in both epilogue forms (temb and the sums; the residual) and without
+    SiLU, against their plain versions; one launch count per call of the
+    route, none for the stages."""
+    rn = _card(n * t * s + c + o)
+    bf = torch.bfloat16
+    x = (rn(n, t, s, c) * 1.5).to(bf)
+    a, b = rn(n, c) * 0.3 + 1, rn(n, c) * 0.2
+    wk = (rn(3, c, o) * 1.7 / (3 * c) ** 0.5).to(bf)
+    bias, temb, res = rn(o) * 0.1, rn(n, t, o) * 0.3, rn(n, t, s, o).to(bf)
+    kernels.reset_launch_counts()
+    y = gn_silu_act(x, a, b)
+    _assert_like_plain(lambda: tconv3_gemm(y, wk, bias, residual=res), bf)
+    for i in range(3):                  # the output, then each of its sums
+        _assert_like_plain(lambda: tconv3_gemm(y, wk, bias, temb, emit_sums=True)[i], bf)
+    assert sum(kernels.launch_counts().values()) == 0
+    full = lambda: gn_silu_tconv3(x, a, b, wk, bias, temb, emit_sums=True)
+    for i in range(3):
+        _assert_like_plain(lambda: full()[i], bf)
+    _assert_like_plain(lambda: gn_silu_tconv3(x, a, b, wk, bias, residual=res), bf)
+    _assert_like_plain(lambda: gn_silu_tconv3(x, a, b, wk, bias, silu=False), bf)
+    counts = kernels.launch_counts()
+    assert counts["gn_silu_tconv3"] == 5 and sum(counts.values()) == 5
 
 
 @pytest.mark.gpu
