@@ -45,6 +45,13 @@ Phases, each printed as it finishes:
      and not all zero, every frame finite); 5b. the classic-layout path,
      the same video at 5 steps with `MOFA_TMAJOR=0` (short_attention
      launched, tmajor never); 5c. the app's motion-brush path at 256x384;
+     5d. the hybrid path: the hybrid app's generation
+     (`hybrid_app.generate`) from a seeded 68-point landmark sequence,
+     seeded drag tracks and an elliptical face mask, at MAIN's size and
+     steps, with the landmark and trajectory adapters written to files
+     first (.safetensors and .bin) and loaded by `load_bundle` (each tensor
+     held bit-equal), both flows and the frames checked and the launches
+     held to the sites of two adapter trunks a step;
   6. the GroupNorm / fused-conv entry points: a spatial and a temporal
      resnet block at full width built from `gn_affine`, `gn_silu_conv3x3`
      and `gn_silu_tconv3`, held against the port's stock resnet blocks.
@@ -1249,22 +1256,24 @@ LAYOUT_KERNELS = {
                 "softsplat")}
 
 
-def expected_launches(layout: str, steps: int) -> dict:
-    """Launches of one 576x1024, 25-frame video at SVD-XT widths, per the
-    sites of each kernel: flash 21 per step (UNet down/up /8 /16 /32: 15,
-    trunk down: 6), the FFN kernel 42 (the C=320/640 sites, spatial and
-    temporal), softsplat 4 (the adapter's warp, once); spatial-major: 23
-    temporal sites per step (UNet 16, trunk 7); classic: the 7 at /8 (UNet
-    down 0 x2, up 3 x3, trunk down 0 x2) pass the short gate, the H=10/20
-    ones have L*H > 160 and stay plain."""
+def expected_launches(layout: str, steps: int, adapters: int = 1) -> dict:
+    """Launches of one 576x1024, 25-frame video at SVD-XT widths with
+    `adapters` adapter trunks a step (the hybrid path runs 2), per the
+    sites of each kernel: flash 15 a step in the UNet (down / up at /8,
+    /16, /32) and 6 a trunk (down), the FFN kernel 30 in the UNet and 12 a
+    trunk (the C=320/640 sites: one FFN a spatial block, two a temporal
+    one), softsplat 4 an adapter (its warp, once a video); spatial-major:
+    16 temporal sites a step in the UNet, 7 a trunk; classic: those at /8
+    (UNet down 0 x2, up 3 x3: 5; a trunk's down 0 x2) pass the short gate,
+    the H=10/20 ones have L*H > 160 and stay plain."""
     from mofa_tpu_torch import kernels
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(flash_attention=21 * steps, ln_geglu_ffn=42 * steps,
-                softsplat=4)
+    want.update(flash_attention=(15 + 6 * adapters) * steps,
+                ln_geglu_ffn=(30 + 12 * adapters) * steps, softsplat=4 * adapters)
     if layout == "tmajor":
-        want["short_attention_tmajor"] = 23 * steps
+        want["short_attention_tmajor"] = (16 + 7 * adapters) * steps
     else:
-        want["short_attention"] = 7 * steps
+        want["short_attention"] = (5 + 2 * adapters) * steps
     return want
 
 
@@ -1459,6 +1468,176 @@ def run_brush_video(bundle, dev) -> None:
              f"{bool(torch.isfinite(frames).all())}")
     log(f"  brush path: cmp_flow {timer.totals['cmp_flow']:.3f} s, frames finite, "
         f"mean {float(frames.mean()):.4f}")
+
+
+# ------------------------------------------------ phase 5d: the hybrid path
+
+def seeded_landmarks(h: int, w: int, t: int, seed: int):
+    """[t, 68, 2] (x, y) pixels: a seeded face (68 points in an ellipse of
+    a fifth of the frame's width and a third of its height, about its
+    middle) that drifts and turns a little over the frames, plus jitter;
+    inside the frame."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    centre = rng.uniform(0.4, 0.6, 2) * (w, h)
+    ang, rad = rng.uniform(0, 2 * np.pi, 68), np.sqrt(rng.uniform(0, 1, 68))
+    base = np.stack([np.cos(ang), np.sin(ang)], -1) * rad[:, None] * (0.1 * w, 0.17 * h)
+    s = np.linspace(0.0, 1.0, t)[:, None, None]
+    turn = 0.15 * s * np.stack([-base[..., 1], base[..., 0]], -1)[None]
+    drift = s * rng.uniform(-0.04, 0.04, 2) * (w, h)
+    lm = centre + base[None] + turn + drift + rng.randn(t, 68, 2)
+    return np.clip(lm, 0, (w - 1, h - 1)).astype(np.float32)
+
+
+def elliptical_mask(h: int, w: int, centre, radii):
+    """[h, w] float32: 1 inside the ellipse, 0 outside."""
+    import numpy as np
+    y, x = np.mgrid[:h, :w]
+    inside = ((x - centre[0]) / radii[0]) ** 2 + ((y - centre[1]) / radii[1]) ** 2 <= 1
+    return inside.astype(np.float32)
+
+
+_ST_CODES = {"torch.float32": "F32", "torch.float16": "F16", "torch.bfloat16": "BF16"}
+
+
+def write_safetensors(sd: dict, path: str) -> None:
+    """{name: tensor} -> a .safetensors file (8-byte little-endian header
+    length, the JSON header, the tensors' bytes), written here so the
+    check does not rest on the port's reader alone."""
+    import torch
+    header, off = {}, 0
+    for name, t in sd.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_CODES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(8, "little") + text)
+        for t in sd.values():
+            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+
+
+def write_adapters(dev, root: str, seed: int) -> dict:
+    """A landmark adapter and a trajectory adapter at SVD-XT widths with
+    seeded random bf16 weights, written as a diffusers tree: the landmark
+    one as .safetensors (write_safetensors), the trajectory one as .bin
+    (torch.save). Returns part -> the written state dict (CPU)."""
+    import torch
+    from mofa_tpu_torch.models.mofa_adapter import FlowControlNet, LdmkFlowControlNet
+    from mofa_tpu_torch.models.svd_unet import SVDUNetConfig
+    from mofa_tpu_torch.pipelines.common import init_random_
+    g = torch.Generator(device=dev).manual_seed(seed)
+    written = {}
+    for part, cls, folder, name in (
+            ("controlnet", LdmkFlowControlNet, "ldmk",
+             "diffusion_pytorch_model.safetensors"),
+            ("controlnet2", FlowControlNet, "drag", "diffusion_pytorch_model.bin")):
+        with torch.device(dev):
+            m = init_random_(cls(SVDUNetConfig()), g).to(torch.bfloat16)
+        sd = {k: v.cpu() for k, v in m.state_dict().items()}
+        del m
+        os.makedirs(os.path.join(root, folder))
+        path = os.path.join(root, folder, name)
+        if name.endswith(".safetensors"):
+            write_safetensors(sd, path)
+        else:
+            torch.save(sd, path)
+        written[part] = sd
+    torch.cuda.empty_cache()
+    return written
+
+
+def run_hybrid_video(dev, card: str) -> dict:
+    """The hybrid app's generation (`hybrid_app.generate`) at MAIN's size
+    and steps, bf16, B=1: a seeded landmark sequence, seeded drag tracks
+    and an elliptical face mask; CMP (full size, seeded random, fp32) for
+    the face and the drag flow; both adapters loaded by `load_bundle` from
+    files written first (each tensor held bit-equal to what was written),
+    UNet, VAE and CLIP seeded random. Launch counts reset just before the
+    generation and read just after; every phase timed."""
+    import tempfile
+
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.apps.hybrid_app import generate
+    from mofa_tpu_torch.apps.loaders import load_bundle, load_cmp
+    from mofa_tpu_torch.utils.profiling import PhaseTimer
+
+    h, w, t, steps, seed = MAIN["h"], MAIN["w"], MAIN["t"], MAIN["steps"], 11
+    img, _ = smooth_inputs(1, 2, h, w, dev, seed=seed)
+    lm = seeded_landmarks(h, w, t, seed)
+    centre = lm[0].mean(0)
+    mask = elliptical_mask(h, w, centre, (0.16 * w, 0.26 * h))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        written = write_adapters(dev, root, seed)
+        log(f"  adapters written in {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{p} {sum(v.numel() for v in sd.values())} parameters"
+                        for p, sd in written.items()))
+        loaded = {}
+
+        def bundle_loader():
+            t1 = time.perf_counter()
+            bundle = load_bundle(None, os.path.join(root, "ldmk"), dev,
+                                 torch.bfloat16, seed=seed,
+                                 controlnet2_dir=os.path.join(root, "drag"), ldmk=True)
+            torch.cuda.synchronize()
+            loaded["seconds"] = time.perf_counter() - t1
+            for part, sd in written.items():
+                own = getattr(bundle, part).state_dict()
+                if own.keys() != sd.keys():
+                    fail(f"hybrid: {part} loaded keys differ from the file's")
+                bad = [k for k, v in own.items() if not torch.equal(v.cpu(), sd[k])]
+                if bad:
+                    fail(f"hybrid: {part} tensors differ from the file's: {bad[:5]}")
+            loaded["checked"] = sum(len(sd) for sd in written.values())
+            return bundle
+
+        torch.cuda.reset_peak_memory_stats()
+        phases: dict = {}
+        timer = PhaseTimer(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames, face, drag, _ = generate(
+            img[0], lm, seeded_tracks(h, w, seed), mask,
+            lambda: load_cmp(None, dev, seed=seed), bundle_loader, timer=timer,
+            num_inference_steps=steps, decode_chunk_size=MAIN["decode_chunk_size"],
+            seed=seed + 1, phase_times=phases)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        flash_shapes = kernels.launch_counts_by_shape("flash_attention")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = phases["denoise_step"]
+    median = sorted(step_s)[len(step_s) // 2]
+    app = timer.totals
+    log(f"  both adapters loaded from their files in {loaded['seconds']:.3f} s; "
+        f"{loaded['checked']} tensors bit-equal to what was written")
+    log(f"  phases (s): cmp_load {app['cmp_load']:.3f}, cmp_flow landmarks "
+        f"{app['cmp_flow_landmarks']:.3f}, cmp_flow tracks {app['cmp_flow_tracks']:.3f}, "
+        f"bundle_load {app['bundle_load']:.3f}, clip_encode "
+        f"{phases['clip_encode'][0]:.3f}, vae_encode {phases['vae_encode'][0]:.3f}, "
+        f"warp+matting {phases['warp'][0]:.3f}, denoise {sum(step_s):.3f} "
+        f"({len(step_s)} steps: first {step_s[0]:.3f}, median {median:.3f}), "
+        f"decode {phases['decode'][0]:.3f}; total {total:.3f}")
+    log(f"  peak torch.cuda.max_memory_allocated {peak:.2f} GiB; card {card}")
+    log(f"  kernel launches in the hybrid path: {launches}")
+    log(f"  flash launches by [B, L, H, D]: {flash_shapes}")
+    check_flow("hybrid face flow", face)
+    check_flow("hybrid drag flow", drag)
+    want = (t, h, w, 3)
+    if tuple(frames.shape) != want or not bool(torch.isfinite(frames).all()):
+        fail(f"hybrid path frames {tuple(frames.shape)} (expected {want}), finite "
+             f"{bool(torch.isfinite(frames).all())}")
+    if launches != expected_launches("tmajor", steps, adapters=2):
+        fail(f"hybrid path launches {launches}, expected "
+             f"{expected_launches('tmajor', steps, adapters=2)}")
+    log(f"  frames finite, mean {float(frames.mean()):.4f}, std "
+        f"{float(frames.std()):.4f}")
+    return dict(launches=launches, median_step=median, total=total)
 
 
 # --------------------------------- phase 6: the GroupNorm / conv entries
@@ -1676,6 +1855,16 @@ def main() -> None:
         run_brush_video(bundle, dev)
         del bundle
         torch.cuda.empty_cache()
+        # 5d. the hybrid path: landmarks + drag tracks, two adapters
+        log("[hybrid] the hybrid app's generation: landmarks + drag tracks -> "
+            "CMP -> HybridPipeline (landmark + trajectory adapters loaded from "
+            f"files, face mask blend), {MAIN['h']}x{MAIN['w']}, {MAIN['t']} frames, "
+            f"{MAIN['steps']} steps, bf16")
+        hybrid_run = run_hybrid_video(dev, card)
+        log(f"[hybrid] median denoise step {hybrid_run['median_step']:.3f} s vs "
+            f"{main_run['median_step']:.3f} s on the traj path; video "
+            f"{hybrid_run['total']:.3f} s")
+        torch.cuda.empty_cache()
         # 6. the GroupNorm / fused-conv entry points
         log("[gn_conv] resnet blocks through gn_affine + gn_silu_conv3x3 / "
             "gn_silu_tconv3, bf16")
@@ -1690,6 +1879,7 @@ def main() -> None:
             launches[name] = gn_launches[name]
         for name in KERNEL_META:        # the 25-step spatial-major video's own
             kres[name]["main_path_launches"] = main_run["launches"][name]
+            kres[name]["hybrid_launches"] = hybrid_run["launches"][name]
         # flash's launches at each main-path site, from the same run
         by_site = kres["flash_attention"]["main_path_launches_by_site"] = {}
         for site, *shape in FLASH_MAIN_SHAPES:
@@ -1704,7 +1894,7 @@ def main() -> None:
              "plain_ms_c640", "chain_ms_c640", "bound_ms_c640", "bound_by_c640",
              "sites", "main_path_launches_by_site", "stage_ms_c320", "stage_ms_c640",
              "avg_call_ms", "stage_ms",
-             "main_path_launches")
+             "main_path_launches", "hybrid_launches")
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],
              **{k: kres[n][k] for k in keys},

@@ -1,4 +1,9 @@
-"""JAX (Flax) parameter trees -> this package's state dicts.
+"""Checkpoint readers, and JAX (Flax) parameter trees -> this package's state dicts.
+
+`load_safetensors` reads the safetensors format by hand (an 8-byte
+little-endian header length, a JSON header of dtype / shape / data_offsets,
+then the raw bytes), memory-mapped, for F32, F16, BF16 and I64;
+`load_torch_checkpoint` reads a `torch.save` file with `weights_only=True`.
 
 `state_dict_from_flax` is the exact inverse of mofa_tpu's torch -> Flax
 converters (`convert_torch_state_dict`, `convert_flow_controlnet_state_dict`,
@@ -11,7 +16,9 @@ restored by `_cmp_parts`):
   `down_blocks_0`) and flattens some paths (`mid_block_resnets_0`); the
   inverse splits them with the vocabulary of this package's module names,
   drops the Flax wrapper levels (`Conv_0`, `Dense_0`), and restores each
-  family's own nesting (the adapter's `trunk`, CLIP's `vision_model`);
+  family's own nesting (the adapters' `trunk`, CLIP's `vision_model`; the
+  landmark adapter's `occlusions_8` / `zero_outs_8` split back into the
+  reference's scale-keyed `occlusions.8` / `zero_outs.8`);
 - tensors: Flax `kernel`s go back to torch `weight`s (dense [I, O] ->
   [O, I], conv HWIO -> OIHW, DHWIO -> OIDHW) and norm `scale` -> `weight`.
 
@@ -21,12 +28,68 @@ this module lets the tests drive both packages with the same parameters.
 
 from __future__ import annotations
 
+import json
 import re
 
 import numpy as np
 import torch
 
-FAMILIES = ("unet", "flow_controlnet", "vae", "clip", "cmp")
+FAMILIES = ("unet", "flow_controlnet", "ldmk_controlnet", "vae", "clip", "cmp")
+
+# I64: transformers' CLIP files may carry the int64 `position_ids` buffer
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16, "I64": torch.int64}
+
+
+def load_safetensors(path: str) -> dict:
+    """A .safetensors file -> {name: CPU tensor}, read without the
+    `safetensors` package. The file is mapped copy-on-write: each tensor is
+    a view of the mapping (the file itself is never written). Raises on a
+    dtype other than F32 / F16 / BF16 / I64 and on offsets that do not fit
+    the tensor or the file."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+    data = np.memmap(path, dtype=np.uint8, mode="c")
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}; "
+                             f"only {sorted(_SAFETENSORS_DTYPES)} are read")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        if not 0 <= begin <= end <= data.size - base or \
+                end - begin != count * dtype.itemsize:
+            raise ValueError(f"{path}: tensor {name!r} has offsets {begin, end} "
+                             f"for {count} x {info['dtype']}")
+        if count == 0:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        out[name] = torch.frombuffer(data, dtype=dtype, count=count,
+                                     offset=base + begin).reshape(shape)
+    return out
+
+
+def unwrap_state_dict(checkpoint: dict) -> dict:
+    """The state dict of a training checkpoint: the dict under
+    "state_dict" (or "model" / "module"), `module.` prefixes stripped."""
+    sd = checkpoint
+    for key in ("state_dict", "model", "module"):
+        if isinstance(sd.get(key), dict):
+            sd = sd[key]
+    return {re.sub(r"^(module\.)+", "", k): v for k, v in sd.items()}
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A `torch.save` file (.bin / .pth) -> its state dict on the CPU
+    (`weights_only=True`: tensors and containers, no arbitrary objects)."""
+    return unwrap_state_dict(torch.load(path, map_location="cpu",
+                                        weights_only=True))
 
 # module / parameter names of this package that contain underscores or
 # digits (single words need no entry: any unknown token stands alone)
@@ -42,7 +105,8 @@ _VOCAB = {
     "time_conv_out", "self_attn", "q_proj", "k_proj", "v_proj", "out_proj",
     "layer_norm1", "layer_norm2", "pre_layrnorm", "post_layernorm",
     "visual_projection", "patch_embedding", "class_embedding",
-    "position_embedding",
+    "position_embedding", "controlnet_ldmk_embedding", "zero_outs",
+    "matting_mask",
 }
 _WRAPPERS = {"Conv_0", "Dense_0"}
 
@@ -80,7 +144,7 @@ def _flatten(tree: dict, prefix=()):
 
 
 def _family_key(family: str, parts: list[str]) -> list[str]:
-    if family == "flow_controlnet" and parts[0] == "trunk":
+    if family in ("flow_controlnet", "ldmk_controlnet") and parts[0] == "trunk":
         return parts[1:]
     if family == "clip":
         head = parts[0]

@@ -7,13 +7,14 @@ channel-last; frames [B, T, H, W, C].
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
 
 from mofa_tpu_torch.models.clip_vision import (CLIPVisionConfig,
                                                CLIPVisionModelWithProjection)
-from mofa_tpu_torch.models.mofa_adapter import FlowControlNet
+from mofa_tpu_torch.models.mofa_adapter import FlowControlNet, LdmkFlowControlNet
 from mofa_tpu_torch.models.svd_unet import (SVDUNetConfig,
                                             UNetSpatioTemporalConditionModel)
 from mofa_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfig
@@ -46,32 +47,58 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 @dataclasses.dataclass
 class ModelBundle:
+    """The frozen SVD parts and the MOFA-Adapter(s). `controlnet` is the
+    trajectory adapter, or the landmark adapter of the hybrid workload,
+    whose trajectory adapter is then `controlnet2`."""
+
     unet: UNetSpatioTemporalConditionModel
-    controlnet: FlowControlNet
+    controlnet: Union[FlowControlNet, LdmkFlowControlNet]
     vae: AutoencoderKLTemporalDecoder
     clip: CLIPVisionModelWithProjection
+    controlnet2: Optional[FlowControlNet] = None
+
+    @staticmethod
+    def part_constructors(unet_cfg: SVDUNetConfig = SVDUNetConfig(),
+                      vae_cfg: VAEConfig = VAEConfig(),
+                      clip_cfg: CLIPVisionConfig = CLIPVisionConfig(),
+                      ldmk: bool = False, dual: bool = False) -> dict:
+        """Part name -> a function building that part (uninitialised), in
+        the order their random weights are drawn. ldmk: `controlnet` is a
+        LdmkFlowControlNet; dual: a FlowControlNet `controlnet2` too."""
+        parts = {"unet": lambda: UNetSpatioTemporalConditionModel(unet_cfg),
+                 "controlnet": lambda: (LdmkFlowControlNet if ldmk
+                                        else FlowControlNet)(unet_cfg),
+                 "vae": lambda: AutoencoderKLTemporalDecoder(vae_cfg),
+                 "clip": lambda: CLIPVisionModelWithProjection(clip_cfg)}
+        if dual:
+            parts["controlnet2"] = lambda: FlowControlNet(unet_cfg)
+        return parts
 
     @classmethod
     def init_random(cls, device, generator: torch.Generator,
                     unet_cfg: SVDUNetConfig = SVDUNetConfig(),
                     vae_cfg: VAEConfig = VAEConfig(),
                     clip_cfg: CLIPVisionConfig = CLIPVisionConfig(),
-                    dtype: torch.dtype = torch.float32) -> "ModelBundle":
+                    dtype: torch.dtype = torch.float32, ldmk: bool = False,
+                    dual: bool = False) -> "ModelBundle":
         """Random-weight bundle built and drawn on `device` (the generator
-        must live there), then cast to `dtype`, in eval mode."""
-        with torch.device(device):
-            mods = [UNetSpatioTemporalConditionModel(unet_cfg),
-                    FlowControlNet(unet_cfg),
-                    AutoencoderKLTemporalDecoder(vae_cfg),
-                    CLIPVisionModelWithProjection(clip_cfg)]
-        for m in mods:
+        must live there), then cast to `dtype`, in eval mode; ldmk / dual
+        as in `part_constructors`."""
+        parts = {}
+        for name, build in cls.part_constructors(unet_cfg, vae_cfg, clip_cfg,
+                                                 ldmk, dual).items():
+            with torch.device(device):
+                m = build()
             init_random_(m, generator)
-            m.to(dtype).eval().requires_grad_(False)
-        return cls(*mods)
+            parts[name] = m.to(dtype).eval().requires_grad_(False)
+        return cls(**parts)
 
     def modules(self):
-        return {"unet": self.unet, "controlnet": self.controlnet,
+        mods = {"unet": self.unet, "controlnet": self.controlnet,
                 "vae": self.vae, "clip": self.clip}
+        if self.controlnet2 is not None:
+            mods["controlnet2"] = self.controlnet2
+        return mods
 
 
 def params_dtype(module: nn.Module) -> torch.dtype:

@@ -301,6 +301,46 @@ def test_tconv3_route_on_card(n, t, s, c, o):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_ldmk_encode_features_on_card(dt):
+    """The landmark adapter's feature stack (warps through the softsplat
+    kernel, occlusion matting, landmark embedding) at the micro widths,
+    128x192, T=5, against the same call inside plain_reference(): every
+    inject tensor and occlusion mask within test_kernels_on_card's bounds;
+    4 softsplat launches (one a scale)."""
+    from mofa_tpu_torch.models.mofa_adapter import LdmkFlowControlNet
+    from mofa_tpu_torch.models.svd_unet import MICRO_UNET_CONFIG
+    from mofa_tpu_torch.pipelines.common import init_random_
+    rn = _card(21)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    with torch.device("cuda"):
+        cn = init_random_(LdmkFlowControlNet(MICRO_UNET_CONFIG), g).to(dt).eval()
+    cond, flow = rn(1, 128, 192, 3).to(dt), (rn(1, 4, 128, 192, 2) * 6).to(dt)
+    lm = rn(1, 5, 128, 192, 3).sigmoid().to(dt)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False       # fp32 convs on both routes
+    try:
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            got = cn.encode_features(cond, flow, lm)
+            counts = kernels.launch_counts()
+            with kernels.plain_reference():
+                ref = cn.encode_features(cond, flow, lm)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert counts["softsplat"] == 4 and sum(counts.values()) == 4
+    for a, b in zip(got[0] + got[1], ref[0] + ref[1]):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        diff, b = a.float() - b.float(), b.float()
+        if dt == torch.float32:
+            assert diff.abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+        else:
+            assert diff.abs().max().item() <= 2e-2 * b.abs().max().item()
+            assert (diff.norm() / b.norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
 def test_kernels_raise_under_grad():
     """The kernels are forward only: on a card, a wrapper raises when grad
     is enabled and an input requires grad, and launches under no_grad."""

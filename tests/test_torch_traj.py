@@ -204,13 +204,16 @@ def test_drag_tracks_to_video_matches_jax(pair, cmp_pair, with_brush):
 
 
 def test_port_imports_neither_jax_nor_mofa_tpu():
-    code = ("import sys, mofa_tpu_torch.pipelines.traj, mofa_tpu_torch.models.weights;"
-            "import mofa_tpu_torch.apps.traj_app, mofa_tpu_torch.apps.loaders;"
-            "import mofa_tpu_torch.kernels.geglu_ffn, mofa_tpu_torch.utils.profiling;"
-            "import mofa_tpu_torch.kernels.attention, mofa_tpu_torch.kernels.group_norm;"
-            "import mofa_tpu_torch.kernels.conv_fused;"
+    """Every module of the port (walked, not listed) and chip_smoke.py
+    import in a fresh interpreter without jax, flax or mofa_tpu."""
+    code = ("import importlib, pkgutil, sys, mofa_tpu_torch, chip_smoke;"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "mofa_tpu_torch.__path__, 'mofa_tpu_torch.')];"
+            "[importlib.import_module(m) for m in mods];"
+            "assert len(mods) > 40 and 'mofa_tpu_torch.apps.hybrid_app' in mods, mods;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'mofa_tpu' or m.startswith('mofa_tpu.') or m == 'flax'];"
+            " or m == 'mofa_tpu' or m.startswith('mofa_tpu.') or m == 'flax'"
+            " or m.startswith('flax.')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

@@ -20,6 +20,7 @@ import torch
 from mofa_tpu.models.clip_vision import CLIPVisionModelWithProjection as JCLIP
 from mofa_tpu.models.cmp.model import CMP as JCMP
 from mofa_tpu.models.mofa_adapter import FlowControlNet as JFlowControlNet
+from mofa_tpu.models.mofa_adapter import LdmkFlowControlNet as JLdmkFlowControlNet
 from mofa_tpu.models.svd_unet import UNetSpatioTemporalConditionModel as JUNet
 from mofa_tpu.models.vae import AutoencoderKLTemporalDecoder as JVAE
 from mofa_tpu.models.weights import (convert_clip_vision_state_dict,
@@ -75,6 +76,11 @@ def _tree(family: str, cfg) -> dict:
             jax.random.PRNGKey(0), z((1, 2, 8, 8, cfg.in_channels)), 1.0,
             z((1, 1, cfg.cross_attention_dim)), z((1, 3)), z((1, 64, 64, 3)),
             z((1, 1, 64, 64, 2))))
+    if family == "ldmk_controlnet":
+        return template(lambda: JLdmkFlowControlNet(cfg).init(
+            jax.random.PRNGKey(0), z((1, 2, 8, 8, cfg.in_channels)), 1.0,
+            z((1, 1, cfg.cross_attention_dim)), z((1, 3)), z((1, 64, 64, 3)),
+            z((1, 1, 64, 64, 2)), z((1, 2, 64, 64, 3))))
     if family == "vae":
         return template(lambda: JVAE(cfg).init(jax.random.PRNGKey(0), z((1, 64, 64, 3)),
                                                num_frames=1))
@@ -89,6 +95,13 @@ def jax_unet(cfg, torch_module):
 def jax_flow_controlnet(cfg, torch_module):
     return JFlowControlNet(cfg), convert_flow_controlnet_state_dict(
         _tree("flow_controlnet", cfg), sd_np(torch_module))
+
+
+def jax_ldmk_controlnet(cfg, torch_module):
+    """The Flax landmark adapter holding the port's weights, through
+    mofa_tpu's adapter converter (strict)."""
+    return JLdmkFlowControlNet(cfg), convert_flow_controlnet_state_dict(
+        _tree("ldmk_controlnet", cfg), sd_np(torch_module))
 
 
 def jax_vae(cfg, torch_module):
