@@ -3,6 +3,8 @@
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --phase kernels  # build + kernel checks only
     python3 chip_smoke.py --phase profile  # torch.profiler table, 2 steps
+    python3 chip_smoke.py --phase keypoint # build, the keypoint path's kernel
+                                           # checks, video and the audio front
 
 Phases, each printed as it finishes:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -51,7 +53,21 @@ Phases, each printed as it finishes:
      steps, with the landmark and trajectory adapters written to files
      first (.safetensors and .bin) and loaded by `load_bundle` (each tensor
      held bit-equal), both flows and the frames checked and the launches
-     held to the sites of two adapter trunks a step;
+     held to the sites of two adapter trunks a step; 5e. the keypoint
+     path: the keypoint app's generation (`keypoint_app.generate`) from a
+     seeded 68-point track of 125 frames at 512^2: the CMP over its 124
+     frames, then `KeypointPipeline` in 10 sliding windows of 25 frames
+     at stride 12, 25 steps, bf16, the launches held to the sites of 10
+     windows a step (`expected_launches` by image size, views and window
+     batch); then the same inputs at 2 steps with window_batch 1, 2, 2
+     and 1 from one set of latents, each run's launches held, 2 against 1
+     to WINDOW_BATCH_RMS and a planted fault outside it; the four path
+     kernels are also held to
+     their plain versions at this path's shapes in phase 3
+     (`keypoint_kernel_checks`); 5f. the audio front: the AniPortrait
+     engine of `audio2ldmk_app` at full widths (wav2vec2-base, Audio2Mesh,
+     Audio2Pose) from a seeded 6-second wav and a seeded face to a
+     [151, 68, 2] landmark track, finite, no custom kernel launched;
   6. the GroupNorm / fused-conv entry points: a spatial and a temporal
      resnet block at full width built from `gn_affine`, `gn_silu_conv3x3`
      and `gn_silu_tconv3`, held against the port's stock resnet blocks.
@@ -685,15 +701,16 @@ SPLAT_SITES = ((72, 128, 320), (36, 64, 320), (18, 32, 640), (9, 16, 1280))
 SPLAT_FRAMES = 24
 
 
-def splat_inputs(g, h: int, w: int, c: int, dtype):
-    """Two distinct feature maps [2, h, w, c] (the CFG halves; the main
-    path's two are equal, so a distinct pair shows a frame reading the
-    wrong one), 48 flows [48, h, w, 2] of up to 3 px with out-of-bounds
-    and non-finite pixels, and a metric [48, h, w, 1] in [0, 1)."""
+def splat_inputs(g, h: int, w: int, c: int, dtype, sources: int = 2):
+    """`sources` distinct feature maps [sources, h, w, c] (2: the CFG
+    halves; the traj path's two are equal, so a distinct pair shows a frame
+    reading the wrong one; the keypoint path warps one), 24 flows a source
+    [24 * sources, h, w, 2] of up to 3 px with out-of-bounds and
+    non-finite pixels, and a metric [24 * sources, h, w, 1] in [0, 1)."""
     import torch
     dev = g.device
-    src = torch.randn(2, h, w, c, generator=g, device=dev).to(dtype)
-    n = 2 * SPLAT_FRAMES
+    src = torch.randn(sources, h, w, c, generator=g, device=dev).to(dtype)
+    n = sources * SPLAT_FRAMES
     flow = torch.randn(n, h, w, 2, generator=g, device=dev) * 3.0
     flow[:, 0, :, 0] = -40.0
     flow[:, 1, ::7, 1] = float("nan")
@@ -845,6 +862,82 @@ FLASH_SITES = (("/16", 50, 2304, 10, 64),
                ("/32 UNet", 50, 576, 20, 64),
                ("/32 trunk", 50, 576, 10, 128))
 FLASH_MAIN_SHAPES = (("/8", 50, 9216, 5, 64),) + FLASH_SITES
+
+
+# The keypoint path's shapes (512^2, windows of 25 frames, CFG batch 2, so
+# B*T = 50 rows): flash at /8 and /16 (/32 has 256 tokens and stays
+# plain), the tmajor sites /8 ... /64, the FFN's C=320 / 640 rows, and the
+# warp of one source (B rows) along 24 flows at /8 ... /64.
+KP_FLASH = ((50, 4096, 5, 64), (50, 1024, 10, 64))
+KP_TMAJOR = ((4096, 320, 5), (1024, 640, 10), (256, 1280, 20), (64, 1280, 20))
+KP_FFN = ((320, 50 * 4096), (640, 50 * 1024))
+KP_SPLAT = ((64, 64, 320), (32, 32, 320), (16, 16, 640), (8, 8, 1280))
+
+
+def keypoint_kernel_checks(results, g) -> None:
+    """The four kernels of the keypoint path against their plain versions
+    at that path's shapes, bf16, with the bf16 bounds; the first shape of
+    each timed (kernel, plain, SDPA or stock chain, bound), its keys ending
+    in `_keypoint`. Flash's plain version runs in batch chunks of 10 (its
+    fp32 logits at B=50, L=4096 would take 17 GB); it is row-independent,
+    so the chunks compute the same function."""
+    import torch
+    import torch.nn.functional as F
+    from mofa_tpu_torch.kernels.flash_attention import flash_attention
+    from mofa_tpu_torch.kernels.geglu_ffn import ln_geglu_ffn
+    from mofa_tpu_torch.kernels.short_attention import short_attention_tmajor
+    from mofa_tpu_torch.kernels.softsplat import softsplat, splat_raw
+
+    bf, dev = torch.bfloat16, g.device
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(bf)
+    sfx = "_keypoint"
+    for i, (B, L, H, D) in enumerate(KP_FLASH):
+        q, k, v = (randn(B, L, H, D) for _ in range(3))
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        _check(results, "flash_attention", "bf16", f"keypoint B={B} L={L} H={H} D={D}",
+               lambda: flash_attention(q, k, v),
+               lambda: torch.cat([flash_attention(q[j:j + 10], k[j:j + 10], v[j:j + 10])
+                                  for j in range(0, B, 10)]), i == 0,
+               library_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+               work=(4 * B * H * L * L * D, 4 * nbytes(q), "bf16"), suffix=sfx)
+        del q, k, v, qh, kh, vh
+    for i, (S, HD, H) in enumerate(KP_TMAJOR):
+        q, k, v = (randn(50, S, HD) for _ in range(3))
+        to4 = lambda x: x.reshape(2, 25, S, H, HD // H).permute(
+            0, 2, 1, 3, 4).reshape(2 * S, 25, H, HD // H).transpose(1, 2).contiguous()
+        q4, k4, v4 = to4(q), to4(k), to4(v)
+        _check(results, "short_attention_tmajor", "bf16",
+               f"keypoint BT=50 S={S} HD={HD} H={H}",
+               lambda: short_attention_tmajor(q, k, v, 25, H),
+               lambda: short_attention_tmajor(q, k, v, 25, H), i == 0,
+               library_fn=lambda: F.scaled_dot_product_attention(q4, k4, v4),
+               work=(4 * 2 * S * H * 25 * 25 * (HD // H), 4 * nbytes(q), "bf16"),
+               suffix=sfx)
+        del q, k, v, q4, k4, v4
+    for i, (C, R) in enumerate(KP_FFN):
+        args = ffn_operands(g, C, R, bf)
+        x, ls, lb, w0, b0, w2, b2 = args
+        _check(results, "ln_geglu_ffn", "bf16", f"keypoint rows={R} C={C}",
+               lambda: ln_geglu_ffn(*args), lambda: ln_geglu_ffn(*args), i == 0,
+               chain_fn=lambda: ffn_chain(x, (ls, lb), *args[3:]),
+               work=(24 * R * C * C, 2 * nbytes(x) + nbytes(w0, w2), "bf16"),
+               suffix=sfx)
+        del args, x, w0, w2
+    fr = SPLAT_FRAMES
+    for i, (h, w, c) in enumerate(KP_SPLAT):
+        src, flow, _ = splat_inputs(g, h, w, c, bf, sources=1)
+        label = f"keypoint N=24 h={h} w={w} C={c} bf16 source x{fr}"
+        _check(results, "softsplat", "fp32", label + ", raw",
+               lambda: splat_raw(src, flow, None, fr, with_norm=True),
+               lambda: splat_raw(src, flow, None, fr, with_norm=True), i == 0,
+               work=(8 * fr * h * w * c,
+                     nbytes(src, flow) + fr * h * w * (c + 1) * 4, "fp32"),
+               suffix=sfx)
+        _check(results, "softsplat", "bf16", label + ", avg",
+               lambda: softsplat(src, flow, None, "avg", fr),
+               lambda: softsplat(src, flow, None, "avg", fr), False)
+        del src, flow
+    torch.cuda.empty_cache()
 
 
 def phase_kernels() -> dict:
@@ -1011,6 +1104,7 @@ def phase_kernels() -> dict:
            ref32_fn=lambda: tanh(upcast(*tail)))
     del tail
     softsplat_checks(results, g, dev)
+    keypoint_kernel_checks(results, g)
     # channel sums of GroupNorm inputs [N, S, C] (activations with a mean):
     # UNet /8 and /16 resnets at CFG batch 2 x 25 frames, and the temporal
     # resnet's per-video [B, T*S, C]. Stock chain: the port's GroupNorm on
@@ -1256,24 +1350,41 @@ LAYOUT_KERNELS = {
                 "softsplat")}
 
 
-def expected_launches(layout: str, steps: int, adapters: int = 1) -> dict:
-    """Launches of one 576x1024, 25-frame video at SVD-XT widths with
-    `adapters` adapter trunks a step (the hybrid path runs 2), per the
-    sites of each kernel: flash 15 a step in the UNet (down / up at /8,
-    /16, /32) and 6 a trunk (down), the FFN kernel 30 in the UNet and 12 a
-    trunk (the C=320/640 sites: one FFN a spatial block, two a temporal
-    one), softsplat 4 an adapter (its warp, once a video); spatial-major:
-    16 temporal sites a step in the UNet, 7 a trunk; classic: those at /8
-    (UNet down 0 x2, up 3 x3: 5; a trunk's down 0 x2) pass the short gate,
-    the H=10/20 ones have L*H > 160 and stay plain."""
+def flash_levels(h: int, w: int) -> int:
+    """How many of the UNet's attention levels (/8, /16, /32) pass the
+    flash gate at an h x w video: Lq * Lk >= 576^2, i.e. at least 576
+    latent tokens (/64 has a single transformer, in the mid block, below
+    it at every size run here)."""
+    return sum((h // s) * (w // s) >= 576 for s in (8, 16, 32))
+
+
+def expected_launches(layout: str, steps: int, adapters: int = 1,
+                      size: tuple = (576, 1024), views: int = 1,
+                      window_batch: int = 1, warps: int | None = None) -> dict:
+    """Launches of one 25-frame-window video at SVD-XT widths with
+    `adapters` adapter trunks a denoiser call (the hybrid path runs 2),
+    per the sites of each kernel. A video of `views` windows (the keypoint
+    path) makes ceil(views / window_batch) denoiser calls a step and warps
+    `warps` distinct views once each (default: every view). Per call: flash
+    5 in the UNet (down 2, up 3) and 2 a trunk (down) at each level that
+    passes the flash gate (`flash_levels`: /8, /16, /32 at 576x1024; /8,
+    /16 at 512^2); the FFN kernel 30 in the UNet and 12 a trunk (the
+    C=320/640 sites: one FFN a spatial block, two a temporal one);
+    spatial-major: 16 temporal sites in the UNet, 7 a trunk; classic: those
+    at /8 (UNet down 0 x2, up 3 x3: 5; a trunk's down 0 x2) pass the short
+    gate, the H=10/20 ones have L*H > 160 and stay plain. softsplat 4 an
+    adapter a warped view (its warp, once a video)."""
     from mofa_tpu_torch import kernels
+    calls = steps * -(-views // window_batch)
+    warps = views if warps is None else warps
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(flash_attention=(15 + 6 * adapters) * steps,
-                ln_geglu_ffn=(30 + 12 * adapters) * steps, softsplat=4 * adapters)
+    want.update(flash_attention=(5 + 2 * adapters) * flash_levels(*size) * calls,
+                ln_geglu_ffn=(30 + 12 * adapters) * calls,
+                softsplat=4 * adapters * warps)
     if layout == "tmajor":
-        want["short_attention_tmajor"] = (16 + 7 * adapters) * steps
+        want["short_attention_tmajor"] = (16 + 7 * adapters) * calls
     else:
-        want["short_attention"] = (5 + 2 * adapters) * steps
+        want["short_attention"] = (5 + 2 * adapters) * calls
     return want
 
 
@@ -1640,6 +1751,247 @@ def run_hybrid_video(dev, card: str) -> dict:
     return dict(launches=launches, median_step=median, total=total)
 
 
+# ------------------------------------------ phase 5e: the keypoint path
+
+# the keypoint CLI's defaults: 125 frames in windows of 25 at stride 12
+# (10 views), 25 steps, 512^2
+KEYPOINT = dict(h=512, w=512, t=125, window=25, stride=12, steps=25,
+                decode_chunk_size=8)
+# window_batch 2 against 1 at 2 steps, bf16, from one set of latents: the
+# relative RMS of the latents' difference. Each window's rows compute the
+# same function, but the bf16 path is not bitwise repeatable (atomic adds
+# in the splat and the overlap sums; other algorithms at twice the batch),
+# and the random-weight UNet carries that rounding through the first
+# step's cancellation at sigma_0 ~ 700 (the CPU test holds the same in fp32
+# to 2e-3). The first full-size reading was 1.76e-2, and window_batch 1
+# against a rerun of itself reads the same (PERF.md §6). A batching fault
+# (a window denoised with another's features or the other CFG half's
+# image latents) moves the latents by their own size.
+WINDOW_BATCH_RMS = 5e-2
+
+
+def run_keypoint_video(dev, card: str) -> dict:
+    """The keypoint app's generation (`keypoint_app.generate`) at the CLI's
+    defaults (KEYPOINT), bf16, window_batch 1: a seeded smooth 68-point
+    track, the CMP (full size, seeded random, fp32) over its 124 frames,
+    the landmark-adapter bundle seeded random, then KeypointPipeline over
+    10 views. Launch counts reset just before the generation and read just
+    after; every phase timed; the peak during the CMP read apart from the
+    peak after it. Then the same flow and landmark frames at 2 steps from
+    one set of latents with window_batch 1, 2, 2 and 1 (the second run of
+    each timed warm): their launches, their agreement (WINDOW_BATCH_RMS)
+    and a planted fault that must miss it."""
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.apps.keypoint_app import generate
+    from mofa_tpu_torch.apps.loaders import load_bundle, load_cmp
+    from mofa_tpu_torch.pipelines.keypoint import KeypointPipeline, window_views
+    from mofa_tpu_torch.utils.profiling import PhaseTimer
+
+    k = KEYPOINT
+    h, w, t, seed = k["h"], k["w"], k["t"], 13
+    views = window_views(t, k["window"], k["stride"])
+    img, _ = smooth_inputs(1, 2, h, w, dev, seed=seed)
+    lm = seeded_landmarks(h, w, t, seed)
+    peaks, kept = {}, {}
+
+    def bundle_loader():
+        # the CMP has run and been freed: its peak is the peak so far
+        peaks["cmp"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        kept["bundle"] = load_bundle(None, None, dev, torch.bfloat16, seed=seed, ldmk=True)
+        return kept["bundle"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phases: dict = {}
+    timer = PhaseTimer(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    frames, flow, raster = generate(
+        img[0], lm, lambda: load_cmp(None, dev, seed=seed), bundle_loader, timer=timer,
+        window_size=k["window"], stride=k["stride"], num_inference_steps=k["steps"],
+        decode_chunk_size=k["decode_chunk_size"], seed=seed + 1, phase_times=phases)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    flash_shapes = kernels.launch_counts_by_shape("flash_attention")
+    peaks["after"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = phases["denoise_step"]
+    median = sorted(step_s)[len(step_s) // 2]
+    app = timer.totals
+    log(f"  {len(views)} views {views[0]} ... {views[-1]}; CMP over {t - 1} frames at 384^2")
+    log(f"  phases (s): cmp_load {app['cmp_load']:.3f}, cmp_flow {app['cmp_flow']:.3f}, "
+        f"bundle_load {app['bundle_load']:.3f}, clip_encode {phases['clip_encode'][0]:.3f}, "
+        f"vae_encode {phases['vae_encode'][0]:.3f}, warp (all views) "
+        f"{phases['warp'][0]:.3f}, denoise {sum(step_s):.3f} ({len(step_s)} steps of "
+        f"{len(views)} windows: first {step_s[0]:.3f}, median {median:.3f}; median "
+        f"window step {median / len(views):.4f}), decode {phases['decode'][0]:.3f}; "
+        f"total {total:.3f}")
+    log(f"  peak torch.cuda.max_memory_allocated {max(peaks.values()):.2f} GiB (CMP "
+        f"{peaks['cmp']:.2f}, bundle + denoise + decode {peaks['after']:.2f}); card {card}")
+    log(f"  kernel launches in the keypoint path: {launches}")
+    log(f"  flash launches by [B, L, H, D]: {flash_shapes}")
+    check_flow("keypoint flow", flow)
+    want = (t, h, w, 3)
+    if tuple(frames.shape) != want or not bool(torch.isfinite(frames).all()):
+        fail(f"keypoint path frames {tuple(frames.shape)} (expected {want}), finite "
+             f"{bool(torch.isfinite(frames).all())}")
+    expect = lambda steps, vb: expected_launches(
+        "tmajor", steps, size=(h, w), views=len(views), window_batch=vb,
+        warps=len(set(views)))
+    if launches != expect(k["steps"], 1):
+        fail(f"keypoint path launches {launches}, expected {expect(k['steps'], 1)}")
+    per_site = k["steps"] * len(views) * 7            # UNet 5 + trunk 2 a level
+    for shape in KP_FLASH:
+        if flash_shapes.get(shape, 0) != per_site:
+            fail(f"keypoint path: flash at {shape} launched "
+                 f"{flash_shapes.get(shape, 0)} times, expected {per_site}")
+    log(f"  frames finite, mean {float(frames.mean()):.4f}, std "
+        f"{float(frames.std()):.4f}")
+    del frames
+    torch.cuda.empty_cache()
+
+    # window batching: 2 steps, the same flow, raster and latents
+    bundle = kept.pop("bundle")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    lat0 = torch.randn(1, t, h // 8, w // 8, 4, generator=g, device=dev)
+    ldmk = torch.from_numpy(raster).to(dev)[None]
+    out, ab = {}, {}
+    # each batch twice: the first run at a batch meets its shapes first
+    for vb in (1, 2, "2 again", "1 again"):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = vb if isinstance(vb, int) else int(vb[0])
+        out[vb], _ = KeypointPipeline(bundle)(
+            img, flow, ldmk, window_size=k["window"], stride=k["stride"],
+            num_inference_steps=2, latents=lat0, output_type="latent",
+            window_batch=n, generator=torch.Generator(device=dev).manual_seed(seed + 3))
+        torch.cuda.synchronize()
+        ab[vb] = time.perf_counter() - t1
+        got = kernels.launch_counts()
+        if got != expect(2, n):
+            fail(f"keypoint window_batch={vb}: launches {got}, expected {expect(2, n)}")
+        log(f"  window_batch {vb}: 2 steps in {ab[vb]:.3f} s (warp included), "
+            f"launches {got}")
+    rel_rms = lambda a, b: float((a - b).norm() / b.norm())
+    rms, err = rel_rms(out[2], out[1]), float((out[2] - out[1]).abs().max())
+    log(f"  window_batch 2 vs 1: max|diff| {err:.3e} of max|latents| "
+        f"{float(out[1].abs().max()):.3e}; rel rms {rms:.3e} (bound {WINDOW_BATCH_RMS}); "
+        f"each against itself (run to run): rel rms 1 {rel_rms(out['1 again'], out[1]):.3e}, "
+        f"2 {rel_rms(out['2 again'], out[2]):.3e}; second runs: window_batch 2 in "
+        f"{ab['2 again'] / ab['1 again']:.3f}x the time of 1")
+    if not (bool(torch.isfinite(out[2]).all()) and rms <= WINDOW_BATCH_RMS):
+        fail(f"keypoint window_batch 2 vs 1: rel rms {rms:.3e} > {WINDOW_BATCH_RMS}")
+    # a planted fault the bound must reject: window_batch 2 with the CFG
+    # halves' image latents swapped (each window's rows read the other half's)
+    import mofa_tpu_torch.pipelines.keypoint as keypoint_module
+    real_encode = keypoint_module.encode_vae_image
+    keypoint_module.encode_vae_image = lambda *a, **kw: real_encode(*a, **kw).flip(0)
+    try:
+        faulty, _ = KeypointPipeline(bundle)(
+            img, flow, ldmk, window_size=k["window"], stride=k["stride"],
+            num_inference_steps=2, latents=lat0, output_type="latent", window_batch=2,
+            generator=torch.Generator(device=dev).manual_seed(seed + 3))
+    finally:
+        keypoint_module.encode_vae_image = real_encode
+    fault_rms = rel_rms(faulty, out[1])
+    log(f"  planted fault (CFG halves' image latents swapped), window_batch 2 vs 1: "
+        f"rel rms {fault_rms:.3e} {'MISS' if fault_rms > WINDOW_BATCH_RMS else 'PASSES'}")
+    if fault_rms <= WINDOW_BATCH_RMS:
+        fail(f"the window-batch bound lets a planted fault pass: {fault_rms:.3e}")
+    del bundle, out, faulty
+    torch.cuda.empty_cache()
+    return dict(launches=launches, flash_shapes=flash_shapes, median_step=median,
+                total=total, peak=max(peaks.values()), window_batch_s=ab,
+                window_batch_rms=rms, fault_rms=fault_rms)
+
+
+# ----------------------------------------------- phase 5f: the audio front
+
+AUDIO_SECONDS, AUDIO_SR, AUDIO_FPS = 6, 16000, 25
+
+
+def write_wav(path: str, samples, rate: int) -> None:
+    """Mono int16 PCM via the stdlib `wave`; samples in [-1, 1]."""
+    import wave
+
+    import numpy as np
+    pcm = (np.clip(samples, -1, 1) * 32767).astype(np.int16)
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(rate)
+        f.writeframes(pcm.tobytes())
+
+
+def seeded_face(seed: int) -> dict:
+    """A landmarker's output for a face about the middle of the image:
+    lmks [478, 3] normalised, lmks3d [468, 3] in cm about the origin, and
+    trans_mat placing them 50 cm in front of the camera."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lmks3d = rng.uniform((-7, -9, -4), (7, 9, 4), (468, 3)).astype(np.float32)
+    trans = np.eye(4, dtype=np.float32)
+    trans[2, 3] = -50.0
+    lmks = np.concatenate([rng.uniform(0.3, 0.7, (478, 2)), np.zeros((478, 1))], 1)
+    return dict(lmks=lmks.astype(np.float32), lmks3d=lmks3d, trans_mat=trans)
+
+
+def run_audio_front(dev) -> dict:
+    """The AniPortrait engine of `audio2ldmk_app` at full widths
+    (wav2vec2-base: 768 wide, 12 layers; Audio2Mesh and Audio2Pose 512
+    wide, 8 decoder layers), seeded random weights, fp32: a seeded 6-second
+    16 kHz wav written with `wave` and a seeded face -> landmarks
+    [ceil(6 * 25) + 1, 68, 2], finite. Runs twice (the first call includes
+    the cuDNN / cuBLAS warm-up); no custom kernel may launch."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.apps.audio2ldmk_app import load_audio_models, reference_face
+    from mofa_tpu_torch.models.audio.aniportrait import audio_to_landmarks
+
+    h = w = KEYPOINT["h"]
+    t0 = time.perf_counter()
+    a2m, a2p = load_audio_models(None, None, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = {n: sum(p.numel() for p in m.parameters()) for n, m in
+                (("audio2mesh", a2m), ("audio2pose", a2p))}
+    lmks, lmks3d, trans = reference_face(seeded_face(18), w, h)
+    rng = np.random.RandomState(19)
+    want = (math.ceil(AUDIO_SECONDS * AUDIO_FPS) + 1, 68, 2)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        wav = os.path.join(root, "a.wav")
+        write_wav(wav, rng.uniform(-0.5, 0.5, AUDIO_SECONDS * AUDIO_SR), AUDIO_SR)
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            lm = audio_to_landmarks(a2m, a2p, wav, lmks, lmks3d, trans, [h, w],
+                                    fps=AUDIO_FPS, sr=AUDIO_SR)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        launches = kernels.launch_counts()
+    log(f"  models built in {load_s:.3f} s, parameters {n_params}")
+    log(f"  {AUDIO_SECONDS} s of audio -> landmarks {lm.shape} in {times[0]:.3f} s "
+        f"(first call), {times[1]:.3f} s (second); x in [{lm[..., 0].min():.1f}, "
+        f"{lm[..., 0].max():.1f}], y in [{lm[..., 1].min():.1f}, {lm[..., 1].max():.1f}]")
+    if lm.shape != want or not np.isfinite(lm).all():
+        fail(f"audio front: landmarks {lm.shape} (expected {want}), finite "
+             f"{bool(np.isfinite(lm).all())}")
+    if any(launches.values()):
+        fail(f"audio front launched custom kernels: {launches}")
+    del a2m, a2p
+    torch.cuda.empty_cache()
+    return dict(seconds=times)
+
+
 # --------------------------------- phase 6: the GroupNorm / conv entries
 
 FUSED_SLACK = 1.5
@@ -1767,7 +2119,8 @@ def phase_profile(dev, steps: int = 2) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "profile"), default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "profile", "keypoint"),
+                    default="all")
     args = ap.parse_args()
 
     try:
@@ -1802,6 +2155,24 @@ def main() -> None:
     _build.library()
     log(f"[build] {os.path.relpath(path, REPO)} in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    if args.phase == "keypoint":
+        # the keypoint slice alone: its kernels at its shapes, its video, the
+        # audio front
+        dev = torch.device("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kres: dict = {}
+        log("[kernels] the keypoint path's kernels at its shapes, bf16")
+        keypoint_kernel_checks(kres, torch.Generator(device=dev).manual_seed(0))
+        bad = [n for n, r in kres.items() if not r["ok"]]
+        if bad:
+            fail(f"kernels disagree with their plain versions: {bad}")
+        log(f"[keypoint] {KEYPOINT}, bf16, through keypoint_app.generate")
+        kp = run_keypoint_video(dev, card)
+        log(f"[keypoint] video {kp['total']:.3f} s, median step {kp['median_step']:.3f} s")
+        log("[audio] the AniPortrait engine at full widths, fp32")
+        run_audio_front(dev)
+        return
 
     # 3. kernels vs plain versions
     log("[kernels] kernel vs plain version on the card")
@@ -1865,6 +2236,17 @@ def main() -> None:
             f"{main_run['median_step']:.3f} s on the traj path; video "
             f"{hybrid_run['total']:.3f} s")
         torch.cuda.empty_cache()
+        # 5e. the keypoint path: 125 frames in 10 sliding windows
+        log(f"[keypoint] the keypoint app's generation: a landmark track -> CMP -> "
+            f"KeypointPipeline (landmark adapter, {KEYPOINT['t']} frames in windows of "
+            f"{KEYPOINT['window']} at stride {KEYPOINT['stride']}), "
+            f"{KEYPOINT['h']}x{KEYPOINT['w']}, {KEYPOINT['steps']} steps, bf16")
+        kp_run = run_keypoint_video(dev, card)
+        log(f"[keypoint] median denoise step (10 windows) {kp_run['median_step']:.3f} s; "
+            f"video {kp_run['total']:.3f} s; peak {kp_run['peak']:.2f} GiB")
+        # 5f. the audio front: wav -> landmark track
+        log("[audio] the AniPortrait engine (audio2ldmk_app) at full widths, fp32")
+        run_audio_front(dev)
         # 6. the GroupNorm / fused-conv entry points
         log("[gn_conv] resnet blocks through gn_affine + gn_silu_conv3x3 / "
             "gn_silu_tconv3, bf16")
@@ -1880,6 +2262,7 @@ def main() -> None:
         for name in KERNEL_META:        # the 25-step spatial-major video's own
             kres[name]["main_path_launches"] = main_run["launches"][name]
             kres[name]["hybrid_launches"] = hybrid_run["launches"][name]
+            kres[name]["keypoint_launches"] = kp_run["launches"][name]
         # flash's launches at each main-path site, from the same run
         by_site = kres["flash_attention"]["main_path_launches_by_site"] = {}
         for site, *shape in FLASH_MAIN_SHAPES:
@@ -1894,7 +2277,9 @@ def main() -> None:
              "plain_ms_c640", "chain_ms_c640", "bound_ms_c640", "bound_by_c640",
              "sites", "main_path_launches_by_site", "stage_ms_c320", "stage_ms_c640",
              "avg_call_ms", "stage_ms",
-             "main_path_launches", "hybrid_launches")
+             "main_path_launches", "hybrid_launches", "keypoint_launches",
+             "ms_keypoint", "plain_ms_keypoint", "library_ms_keypoint",
+             "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint")
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],
              **{k: kres[n][k] for k in keys},

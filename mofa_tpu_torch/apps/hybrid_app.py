@@ -35,11 +35,8 @@ from mofa_tpu_torch.models.clip_vision import TINY_CLIP_CONFIG
 from mofa_tpu_torch.models.cmp.model import TINY_CMP_CONFIG, CMPConfig
 from mofa_tpu_torch.models.svd_unet import MICRO_UNET_CONFIG
 from mofa_tpu_torch.models.vae import TINY_VAE_CONFIG
-from mofa_tpu_torch.ops.resize import resize_nhwc
 from mofa_tpu_torch.pipelines.hybrid import HybridPipeline
-from mofa_tpu_torch.preprocess.landmark import (CANVAS, LandmarkFlowEngine,
-                                                draw_landmark_sequence,
-                                                prepare_landmark_flow)
+from mofa_tpu_torch.preprocess.landmark import LandmarkFlowEngine
 from mofa_tpu_torch.preprocess.traj import preprocess_image
 
 MODEL_LENGTH = 25          # the drag adapter's frames: its flow is tiled to T-1
@@ -98,13 +95,7 @@ def generate(image01, landmarks, tracks, face_mask, cmp_loader, bundle_loader, *
     image = torch.as_tensor(image01, dtype=torch.float32, device=dev)[None]
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     with timer.phase("cmp_flow_landmarks"):
-        flow_in = prepare_landmark_flow(landmarks[None], h, w)
-        ldmk_imgs = draw_landmark_sequence(landmarks, h, w)
-        frames_c = resize_nhwc(image, (CANVAS, CANVAS))[:, None].expand(
-            -1, t - 1, -1, -1, -1)
-        face_flow = engine.get_cmp_flow_landmarks(
-            frames_c, to_dev(flow_in["sparse_flow_384"]), to_dev(flow_in["mask_384"]),
-            h, w)
+        face_flow, ldmk_imgs = engine.flow_from_landmarks(image, landmarks)
     with timer.phase("cmp_flow_tracks"):
         if tracks:
             drag = drag_flow(engine, image, tracks, MODEL_LENGTH)

@@ -10,7 +10,8 @@ gradio app, run_gradio_audio_driven.py):
   the video's size and on the 384^2 CMP canvas (sample_inputs_face);
 - `LandmarkFlowEngine.get_cmp_flow_landmarks`: CMP completion of every
   frame in one batched forward (the reference loops over the frames),
-  then the flow rescaled to the video's size.
+  then the flow rescaled to the video's size; `flow_from_landmarks`, the
+  whole chain from a landmark track (the hybrid and keypoint apps').
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from mofa_tpu_torch.ops.flow import rescale_flow
 from mofa_tpu_torch.ops.rasterize import landmarks_to_sparse_flow
+from mofa_tpu_torch.ops.resize import resize_nhwc
 from mofa_tpu_torch.preprocess.traj import DragFlowEngine
 
 CANVAS = 384               # the CMP canvas
@@ -110,3 +112,19 @@ class LandmarkFlowEngine(DragFlowEngine):
         -> dense flow [b, t, height, width, 2]."""
         flow = self.get_cmp_flow(frames01_384, sparse_384, mask_384)
         return rescale_flow(flow, height, width)
+
+    def flow_from_landmarks(self, image01: torch.Tensor, landmarks: np.ndarray):
+        """image01 [1, H, W, 3] on the CMP's device; landmarks [T, 68, 2]
+        (x, y) pixels -> (the adapter's flow [1, T-1, H, W, 2], the landmark
+        frames [T, H, W, 3] in [0, 1] as numpy): the landmark scatter on the
+        384^2 canvas completed over the T-1 frames in one batch, and the
+        raster."""
+        dev = image01.device
+        h, w = image01.shape[1:3]
+        t = landmarks.shape[0]
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        flow_in = prepare_landmark_flow(landmarks[None], h, w)
+        frames = resize_nhwc(image01, (CANVAS, CANVAS))[:, None].expand(-1, t - 1, -1, -1, -1)
+        flow = self.get_cmp_flow_landmarks(frames, to_dev(flow_in["sparse_flow_384"]),
+                                           to_dev(flow_in["mask_384"]), h, w)
+        return flow, draw_landmark_sequence(landmarks, h, w)

@@ -341,6 +341,61 @@ def test_ldmk_encode_features_on_card(dt):
 
 
 @pytest.mark.gpu
+def test_keypoint_window_step_on_card():
+    """One step of the windowed KeypointPipeline at the micro widths,
+    128x192, 7 frames in windows of 4 at stride 2 (3 views, the last
+    ragged), fp32, on the card, with window_batch 1 and 2 (one padded
+    group), each against the same call inside plain_reference(), and 2
+    against 1: the micro sites take no attention or FFN kernel, so the
+    softsplat warps (4 a view, each view encoded once) and the batch's
+    algorithms are what differ. Bound: 1e-4 of the latents' scale plus 8
+    ulps of the first Euler step's operands (sigma_0 * max |latents|),
+    where every route rounds."""
+    from mofa_tpu_torch.models.clip_vision import CLIPVisionConfig
+    from mofa_tpu_torch.models.svd_unet import MICRO_UNET_CONFIG
+    from mofa_tpu_torch.models.vae import TINY_VAE_CONFIG
+    from mofa_tpu_torch.ops.euler import make_euler_schedule
+    from mofa_tpu_torch.pipelines.common import ModelBundle
+    from mofa_tpu_torch.pipelines.keypoint import KeypointPipeline
+    rn = _card(23)
+    clip = CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_layers=2,
+                            num_heads=2, patch_size=16, image_size=48, projection_dim=32)
+    bundle = ModelBundle.init_random("cuda", torch.Generator(device="cuda").manual_seed(24),
+                                     MICRO_UNET_CONFIG, TINY_VAE_CONFIG, clip, ldmk=True)
+    t, h, w = 7, 128, 192
+    image = rn(1, h, w, 3).sigmoid()
+    flow, lm = rn(1, t - 1, h, w, 2) * 4, rn(1, t, h, w, 3).sigmoid()
+    lat = rn(1, t, h // 8, w // 8, 4)
+    run = lambda vb: KeypointPipeline(bundle)(
+        image, flow, lm, window_size=4, stride=2, num_inference_steps=1,
+        noise_aug_strength=0.0, latents=lat, output_type="latent",
+        window_batch=vb)[0]
+    import numpy as np
+    sigma0 = float(make_euler_schedule(1).init_noise_sigma)
+    floor = float(np.spacing(np.float32(sigma0 * lat.abs().max().item())))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False       # fp32 convs on every route
+    got = {}
+    try:
+        for vb in (1, 2):
+            kernels.reset_launch_counts()
+            got[vb] = run(vb)
+            counts = kernels.launch_counts()
+            with kernels.plain_reference():
+                ref = run(vb)
+            torch.cuda.synchronize()
+            assert counts["softsplat"] == 12 and sum(counts.values()) == 12
+            assert got[vb].shape == (1, t, h // 8, w // 8, 4)
+            assert torch.isfinite(got[vb]).all()
+            atol = 1e-4 * ref.abs().max().item() + 8 * floor
+            assert (got[vb] - ref).abs().max().item() <= atol, vb
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    atol = 1e-4 * got[1].abs().max().item() + 8 * floor
+    assert (got[2] - got[1]).abs().max().item() <= atol
+
+
+@pytest.mark.gpu
 def test_kernels_raise_under_grad():
     """The kernels are forward only: on a card, a wrapper raises when grad
     is enabled and an input requires grad, and launches under no_grad."""

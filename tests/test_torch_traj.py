@@ -210,7 +210,10 @@ def test_port_imports_neither_jax_nor_mofa_tpu():
             "mods = [m.name for m in pkgutil.walk_packages("
             "mofa_tpu_torch.__path__, 'mofa_tpu_torch.')];"
             "[importlib.import_module(m) for m in mods];"
-            "assert len(mods) > 40 and 'mofa_tpu_torch.apps.hybrid_app' in mods, mods;"
+            "want = {'mofa_tpu_torch.apps.' + a for a in ('hybrid_app', 'keypoint_app',"
+            " 'audio2ldmk_app', 'opendomain_app')} | {'mofa_tpu_torch.pipelines.keypoint',"
+            " 'mofa_tpu_torch.models.audio.wav2vec2', 'mofa_tpu_torch.models.audio.aniportrait'};"
+            "assert len(mods) > 40 and want <= set(mods), (want - set(mods), mods);"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'mofa_tpu' or m.startswith('mofa_tpu.') or m == 'flax'"
             " or m.startswith('flax.')];"
