@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phase profile  # torch.profiler table, 2 steps
     python3 chip_smoke.py --phase keypoint # build, the keypoint path's kernel
                                            # checks, video and the audio front
+    python3 chip_smoke.py --phase train    # build, the training path's kernel
+                                           # backward checks, 5g
 
 Phases, each printed as it finishes:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -32,6 +34,12 @@ Phases, each printed as it finishes:
      3b. the FFN variants (tools/bench_ffn.py's A/B): plain, ilv, pipe,
      tanh, geglu_ffn and the stock chain at the main path's three FF
      shapes, their agreement with "plain" and one pass's launch counts;
+     3c. the training path's four kernels under autograd (kernel forward,
+     the stock backward of kernels/*.py) at the stage-1 shapes, fp32 and
+     bf16: every gradient against plain autograd through the plain version
+     (TOL_BWD), each backward timed beside SDPA's where it computes the
+     same function, and a planted fault a kernel (a key chunk dropped, the
+     last frame unread, no d gamma, d_flow's sign flipped) that must miss;
   4. the composition check: the full trajectory pipeline at full SVD-XT
      widths but a small video, in both temporal layouts (spatial-major
      and classic, `MOFA_TMAJOR=0`), once through the kernels and once
@@ -57,7 +65,7 @@ Phases, each printed as it finishes:
      path: the keypoint app's generation (`keypoint_app.generate`) from a
      seeded 68-point track of 125 frames at 512^2: the CMP over its 124
      frames, then `KeypointPipeline` in 10 sliding windows of 25 frames
-     at stride 12, 25 steps, bf16, the launches held to the sites of 10
+     at stride 12, 10 steps (KEYPOINT), bf16, the launches held to the sites of 10
      windows a step (`expected_launches` by image size, views and window
      batch); then the same inputs at 2 steps with window_batch 1, 2, 2
      and 1 from one set of latents, each run's launches held, 2 against 1
@@ -68,6 +76,17 @@ Phases, each printed as it finishes:
      engine of `audio2ldmk_app` at full widths (wav2vec2-base, Audio2Mesh,
      Audio2Pose) from a seeded 6-second wav and a seeded face to a
      [151, 68, 2] landmark track, finite, no custom kernel launched;
+     5g. stage-1 training through `train_app.run` on seeded 40-frame
+     clips at SVD-XT widths (384x384, 25 frames, batch 1, fp32, block
+     remat, EMA): 4 steps, a checkpoint at step 2, a validation render at
+     step 4, each step's launches held to `expected_train_launches`, loss
+     and gradient norm finite; the frozen UNet, VAE and CLIP bit-unchanged
+     and the adapter moved; the exported adapter through `load_bundle`
+     bit-equal; a restore of step 2 bit-equal to the saved state; one step
+     through the kernels against `plain_reference()` (TRAIN_PLAIN_REL); a
+     run resumed from step 2 within RESUME_REL of the first run's steps 3
+     and 4, a planted fault (the generator not restored) outside it; one
+     step without block remat and its peak;
   6. the GroupNorm / fused-conv entry points: a spatial and a temporal
      resnet block at full width built from `gn_affine`, `gn_silu_conv3x3`
      and `gn_silu_tconv3`, held against the port's stock resnet blocks.
@@ -878,7 +897,7 @@ def keypoint_kernel_checks(results, g) -> None:
     """The four kernels of the keypoint path against their plain versions
     at that path's shapes, bf16, with the bf16 bounds; the first shape of
     each timed (kernel, plain, SDPA or stock chain, bound), its keys ending
-    in `_keypoint`. Flash's plain version runs in batch chunks of 10 (its
+    in `_keypoint`, and flash's /16 site as well (`_keypoint16`). Flash's plain version runs in batch chunks of 10 (its
     fp32 logits at B=50, L=4096 would take 17 GB); it is row-independent,
     so the chunks compute the same function."""
     import torch
@@ -897,9 +916,10 @@ def keypoint_kernel_checks(results, g) -> None:
         _check(results, "flash_attention", "bf16", f"keypoint B={B} L={L} H={H} D={D}",
                lambda: flash_attention(q, k, v),
                lambda: torch.cat([flash_attention(q[j:j + 10], k[j:j + 10], v[j:j + 10])
-                                  for j in range(0, B, 10)]), i == 0,
+                                  for j in range(0, B, 10)]), True,
                library_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh),
-               work=(4 * B * H * L * L * D, 4 * nbytes(q), "bf16"), suffix=sfx)
+               work=(4 * B * H * L * L * D, 4 * nbytes(q), "bf16"),
+               suffix=sfx if i == 0 else sfx + "16")
         del q, k, v, qh, kh, vh
     for i, (S, HD, H) in enumerate(KP_TMAJOR):
         q, k, v = (randn(50, S, HD) for _ in range(3))
@@ -1388,6 +1408,191 @@ def expected_launches(layout: str, steps: int, adapters: int = 1,
     return want
 
 
+# ------------------------------------------ phase 3c: the kernels' backward
+
+# Stage-1 training shapes (384x384, T=25, B=1: 2304 tokens at /8, 576 at
+# /16, 144 at /32): flash at /8 and /16 (/32 stays plain), the tmajor
+# sites, the FFN at C=320 and 640, the adapter's four warp sites (one
+# first frame splatted along 24 flows).
+TRAIN_KERNELS = ("flash_attention", "short_attention_tmajor", "ln_geglu_ffn",
+                 "softsplat")
+BWD_FLASH = ((25, 2304, 5, 64), (25, 576, 10, 64))
+BWD_TMAJOR = ((2304, 320, 5), (576, 640, 10), (144, 1280, 20))
+BWD_FFN = ((320, 25 * 2304), (640, 25 * 576))
+BWD_SPLAT = ((48, 48, 320), (24, 24, 320), (12, 12, 640), (6, 6, 1280))
+# Bounds on each gradient of a kernel's autograd route (kernel forward,
+# stock backward) against plain autograd through the plain version, as
+# (max_rel, rms_rel) of each gradient tensor: fp32, both sides fp32 math
+# in other orders (the kernels' forward sums, the splat's atomics); bf16,
+# the plain version's autograd rounds its intermediates (P, the LN output,
+# the gate) to bf16 where the backward functions recompute in fp32, the
+# JAX rules' way. A few times above the sound readings (fp32 2.1e-6 /
+# 9.8e-7, bf16 6.0e-3 / 2.6e-3 at the worst), far below those of the
+# planted faults (0.21 relative RMS and more; PERF.md).
+TOL_BWD = {"fp32": (1e-4, 2e-5), "bf16": (2e-2, 1e-2)}
+
+
+def _grads(fn, inputs, cot):
+    """Autograd gradients of fn(*inputs) at `cot` (cot a tensor, or a
+    tuple for a tuple output; zeros where autograd never reached)."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    outs, cots = (out, cot) if isinstance(out, tuple) else ((out,), (cot,))
+    got = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    return [torch.zeros_like(x) if g_ is None else g_ for x, g_ in zip(leaves, got)]
+
+
+def _bwd_judge(dtype_name, got, ref) -> tuple:
+    """(within TOL_BWD, worst max|diff| / max|ref|, worst relative RMS)
+    over the gradient tensors."""
+    import torch
+    max_rel, rms_rel = TOL_BWD[dtype_name]
+    worst_max, worst_rms, ok = 0.0, 0.0, True
+    for g_, r_ in zip(got, ref):
+        d, r = g_.float() - r_.float(), r_.float()
+        m = (d.abs().max() / r.abs().max().clamp(min=1e-30)).item()
+        q = (d.norm() / r.norm().clamp(min=1e-30)).item()
+        worst_max, worst_rms = max(worst_max, m), max(worst_rms, q)
+        ok = ok and m <= max_rel and q <= rms_rel and bool(torch.isfinite(g_).all())
+    return ok, worst_max, worst_rms
+
+
+def phase_backward(kres: dict, g) -> list:
+    """Each training-path kernel's autograd route at the training shapes,
+    fp32 and bf16: the gradients (kernel forward, the stock backward of
+    kernels/*.py) against plain autograd through the plain version, within
+    TOL_BWD; the first shape of each timed (the kernel's forward alone,
+    `train_fwd_ms_*`; the backward function alone; CUDA events, median of
+    5; SDPA's backward beside flash's and tmajor's), with its bound (`bwd_*`
+    keys of the kernel's row). Then one planted
+    fault a kernel, which must miss the bounds. Returns the loose faults."""
+    import torch
+    import torch.nn.functional as F
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.kernels import flash_attention as fm
+    from mofa_tpu_torch.kernels import geglu_ffn as gm
+    from mofa_tpu_torch.kernels import short_attention as sm
+    from mofa_tpu_torch.kernels import softsplat as spm
+
+    dev = g.device
+    randn = lambda *s, dt: torch.randn(*s, generator=g, device=dev).to(dt)
+    loose = []
+
+    def check(name, dn, label, fn, inputs, cot, first, bwd_fn=None, work=None,
+              library=None, fault=None):
+        got = _grads(fn, inputs, cot)
+        torch.cuda.synchronize()
+        with kernels.plain_reference():
+            ref = _grads(fn, inputs, cot)
+        ok, m, q = _bwd_judge(dn, got, ref)
+        line = (f"  {name:24s} {dn:4s} {label:34s} grads: max rel {m:.3e} "
+                f"rel rms {q:.3e} {'ok' if ok else 'MISS'}")
+        r = kres[name]
+        r["bwd_ok"] = r.get("bwd_ok", True) and ok
+        r["bwd_max_rel_err_" + dn] = max(r.get("bwd_max_rel_err_" + dn, 0.0), m)
+        if first:
+            with torch.no_grad():
+                r["train_fwd_ms_" + dn] = time_ms(lambda: fn(*inputs))
+            line += f"  fwd {r['train_fwd_ms_' + dn]:.3f} ms"
+            r["bwd_ms_" + dn] = time_ms(bwd_fn)
+            line += f"  bwd {r['bwd_ms_' + dn]:.3f} ms"
+            b_ms, b_by = bound(*work)
+            r["bwd_bound_ms_" + dn], r["bwd_bound_by_" + dn] = b_ms, b_by
+            line += f"  bound {b_ms:.3f} ({b_by})"
+            r["bwd_library_ms_" + dn] = None if library is None else time_ms(library)
+            if library is not None:
+                line += f"  SDPA bwd {r['bwd_library_ms_' + dn]:.3f}"
+        log(line)
+        if fault is not None:
+            fok, fm_, fq = _bwd_judge(dn, fault(), ref)
+            log(f"  {name:24s} {dn:4s} planted fault: max rel {fm_:.3e} rel rms "
+                f"{fq:.3e} {'CAUGHT' if not fok else 'LOOSE'}")
+            if fok:
+                loose.append(f"{name} backward {dn}")
+        del got, ref
+        torch.cuda.empty_cache()
+
+    def sdpa_bwd(q4, k4, v4, g4):
+        leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+        out = F.scaled_dot_product_attention(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True)
+
+    for dn, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for i, (B, L, H, D) in enumerate(BWD_FLASH):
+            q, k, v, cot = (randn(B, L, H, D, dt=dt) for _ in range(4))
+            with torch.no_grad():
+                out = fm.flash_attention(q, k, v)
+
+            def dropped_chunk():
+                dq, dk, dv = fm.flash_backward(q, k[:, :-128], v[:, :-128], out, cot)
+                pad = torch.zeros_like(k[:, -128:])
+                return dq, torch.cat([dk, pad], 1), torch.cat([dv, pad], 1)
+
+            t4 = lambda x: x.transpose(1, 2).contiguous()
+            check("flash_attention", dn, f"B={B} L={L} H={H} D={D}",
+                  fm.flash_attention, (q, k, v), cot, i == 0,
+                  bwd_fn=lambda: fm.flash_backward(q, k, v, out, cot),
+                  work=(10 * B * H * L * L * D, 8 * nbytes(q), dn),
+                  library=sdpa_bwd(t4(q), t4(k), t4(v), t4(cot)) if i == 0 else None,
+                  fault=dropped_chunk if i == 0 else None)
+            del q, k, v, cot, out
+        for i, (S, HD, H) in enumerate(BWD_TMAJOR):
+            q, k, v, cot = (randn(25, S, HD, dt=dt) for _ in range(4))
+
+            def last_frame_unread():
+                k_, v_ = k.clone(), v.clone()
+                k_[-1], v_[-1] = 0, 0
+                return sm.tmajor_backward(q, k_, v_, cot, 25, H)
+
+            to4 = lambda x: x.reshape(25, S, H, HD // H).permute(1, 2, 0, 3).contiguous()
+            check("short_attention_tmajor", dn, f"BT=25 S={S} HD={HD} H={H}",
+                  lambda a, b_, c: sm.short_attention_tmajor(a, b_, c, 25, H),
+                  (q, k, v), cot, i == 0,
+                  bwd_fn=lambda: sm.tmajor_backward(q, k, v, cot, 25, H),
+                  work=(10 * S * H * 25 * 25 * (HD // H), 7 * nbytes(q), dn),
+                  library=sdpa_bwd(to4(q), to4(k), to4(v), to4(cot)) if i == 0 else None,
+                  fault=last_frame_unread if i == 0 else None)
+            del q, k, v, cot
+        for i, (C, R) in enumerate(BWD_FFN):
+            args = ffn_operands(g, C, R, dt)
+            cot = randn(R, C, dt=dt)
+
+            def no_dgamma():
+                grads = list(gm.ln_ffn_backward(*args, cot))
+                grads[1] = torch.zeros_like(grads[1])
+                return grads
+
+            check("ln_geglu_ffn", dn, f"rows={R} C={C}", gm.ln_geglu_ffn, args, cot,
+                  i == 0, bwd_fn=lambda: gm.ln_ffn_backward(*args, cot),
+                  work=(48 * R * C * C, 4 * nbytes(args[0]) + 2 * nbytes(*args[3:]), dn),
+                  fault=no_dgamma if i == 0 else None)
+            del args, cot
+        for i, (h, w, c) in enumerate(BWD_SPLAT):
+            src, flow, _ = splat_inputs(g, h, w, c, dt, sources=1)
+            flow[~torch.isfinite(flow)] = 40.0     # out of bounds: training flows are finite
+            cot = randn(SPLAT_FRAMES, h, w, c, dt=dt)
+            fr = SPLAT_FRAMES
+
+            def bwd():
+                acc, norm = spm.splat_raw(src, flow, None, fr, with_norm=True)
+                d_acc, d_norm = spm.normalize_backward(acc, norm, "addeps", cot)
+                return spm.splat_backward(src, flow, None, fr, d_acc, d_norm)[:2]
+
+            def flow_sign_flipped():
+                d_in, d_flow = bwd()
+                return d_in, -d_flow
+
+            check("softsplat", dn, f"N={fr} h={h} w={w} C={c} 'avg'",
+                  lambda s_, f_: spm.softsplat(s_, f_, None, "avg", fr), (src, flow),
+                  cot, i == 0, bwd_fn=bwd,
+                  work=(16 * fr * h * w * c, nbytes(src, flow, cot) + nbytes(src, flow)
+                        + 4 * fr * h * w, "fp32"),
+                  fault=flow_sign_flipped if i == 0 else None)
+            del src, flow, cot
+    return loose
+
+
 # ------------------------------------------------ phase 4: composition
 
 # PSNR bars of the composition check: fp32 kernels vs fp32 plain (the bar
@@ -1754,8 +1959,10 @@ def run_hybrid_video(dev, card: str) -> dict:
 # ------------------------------------------ phase 5e: the keypoint path
 
 # the keypoint CLI's defaults: 125 frames in windows of 25 at stride 12
-# (10 views), 25 steps, 512^2
-KEYPOINT = dict(h=512, w=512, t=125, window=25, stride=12, steps=25,
+# (10 views), 512^2, but 10 steps of the CLI's 25: the training phase (5g)
+# takes some 400 s, and the script aims to end within 600 (a step is the
+# same work at any depth: PERF.md §5 has the 25-step readings)
+KEYPOINT = dict(h=512, w=512, t=125, window=25, stride=12, steps=10,
                 decode_chunk_size=8)
 # window_batch 2 against 1 at 2 steps, bf16, from one set of latents: the
 # relative RMS of the latents' difference. Each window's rows compute the
@@ -1992,6 +2199,287 @@ def run_audio_front(dev) -> dict:
     return dict(seconds=times)
 
 
+# ------------------------------------------------ phase 5g: training
+
+# Stage-1 training through train_app at SVD-XT widths: the train_stage1.sh
+# operating point (384x384, 25 frames, batch 1, fp32, block remat, EMA)
+# on seeded 40-frame clips (stride 1: 25 of them fit), 4 steps, a
+# checkpoint at step 2, a validation render at step 4.
+TRAIN = dict(size=384, frames=25, steps=4, videos=3, video_frames=40)
+# |loss difference| / loss of a run resumed from step 2 against the
+# uninterrupted run, steps 3 and 4: both fp32 on the same draws; the
+# splat's atomics sum in another order each run (first readings 9.1e-7
+# and 1.4e-6; PERF.md).
+RESUME_REL = 2e-5
+# the step through the kernels against the step inside plain_reference():
+# |loss diff| / loss and the adapter gradient's relative RMS (fp32 both;
+# cuDNN's TF32 convolutions on both sides; first readings 6.9e-7 and
+# 3.7e-5)
+TRAIN_PLAIN_REL = (1e-5, 5e-4)
+
+
+def expected_train_launches(steps: int, remat: bool, size: tuple = (384, 384)) -> dict:
+    """Launches of `steps` stage-1 training steps at SVD-XT widths (B=1,
+    T=25, one adapter): the forward sites of `expected_launches` for one
+    denoiser call without CFG (flash 7 at each level the gate admits,
+    tmajor 23, the FFN 42, softsplat 4) plus, with block remat, the
+    recompute of the blocks whose outputs need a gradient: all of the
+    trunk's (flash 2 a level, tmajor 7, FFN 12) and the UNet's up blocks
+    (flash 3 a level, tmajor 9, FFN 18: the C=320 and 640 up levels, 3
+    transformers each). The UNet's down and mid blocks read nothing that
+    needs a gradient and are not recomputed; the backward functions launch
+    nothing."""
+    want = expected_launches("tmajor", steps, size=size, warps=steps)
+    if remat:
+        levels = flash_levels(*size)
+        want["flash_attention"] += (2 + 3) * levels * steps
+        want["short_attention_tmajor"] += (7 + 9) * steps
+        want["ln_geglu_ffn"] += (12 + 18) * steps
+    return want
+
+
+def write_clips(root: str, seed: int) -> tuple:
+    """TRAIN['videos'] seeded mp4s (cv2.VideoWriter) of TRAIN['video_frames']
+    frames at TRAIN['size']^2: smooth random blobs drifting, so the teacher
+    sees motion; and their WebVid-style CSV. Returns (csv, folder)."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = TRAIN["size"]
+    folder = os.path.join(root, "videos")
+    os.makedirs(folder, exist_ok=True)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32)
+    with open(os.path.join(root, "clips.csv"), "w") as f:
+        f.write("videoid,page_dir,name\n")
+        for i in range(TRAIN["videos"]):
+            centres = rng.rand(6, 2) * n
+            vel = rng.randn(6, 2) * 2.0
+            colours = rng.rand(6, 3) * 255
+            vw = cv2.VideoWriter(os.path.join(folder, f"clip{i}.mp4"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), 8, (n, n))
+            for t in range(TRAIN["video_frames"]):
+                img = np.zeros((n, n, 3), np.float32) + 40
+                for (cy, cx), (vy, vx), col in zip(centres, vel, colours):
+                    d2 = (yy - cy - vy * t) ** 2 + (xx - cx - vx * t) ** 2
+                    img += np.exp(-d2 / (2 * 40.0 ** 2))[..., None] * col
+                vw.write(np.clip(img, 0, 255).astype(np.uint8))
+            vw.release()
+            f.write(f"clip{i},,seeded clip {i}\n")
+    return os.path.join(root, "clips.csv"), folder
+
+
+def train_args(csv_path, folder, out, steps, *extra):
+    from mofa_tpu_torch.apps import train_app
+    return train_app.build_parser().parse_args(
+        ["--csv_path", csv_path, "--video_folder", folder, "--output_dir", out,
+         "--sample_size", str(TRAIN["size"]), "--sample_n_frames", str(TRAIN["frames"]),
+         "--sample_stride", "1", "--num_train_steps", str(steps),
+         "--checkpointing_steps", "2", "--validation_steps", "1000", "--use_ema",
+         "--seed", "7", *extra])
+
+
+def train_without_export(args):
+    """`train_app.run(args)` without its final export: the Trainer after
+    its steps (the export, 2.8 GB of adapter, is checked on the first run
+    only; the machine's disk counts every byte written)."""
+    from mofa_tpu_torch.apps import train_app
+    trainer = train_app.Trainer(args)
+    trainer.train()
+    return trainer
+
+
+def check_train_steps(label: str, records: list, remat: bool) -> None:
+    import math
+    want = expected_train_launches(1, remat)
+    want = {k: v for k, v in want.items() if v}
+    for r in records:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["grad_norm"] > 0):
+            fail(f"{label}: step {r['step']} loss {r['loss']} grad norm {r['grad_norm']}")
+        if r["launches"] != want:
+            fail(f"{label}: step {r['step']} launched {r['launches']}, expected {want}")
+
+
+def phase_train(dev) -> dict:
+    """5g: stage-1 training through `train_app.run` (module note above).
+    Returns the kernels' launches over the whole first run."""
+    import shutil
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.apps import train_app
+    from mofa_tpu_torch.apps.loaders import load_bundle
+    from mofa_tpu_torch.models.mofa_adapter import FlowControlNet
+    from mofa_tpu_torch.train import checkpoint as ckpt_mod
+    from mofa_tpu_torch.train.data import ResumableBatches, WebVidDataset
+    from mofa_tpu_torch.train.stage import draw, edm_loss
+    from mofa_tpu_torch.train.state import TrainState
+
+    root = os.path.join(REPO, "build", "train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    csv_path, folder = write_clips(root, seed=11)
+    log(f"[train] {TRAIN['videos']} seeded {TRAIN['video_frames']}-frame clips at "
+        f"{TRAIN['size']}^2; TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cuDNN {torch.backends.cudnn.allow_tf32}")
+
+    # the uninterrupted run: 4 steps, a checkpoint at 2 and 4, a render at 4
+    out_a = os.path.join(root, "a")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train_app.run(train_args(csv_path, folder, out_a, TRAIN["steps"],
+                                       "--gradient_checkpointing",
+                                       "--validation_steps", str(TRAIN["steps"])))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    total = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.state.params)
+    log(f"[train] 4 steps, checkpoint, render and export in {total:.1f} s; adapter "
+        f"{n_params} trainable parameters; launches {launches}")
+    check_train_steps("train", trainer.records, remat=True)
+    want = expected_train_launches(TRAIN["steps"], remat=True)
+    for k, v in expected_launches("tmajor", 4, size=(TRAIN["size"],) * 2).items():
+        want[k] += v                     # the validation render: 4 CFG steps
+    if launches != want:
+        fail(f"train: launches {launches}, expected {want} (steps and the render)")
+    after = trainer.digests()
+    for name, d in trainer.digests_at_setup.items():
+        moved = after[name] != d
+        if moved != (name == "controlnet"):
+            fail(f"train: the {name} {'changed' if moved else 'did not change'}")
+    log("[train] UNet, VAE and CLIP bit-unchanged; the adapter moved")
+    if not os.path.exists(os.path.join(out_a, f"val_{TRAIN['steps']}.mp4")):
+        fail("train: no validation render")
+
+    # the exported adapter (EMA) through load_bundle, bit-equal
+    export = os.path.join(out_a, "adapter_final")
+    parts = trainer.bundle
+    loaded = load_bundle(None, export, device=dev, dtype=torch.float32, seed=1,
+                         unet_cfg=parts.unet.cfg, vae_cfg=parts.vae.cfg,
+                         clip_cfg=parts.clip.cfg)
+    del parts
+    want_sd = trainer.state.export_state_dict()
+    got_sd = loaded.controlnet.state_dict()
+    if got_sd.keys() != want_sd.keys() or any(
+            not torch.equal(got_sd[k], want_sd[k].to(dev)) for k in want_sd):
+        fail("train: the exported adapter does not load bit-equal")
+    log(f"[train] exported adapter ({len(want_sd)} tensors) loads strictly and "
+        "bit-equal through load_bundle")
+    del loaded, got_sd, want_sd
+
+    # a restore of step 2 into a fresh state: the saved state bit for bit
+    mgr = ckpt_mod.CheckpointManager(os.path.join(out_a, "checkpoints"))
+    saved = torch.load(mgr.path(2), map_location="cpu", weights_only=True)
+    with torch.device(dev):
+        fresh = TrainState(FlowControlNet(trainer.state.model.cfg), ema=True)
+    extra = mgr.restore(fresh, 2)
+    again = fresh.state_dict()
+    same = (again["step"] == saved["state"]["step"] == 2
+            and all(torch.equal(again["params"][k].cpu(), v)
+                    for k, v in saved["state"]["params"].items())
+            and all(torch.equal(a.cpu(), b) for a, b in zip(again["ema"],
+                                                             saved["state"]["ema"]))
+            and torch.equal(extra["generator"], saved["extra"]["generator"]))
+    opt_a, opt_b = again["optimizer"]["state"], saved["state"]["optimizer"]["state"]
+    same = same and all(torch.equal(opt_a[i][k].cpu(), opt_b[i][k])
+                        for i in opt_b for k in opt_b[i])
+    if not same:
+        fail("train: restoring step 2 does not give the saved state bit-equal")
+    del fresh, again, saved
+    log("[train] restore of step 2: parameters, AdamW moments and steps, EMA, "
+        "step and generator state bit-equal")
+
+    # the step through the kernels against the plain route, same draws
+    b = next(iter(ResumableBatches(
+        WebVidDataset(csv_path, folder, sample_size=TRAIN["size"], sample_stride=1,
+                      sample_n_frames=TRAIN["frames"], seed=7), 1, 1, 7)))
+    px = torch.from_numpy(b["pixel_values01"]).to(dev)
+    batch = {"pixel_values01": px, "flows": trainer.teacher(px)}
+    draws = draw(torch.Generator(device=dev).manual_seed(3), trainer.bundle,
+                 *px.shape[:4])
+    cn = trainer.state.model
+
+    def loss_and_grads():
+        cn.zero_grad(set_to_none=True)
+        loss, _ = edm_loss(cn, trainer.bundle, batch, draws, 0.1)
+        loss.backward()
+        return float(loss.detach()), torch.cat([p.grad.reshape(-1) for p in trainer.state.params
+                                       if p.grad is not None])
+
+    kernels.reset_launch_counts()
+    l_k, g_k = loss_and_grads()
+    step_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    with kernels.plain_reference():
+        l_p, g_p = loss_and_grads()
+    cn.zero_grad(set_to_none=True)
+    rel_l = abs(l_k - l_p) / abs(l_p)
+    rel_g = ((g_k - g_p).norm() / g_p.norm()).item()
+    log(f"[train] one step through the kernels vs plain_reference(): loss "
+        f"{l_k:.6f} vs {l_p:.6f} (rel {rel_l:.3e}), adapter gradient rel rms "
+        f"{rel_g:.3e} (bounds {TRAIN_PLAIN_REL}); launches {step_launches}")
+    if rel_l > TRAIN_PLAIN_REL[0] or rel_g > TRAIN_PLAIN_REL[1]:
+        fail("train: the kernel step departs from the plain step")
+    first_losses = {r["step"]: r["loss"] for r in trainer.records}
+    del trainer, cn, g_k, g_p, batch, draws
+    torch.cuda.empty_cache()
+
+    # resumed from step 2: steps 3 and 4 as the uninterrupted run's
+    def resumed(tag: str, steps: int):
+        out = os.path.join(root, tag)
+        os.makedirs(os.path.join(out, "checkpoints"))
+        # a hard link: the machine's disk counts every byte written, and a
+        # checkpoint of the adapter with its AdamW moments and EMA is 11 GB
+        os.link(mgr.path(2), os.path.join(out, "checkpoints", "checkpoint-2.pt"))
+        return train_without_export(train_args(
+            csv_path, folder, out, steps, "--gradient_checkpointing",
+            "--checkpointing_steps", "1000", "--resume_from_checkpoint", "2"))
+
+    run_b = resumed("b", TRAIN["steps"])
+    check_train_steps("resumed", run_b.records, remat=True)
+    diffs = {r["step"]: abs(r["loss"] - first_losses[r["step"]]) / abs(first_losses[r["step"]])
+             for r in run_b.records}
+    log(f"[train] resumed from step 2: losses "
+        f"{[round(r['loss'], 6) for r in run_b.records]} vs "
+        f"{[round(first_losses[s], 6) for s in (3, 4)]}, rel diff {diffs} "
+        f"(bound {RESUME_REL})")
+    if sorted(diffs) != [3, 4] or max(diffs.values()) > RESUME_REL:
+        fail("train: the resumed run departs from the uninterrupted one")
+    del run_b
+    torch.cuda.empty_cache()
+
+    # planted fault: the generator state not restored (a fresh one instead)
+    restore = ckpt_mod.CheckpointManager.restore
+
+    def restore_without_generator(self, state, step=None):
+        extra = restore(self, state, step)
+        extra["generator"] = torch.Generator(device=dev).manual_seed(999).get_state()
+        return extra
+
+    ckpt_mod.CheckpointManager.restore = restore_without_generator
+    try:
+        run_c = resumed("c", 3)
+    finally:
+        ckpt_mod.CheckpointManager.restore = restore
+    fault = abs(run_c.records[0]["loss"] - first_losses[3]) / abs(first_losses[3])
+    log(f"[train] planted fault, generator not restored: step-3 loss rel diff "
+        f"{fault:.3e} {'CAUGHT' if fault > RESUME_REL else 'LOOSE'}")
+    if fault <= RESUME_REL:
+        fail("train: the resume bound lets an unrestored generator pass")
+    del run_c
+    torch.cuda.empty_cache()
+
+    # one step without block remat: its peak
+    out_d = os.path.join(root, "d")
+    run_d = train_without_export(train_args(csv_path, folder, out_d, 1,
+                                            "--checkpointing_steps", "1000"))
+    check_train_steps("no remat", run_d.records, remat=False)
+    r = run_d.records[0]
+    log(f"[train] one step without remat: loss {r['loss']:.6f}, fwd+bwd "
+        f"{r['fwd_bwd_s']:.3f} s, peak {r['peak_gib']:.2f} GiB")
+    del run_d
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 # --------------------------------- phase 6: the GroupNorm / conv entries
 
 FUSED_SLACK = 1.5
@@ -2119,8 +2607,8 @@ def phase_profile(dev, steps: int = 2) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "profile", "keypoint"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "profile", "keypoint",
+                                        "train"), default="all")
     args = ap.parse_args()
 
     try:
@@ -2156,6 +2644,19 @@ def main() -> None:
     log(f"[build] {os.path.relpath(path, REPO)} in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    if args.phase == "train":
+        # the training slice alone: its kernels' backward, the training run
+        dev = torch.device("cuda")
+        kres = {n: {} for n in TRAIN_KERNELS}
+        log("[backward] the training path's kernels under autograd, fp32 and bf16")
+        loose = phase_backward(kres, torch.Generator(device=dev).manual_seed(13))
+        bad = [n for n in TRAIN_KERNELS if not kres[n]["bwd_ok"]]
+        if bad or loose:
+            fail(f"backward: outside the bounds {bad}; planted faults passing {loose}")
+        log("[train] stage-1 training through train_app, SVD-XT widths, fp32")
+        phase_train(dev)
+        return
+
     if args.phase == "keypoint":
         # the keypoint slice alone: its kernels at its shapes, its video, the
         # audio front
@@ -2190,6 +2691,14 @@ def main() -> None:
     log("[ffn_variants] ln_geglu_ffn variants, geglu_ffn and the stock chain,"
         " bf16, ms")
     ffn_launches = phase_ffn_variants(torch.device("cuda"))
+
+    # 3c. the training path's kernels under autograd
+    log("[backward] the training path's kernels under autograd at the stage-1 "
+        "shapes, fp32 and bf16: gradients vs plain autograd, planted faults")
+    loose = phase_backward(kres, torch.Generator(device="cuda").manual_seed(13))
+    bad = [n for n in TRAIN_KERNELS if not kres[n]["bwd_ok"]]
+    if bad or loose:
+        fail(f"backward: outside the bounds {bad}; planted faults passing {loose}")
 
     launches = dict.fromkeys(KERNEL_META)
     for name in FFN_VARIANT_KERNELS:
@@ -2247,6 +2756,10 @@ def main() -> None:
         # 5f. the audio front: wav -> landmark track
         log("[audio] the AniPortrait engine (audio2ldmk_app) at full widths, fp32")
         run_audio_front(dev)
+        # 5g. stage-1 training through train_app
+        log("[train] stage-1 training through train_app: 384x384, 25 frames, "
+            "batch 1, fp32, block remat, EMA, SVD-XT widths")
+        train_launches = phase_train(dev)
         # 6. the GroupNorm / fused-conv entry points
         log("[gn_conv] resnet blocks through gn_affine + gn_silu_conv3x3 / "
             "gn_silu_tconv3, bf16")
@@ -2259,6 +2772,8 @@ def main() -> None:
             launches[name] = source["launches"][name]
         for name in ("channel_sums", "gn_silu_conv3x3", "gn_silu_tconv3"):
             launches[name] = gn_launches[name]
+        for name in TRAIN_KERNELS:
+            kres[name]["train_launches"] = train_launches[name]
         for name in KERNEL_META:        # the 25-step spatial-major video's own
             kres[name]["main_path_launches"] = main_run["launches"][name]
             kres[name]["hybrid_launches"] = hybrid_run["launches"][name]
@@ -2279,7 +2794,12 @@ def main() -> None:
              "avg_call_ms", "stage_ms",
              "main_path_launches", "hybrid_launches", "keypoint_launches",
              "ms_keypoint", "plain_ms_keypoint", "library_ms_keypoint",
-             "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint")
+             "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint",
+             "ms_keypoint16", "plain_ms_keypoint16", "library_ms_keypoint16",
+             "bound_ms_keypoint16", "bound_by_keypoint16", "train_launches") + tuple(
+                 f"{k}_{d}" for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by",
+                                      "bwd_library_ms", "bwd_max_rel_err",
+                                      "train_fwd_ms") for d in ("fp32", "bf16"))
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],
              **{k: kres[n][k] for k in keys},

@@ -7,10 +7,15 @@ version on a card is the explicit `plain_reference()` context, which the
 composition check of `chip_smoke.py` and the tests enter; the main path
 never does.
 
-The kernels are forward only: their outputs are written through ctypes
-and carry no `grad_fn`. So before a launch every wrapper calls
-`check_no_grad`, which raises where autograd would need a backward; the
-plain versions on the CPU keep autograd.
+A kernel's output is written through ctypes and carries no `grad_fn`.
+The four kernels of the training path (`flash_attention`,
+`short_attention_tmajor`, `ln_geglu_ffn` with variant "plain", the
+softsplat splat and its normalising pass) run inside a
+`torch.autograd.Function` when grad is enabled on a CUDA tensor: the
+kernel forward, and a backward in stock PyTorch on the JAX package's
+math. The others have no backward yet (ROADMAP Queue 2): before a launch
+their wrappers call `check_no_grad`, which raises where autograd would
+need one. The plain versions on the CPU keep autograd.
 """
 
 from __future__ import annotations
@@ -57,6 +62,13 @@ def use_kernel(*tensors) -> bool:
     return _plain_depth == 0
 
 
+def math_dtype(dtype) -> torch.dtype:
+    """The dtype of a plain version's fp32 math (logits, statistics,
+    sums): fp32, or float64 for float64 inputs, which a plain version
+    never rounds down."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def check_no_grad(name: str, *tensors) -> None:
     """Raise RuntimeError if kernel `name` is about to run with grad enabled
     on an input that requires grad: its output would silently have no
@@ -64,10 +76,9 @@ def check_no_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel is forward only (its backward comes "
-            "with slice 3, training) and an input requires grad; run it "
-            "under torch.no_grad(), or on CPU tensors, whose plain version "
-            "keeps autograd")
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 2) "
+            "and an input requires grad; run it under torch.no_grad(), or "
+            "on CPU tensors, whose plain version keeps autograd")
 
 
 def count_launch(name: str, shape: tuple | None = None) -> None:

@@ -30,7 +30,14 @@ stage each and count nothing (`chip_smoke.py` uses them to place a fault
 in its stage and to time each gate schedule). Weights use torch Linear
 layouts: w0 [8C, C], w2 [C, 4C]. The "plain" variant also has an fp32
 path (plain FMA); the others take bf16 only and raise on fp32 tensors on
-a card. Forward only.
+a card.
+
+Only the models' kernel, `ln_geglu_ffn` with variant "plain", has a
+gradient: with grad enabled on a CUDA tensor it runs inside
+`_LnFfnFunction`, whose backward, `ln_ffn_backward`, is the JAX package's
+`_ln_bwd_rule` (geglu_ffn.py:427): the VJP of the plain version,
+recomputed. The other variants, `geglu_ffn` and the stages raise under
+grad on their kernel routes (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
+from mofa_tpu_torch.kernels import (check_no_grad, count_launch, math_dtype,
+                                    use_kernel)
 
 LN_EPS = 1e-5
 MIN_FUSED_ROWS = 4096
@@ -62,11 +70,12 @@ def fused_ffn_applicable(rows: int, dim: int, dim_out: int) -> bool:
 def ffn_ln_rows_plain(x, ln_weight, ln_bias) -> torch.Tensor:
     """LayerNorm with fp32 statistics (E[x^2] - mean^2), scale and shift in
     fp32, cast to x's dtype (mofa_tpu `_ln_ffn_ref`'s first line)."""
-    xf = x.float()
+    acc = math_dtype(x.dtype)
+    xf = x.to(acc)
     mean = xf.mean(-1, keepdim=True)
     var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
-    return ((xf - mean) * torch.rsqrt(var + LN_EPS) * ln_weight.float()
-            + ln_bias.float()).to(x.dtype)
+    return ((xf - mean) * torch.rsqrt(var + LN_EPS) * ln_weight.to(acc)
+            + ln_bias.to(acc)).to(x.dtype)
 
 
 def ffn_gemm_gate_plain(xn, w0, b0, approximate: str = "none") -> torch.Tensor:
@@ -143,6 +152,31 @@ def _launch_ffn(name, x, ln, weights, approximate="none", schedule="plain"):
     return out.reshape(x.shape)
 
 
+def ln_ffn_backward(x, ln_weight, ln_bias, w0, b0, w2, b2, g):
+    """(dx, d ln_weight, d ln_bias, dw0, db0, dw2, db2) at `g` = d out:
+    the VJP of `ln_ffn_plain`, recomputed (the JAX package's
+    `_ln_bwd_rule`); each gradient in its input's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in
+                  (x, ln_weight, ln_bias, w0, b0, w2, b2)]
+        out = ln_ffn_plain(*leaves)
+        return torch.autograd.grad(out, leaves, g)
+
+
+class _LnFfnFunction(torch.autograd.Function):
+    """The "plain" kernel forward; `ln_ffn_backward` for the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ln_weight, ln_bias, w0, b0, w2, b2):
+        ctx.save_for_backward(x, ln_weight, ln_bias, w0, b0, w2, b2)
+        return _launch_ffn("ln_geglu_ffn", x, (ln_weight, ln_bias),
+                           (w0, b0, w2, b2))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ln_ffn_backward(*ctx.saved_tensors, g)
+
+
 def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2,
                  variant: str = "plain") -> torch.Tensor:
     """x [..., C] -> x + FF(LN(x)); LN params [C]; w0 [8C, C], b0 [8C],
@@ -154,10 +188,16 @@ def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2,
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     _check_weights(x.shape[-1], w0, w2)
     approximate = "tanh" if variant == "tanh" else "none"
-    if not use_kernel(x, ln_weight, ln_bias, w0, b0, w2, b2):
-        return ln_ffn_plain(x, ln_weight, ln_bias, w0, b0, w2, b2, approximate)
-    name = "ln_geglu_ffn" if variant == "plain" else f"ln_geglu_ffn_{variant}"
-    check_no_grad(name, x, ln_weight, ln_bias, w0, b0, w2, b2)
+    operands = (x, ln_weight, ln_bias, w0, b0, w2, b2)
+    if not use_kernel(*operands):
+        return ln_ffn_plain(*operands, approximate)
+    if variant == "plain":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+            return _LnFfnFunction.apply(*operands)
+        return _launch_ffn("ln_geglu_ffn", x, (ln_weight, ln_bias),
+                           (w0, b0, w2, b2))
+    name = f"ln_geglu_ffn_{variant}"
+    check_no_grad(name, *operands)
     schedule = variant if variant in SCHEDULES else "plain"
     return _launch_ffn(name, x, (ln_weight, ln_bias), (w0, b0, w2, b2),
                        approximate, schedule)

@@ -7,7 +7,7 @@ problem on tensor cores (`mma.sync`, `ldmatrix` fragments) with an exact
 max-subtracted softmax in fp32 (the TPU default is a clamped fixed-max
 softmax), and writes 16-byte rows. fp32 inputs run the same body on three
 bf16 terms of each operand. Both are bound by device memory (one read of
-q/k/v, one write); see the source note. Forward only.
+q/k/v, one write); see the source note.
 
 - `short_attention_tmajor`, counterpart of
   mofa_tpu/kernels/short_attention.py::short_attention_tmajor: q/k/v
@@ -19,12 +19,20 @@ q/k/v, one write); see the source note. Forward only.
   head). It is the tmajor layout with S = 1, so the same body serves it.
   Replaces the TPU's `_short_attn_fwd`, which packs 224 rows under a
   block-diagonal mask only to fill the MXU.
+
+`short_attention_tmajor` has a gradient: on a CUDA tensor with grad
+enabled it runs the kernel forward inside `_TmajorFunction`, whose
+backward, `tmajor_backward`, is the JAX package's `_tmajor_bwd_rule`
+(short_attention.py:306): the VJP of the plain version, recomputed.
+`short_attention` has none yet (ROADMAP Queue 2): its kernel route raises
+under grad.
 """
 from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
+from mofa_tpu_torch.kernels import (check_no_grad, count_launch, math_dtype,
+                                    use_kernel)
 from mofa_tpu_torch.kernels.flash_attention import attention_plain
 
 MAX_FRAMES = 32                  # one 32-row tensor-core tile
@@ -67,7 +75,8 @@ def tmajor_plain(q2, k2, v2, num_frames: int, heads: int) -> torch.Tensor:
         return x.reshape(b, num_frames, s, heads, d).permute(0, 2, 3, 1, 4)
 
     q, k, v = to_bshd(q2), to_bshd(k2), to_bshd(v2)
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
+    acc = math_dtype(q.dtype)
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * d ** -0.5
     probs = torch.softmax(logits, dim=-1).to(q2.dtype)
     out = torch.matmul(probs, v)                             # [B, S, H, T, D]
     return out.permute(0, 3, 1, 2, 4).reshape(bt, s, hd)
@@ -97,15 +106,17 @@ def _launch(entry: str, q, k, v, *dims: int) -> torch.Tensor:
     return out
 
 
-def short_attention_tmajor(q2, k2, v2, num_frames: int,
-                           heads: int) -> torch.Tensor:
-    """[B*T, S, H*D] q/k/v -> [B*T, S, H*D]; attention over frames."""
+def tmajor_backward(q2, k2, v2, g, num_frames: int, heads: int):
+    """(dq2, dk2, dv2) at `g` = d out: the VJP of `tmajor_plain`,
+    recomputed (the JAX package's `_tmajor_bwd_rule`)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q2, k2, v2)]
+        out = tmajor_plain(*leaves, num_frames, heads)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _launch_tmajor(q2, k2, v2, num_frames: int, heads: int) -> torch.Tensor:
     bt, s, hd = q2.shape
-    if k2.shape != q2.shape or v2.shape != q2.shape or bt % num_frames:
-        raise ValueError(f"bad tmajor shapes {tuple(q2.shape)}, T={num_frames}")
-    if not use_kernel(q2, k2, v2):
-        return tmajor_plain(q2, k2, v2, num_frames, heads)
-    check_no_grad("short_attention_tmajor", q2, k2, v2)
     if hd % heads:
         raise ValueError(f"tmajor kernel: H*D={hd} is not a multiple of H={heads}")
     d = hd // heads
@@ -114,6 +125,33 @@ def short_attention_tmajor(q2, k2, v2, num_frames: int,
                   num_frames, s, heads, d)
     count_launch("short_attention_tmajor")
     return out
+
+
+class _TmajorFunction(torch.autograd.Function):
+    """The kernel forward; `tmajor_backward` for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q2, k2, v2, num_frames, heads):
+        ctx.save_for_backward(q2, k2, v2)
+        ctx.dims = (num_frames, heads)
+        return _launch_tmajor(q2, k2, v2, num_frames, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*tmajor_backward(*ctx.saved_tensors, g, *ctx.dims), None, None)
+
+
+def short_attention_tmajor(q2, k2, v2, num_frames: int,
+                           heads: int) -> torch.Tensor:
+    """[B*T, S, H*D] q/k/v -> [B*T, S, H*D]; attention over frames."""
+    bt = q2.shape[0]
+    if k2.shape != q2.shape or v2.shape != q2.shape or bt % num_frames:
+        raise ValueError(f"bad tmajor shapes {tuple(q2.shape)}, T={num_frames}")
+    if not use_kernel(q2, k2, v2):
+        return tmajor_plain(q2, k2, v2, num_frames, heads)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q2, k2, v2)):
+        return _TmajorFunction.apply(q2, k2, v2, num_frames, heads)
+    return _launch_tmajor(q2, k2, v2, num_frames, heads)
 
 
 def short_attention(q, k, v) -> torch.Tensor:

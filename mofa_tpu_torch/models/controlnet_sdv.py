@@ -6,7 +6,9 @@ down blocks and mid block with the trunk's own head counts
 (`cfg.controlnet_num_attention_heads`, (5, 10, 10, 20) at SVD-XT width,
 which gives D = 128 at the /32 level), one 1x1 `controlnet_down_blocks`
 conv per skip and a `controlnet_mid_block`, plus the 4-layer conditioning
-embedding. Module names are the reference's, flat on the model.
+embedding. Module names are the reference's, flat on the model. With
+`remat_blocks = True` the down and mid blocks run under activation
+checkpointing while grad is on (models/svd_unet.py).
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import torch.nn.functional as F
 from mofa_tpu_torch.models.svd_unet import (SVDUNetConfig, build_down_blocks,
                                             build_embeddings, build_mid_block,
                                             embed_timestep_and_ids,
-                                            frames_to_nchw, nchw_to_nhwc,
-                                            run_down_block)
+                                            frames_to_nchw, maybe_remat,
+                                            nchw_to_nhwc, run_down_block)
 
 
 class ControlNetConditioningEmbeddingSVD(nn.Module):
@@ -55,6 +57,7 @@ class ControlNetSDVModel(nn.Module):
                  conditioning_embedding_out_channels=(16, 32, 96, 256)):
         super().__init__()
         self.cfg = cfg
+        self.remat_blocks = False
         heads = cfg.controlnet_num_attention_heads
         build_embeddings(self, cfg)
         self.down_blocks = build_down_blocks(cfg, heads)
@@ -94,13 +97,15 @@ class ControlNetSDVModel(nn.Module):
             x = x + feats[0]
         samples = (x,)
         for i, block in enumerate(self.down_blocks):
-            x, res = run_down_block(block, x, emb, ehs, indicator)
+            x, res = maybe_remat(self.remat_blocks, run_down_block, block, x,
+                                 emb, ehs, indicator)
             if feats is not None:
                 x = x + feats[min(i + 1, len(feats) - 1)]
             samples += res
         if feats is not None:
             x = x + feats[-1]
-        x = self.mid_block(x, emb, ehs, indicator)
+        x = maybe_remat(self.remat_blocks, self.mid_block, x, emb, ehs,
+                        indicator)
 
         down = tuple(nchw_to_nhwc(zc(s) * conditioning_scale)
                      for s, zc in zip(samples, self.controlnet_down_blocks))

@@ -27,12 +27,14 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
                            flip_sin_to_cos: bool = True,
                            downscale_freq_shift: float = 0.0,
                            max_period: float = 10000.0) -> torch.Tensor:
-    """diffusers get_timestep_embedding; timesteps [N] -> [N, dim], fp32."""
+    """diffusers get_timestep_embedding; timesteps [N] -> [N, dim], fp32
+    (float64 for float64 timesteps)."""
     half = embedding_dim // 2
+    acc = torch.promote_types(timesteps.dtype, torch.float32)
     exponent = -math.log(max_period) * torch.arange(
-        half, dtype=torch.float32, device=timesteps.device)
+        half, dtype=acc, device=timesteps.device)
     exponent = exponent / (half - downscale_freq_shift)
-    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    emb = torch.exp(exponent)[None, :] * timesteps.to(acc)[:, None]
     sin, cos = torch.sin(emb), torch.cos(emb)
     emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
     if embedding_dim % 2 == 1:
@@ -173,7 +175,8 @@ class AlphaBlender(nn.Module):
         self.mix_factor = nn.Parameter(torch.tensor([mix_init]))
 
     def forward(self, x_spatial, x_temporal, image_only_indicator=None):
-        mix = torch.sigmoid(self.mix_factor.float())[0]
+        mix = torch.sigmoid(self.mix_factor.to(
+            torch.promote_types(self.mix_factor.dtype, torch.float32)))[0]
         if self.merge_strategy == "learned":
             alpha = mix
         else:

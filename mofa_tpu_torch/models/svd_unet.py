@@ -12,6 +12,13 @@ Replicated quirk: the reference adds the ControlNet residuals inside the
 down-block loop by re-zipping the GROWING skip tuple against the residual
 list each iteration, so residual k is re-added once per later down block:
 multiplicities [4, 4, 4, 4, 3, 3, 3, 2, 2, 2, 1, 1] for the 4-block config.
+
+Block remat (`remat_blocks = True`, training's --gradient_checkpointing):
+each down, mid and up block runs under
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)` while grad is
+enabled, so its activations are recomputed in the backward; these are the
+JAX package's `maybe_remat` sites (mofa_tpu/models/svd_unet.py:172-223,
+controlnet_sdv.py:106-128).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mofa_tpu_torch.models.layers import (GroupNorm, TimestepEmbedding,
                                           get_timestep_embedding)
@@ -98,7 +106,8 @@ def embed_timestep_and_ids(m: nn.Module, cfg: SVDUNetConfig, timestep,
                            added_time_ids, batch_size: int, dtype):
     """Time + added-time embedding shared by the UNet and the trunk."""
     dev = added_time_ids.device
-    ts = torch.as_tensor(timestep, dtype=torch.float32, device=dev)
+    ts = torch.as_tensor(timestep, device=dev)
+    ts = ts.to(torch.promote_types(ts.dtype, torch.float32))
     ts = ts.reshape(-1).expand(batch_size)
     emb = m.time_embedding(
         get_timestep_embedding(ts, cfg.block_out_channels[0]).to(dtype))
@@ -140,10 +149,25 @@ def run_down_block(block, x, emb, context, indicator):
     return block(x, emb, indicator)
 
 
+def run_up_block(block, x, res, emb, context, indicator):
+    if block.has_cross_attention:
+        return block(x, res, emb, context, indicator)
+    return block(x, res, emb, indicator)
+
+
+def maybe_remat(enabled: bool, fn, *args):
+    """fn(*args); with `enabled` and grad on, under non-reentrant
+    activation checkpointing (recomputed in the backward)."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class UNetSpatioTemporalConditionModel(nn.Module):
     def __init__(self, cfg: SVDUNetConfig = SVDUNetConfig()):
         super().__init__()
         self.cfg = cfg
+        self.remat_blocks = False
         heads = cfg.num_attention_heads
         build_embeddings(self, cfg)
         self.down_blocks = build_down_blocks(cfg, heads)
@@ -193,23 +217,23 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
         x = self.conv_in(frames_to_nchw(sample))
         samples = (x,)
+        remat = self.remat_blocks
         for block in self.down_blocks:
-            x, res = run_down_block(block, x, emb, ehs, indicator)
+            x, res = maybe_remat(remat, run_down_block, block, x, emb, ehs,
+                                 indicator)
             samples += res
             if residuals is not None:       # the re-add quirk (module note)
                 samples = tuple(s + r for s, r in zip(samples, residuals))
 
-        x = self.mid_block(x, emb, ehs, indicator)
+        x = maybe_remat(remat, self.mid_block, x, emb, ehs, indicator)
         if mid_block_additional_residual is not None:
             x = x + mid_block_additional_residual.permute(0, 3, 1, 2)
 
         for block in self.up_blocks:
             n = len(block.resnets)
             res, samples = samples[-n:], samples[:-n]
-            if block.has_cross_attention:
-                x = block(x, res, emb, ehs, indicator)
-            else:
-                x = block(x, res, emb, indicator)
+            x = maybe_remat(remat, run_up_block, block, x, res, emb, ehs,
+                            indicator)
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return nchw_to_nhwc(x).reshape(sample.shape[:4] + (x.shape[1],))

@@ -4,7 +4,8 @@ Counterpart of mofa_tpu/models/vae.py with diffusers-0.24 names. Public
 layouts are channel-last: images [N, H, W, 3], latents [N, h, w, 4].
 
 - `encode_mode`: the SD VAE encoder (stride-2 downsamplers with the
-  asymmetric (0, 1) pad), quant_conv, mean of the moments.
+  asymmetric (0, 1) pad), quant_conv, mean of the moments;
+  `encode_moments`: the mean and the clamped log-variance (training).
 - `decode`: the temporal decoder. Its mid block holds `layers_per_block`
   resnets and ONE attention, and diffusers zips resnets[1:] against the
   attention list, so exactly resnets[0] [, attention, resnets[1]] run: at
@@ -60,7 +61,8 @@ class VAEAttention(nn.Module):
         n, c, h, w = x.shape
         y = self.group_norm(x).permute(0, 2, 3, 1).reshape(n, h * w, c)
         q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
-        logits = torch.matmul(q, k.transpose(1, 2)).float() * c ** -0.5
+        logits = torch.matmul(q, k.transpose(1, 2))
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32)) * c ** -0.5
         y = torch.matmul(torch.softmax(logits, dim=-1).to(y.dtype), v)
         y = self.to_out[0](y).reshape(n, h, w, c).permute(0, 3, 1, 2)
         return y + x
@@ -174,6 +176,15 @@ class AutoencoderKLTemporalDecoder(nn.Module):
         """x [N, H, W, 3] in [-1, 1] -> latent mean [N, H/8, W/8, 4]."""
         moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
         return moments[:, :self.cfg.latent_channels].permute(0, 2, 3, 1)
+
+    def encode_moments(self, x):
+        """x [N, H, W, 3] in [-1, 1] -> (mean, logvar), each [N, H/8, W/8,
+        4]; logvar clamped to [-30, 20] as diffusers'
+        DiagonalGaussianDistribution (the training encode samples it)."""
+        moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
+        moments = moments.permute(0, 2, 3, 1)
+        c = self.cfg.latent_channels
+        return moments[..., :c], moments[..., c:].clamp(-30.0, 20.0)
 
     def decode(self, z, num_frames: int):
         """z [B*T, h, w, 4] (already divided by the scaling factor) ->

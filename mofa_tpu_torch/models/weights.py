@@ -3,7 +3,10 @@
 `load_safetensors` reads the safetensors format by hand (an 8-byte
 little-endian header length, a JSON header of dtype / shape / data_offsets,
 then the raw bytes), memory-mapped, for F32, F16, BF16 and I64;
-`load_torch_checkpoint` reads a `torch.save` file with `weights_only=True`.
+`load_torch_checkpoint` reads a `torch.save` file with `weights_only=True`;
+`save_safetensors` writes the same format (what training exports).
+`init_adapter_from_unet` is the reference's `FlowControlNet.from_unet`
+weight copy.
 
 `state_dict_from_flax` is the exact inverse of mofa_tpu's torch -> Flax
 converters (`convert_torch_state_dict`, `convert_flow_controlnet_state_dict`,
@@ -29,6 +32,7 @@ this module lets the tests drive both packages with the same parameters.
 from __future__ import annotations
 
 import json
+import os
 import re
 
 import numpy as np
@@ -73,6 +77,47 @@ def load_safetensors(path: str) -> dict:
         out[name] = torch.frombuffer(data, dtype=dtype, count=count,
                                      offset=base + begin).reshape(shape)
     return out
+
+
+def save_safetensors(sd: dict, path: str) -> None:
+    """{name: tensor} -> a .safetensors file that `load_safetensors` (and
+    the `safetensors` package) reads back bit for bit: the 8-byte header
+    length, the JSON header padded to 8 bytes, the tensors' bytes in order.
+    Written to a temporary name and renamed, so a reader never sees half a
+    file."""
+    codes = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+    header, off, blobs = {}, 0, []
+    for name, t in sd.items():
+        if t.dtype not in codes:
+            raise ValueError(f"{name}: dtype {t.dtype} has no safetensors code here")
+        blob = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + blob.size]}
+        off += blob.size
+        blobs.append(blob)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(len(text).to_bytes(8, "little") + text)
+        for blob in blobs:
+            f.write(blob.tobytes())
+    os.replace(tmp, path)
+
+
+def init_adapter_from_unet(controlnet: torch.nn.Module,
+                           unet: torch.nn.Module) -> torch.nn.Module:
+    """FlowControlNet.from_unet (the reference's controlnet_sdv.py:617-627;
+    mofa_tpu/models/weights.py:519): conv_in, time_embedding, down_blocks
+    and mid_block copied by name from the frozen UNet into the adapter
+    trunk, strictly; add_embedding, the conditioning embedding, the flow
+    encoder and the zero convs keep their own init. In place; returns the
+    adapter."""
+    with torch.no_grad():
+        for name in ("conv_in", "time_embedding", "down_blocks", "mid_block"):
+            getattr(controlnet, name).load_state_dict(
+                getattr(unet, name).state_dict(), strict=True)
+    return controlnet
 
 
 def unwrap_state_dict(checkpoint: dict) -> dict:

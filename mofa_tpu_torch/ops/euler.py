@@ -139,3 +139,11 @@ def euler_step(model_output: torch.Tensor, sample: torch.Tensor, sigma, sigma_ne
     derivative = (sample - pred_x0) / sigma
     prev_sample = sample + derivative * (sigma_next - sigma)
     return prev_sample, pred_x0
+
+
+def add_noise(original: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:
+    """original + noise * sigma, sigma broadcast over the trailing axes
+    (mofa_tpu/ops/euler.py::add_noise)."""
+    sigma = torch.as_tensor(sigma, dtype=original.dtype, device=original.device)
+    sigma = sigma.reshape(sigma.shape + (1,) * (original.ndim - sigma.ndim))
+    return original + noise * sigma

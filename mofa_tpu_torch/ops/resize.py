@@ -63,9 +63,14 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum((np.arange(out_size) * scale).astype(np.int64), in_size - 1)
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """fp32 math, float64 for float64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _matrix(in_size, out_size, method, align_corners, like: torch.Tensor):
     m = interp_matrix(in_size, out_size, method, align_corners)
-    return torch.from_numpy(m).to(like.device)
+    return torch.from_numpy(m).to(like.device, _acc(like))
 
 
 def resize_hw(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
@@ -77,7 +82,7 @@ def resize_hw(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
         return x
     mh = _matrix(h, oh, method, align_corners, x)
     mw = _matrix(w, ow, method, align_corners, x)
-    y = torch.einsum("Hh,...hw,Ww->...HW", mh, x.float(), mw)
+    y = torch.einsum("Hh,...hw,Ww->...HW", mh, x.to(_acc(x)), mw)
     return y.to(x.dtype)
 
 
@@ -94,7 +99,7 @@ def resize_nhwc(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear"
         return x.index_select(-3, ih).index_select(-2, iw)
     mh = _matrix(h, oh, method, align_corners, x)
     mw = _matrix(w, ow, method, align_corners, x)
-    y = torch.einsum("Hh,...hwc,Ww->...HWc", mh, x.float(), mw)
+    y = torch.einsum("Hh,...hwc,Ww->...HWc", mh, x.to(_acc(x)), mw)
     return y.to(x.dtype)
 
 
@@ -125,9 +130,10 @@ def gaussian_blur_hw(x: torch.Tensor, ks: tuple[int, int],
                      sigma: tuple[float, float]) -> torch.Tensor:
     """Separable reflect-padded gaussian blur over the trailing (H, W)."""
     h, w = x.shape[-2], x.shape[-1]
-    mh = torch.from_numpy(_blur_matrix(h, int(ks[0]), float(sigma[0]))).to(x.device)
-    mw = torch.from_numpy(_blur_matrix(w, int(ks[1]), float(sigma[1]))).to(x.device)
-    y = torch.einsum("Hh,...hw,Ww->...HW", mh, x.float(), mw)
+    acc = _acc(x)
+    mh = torch.from_numpy(_blur_matrix(h, int(ks[0]), float(sigma[0]))).to(x.device, acc)
+    mw = torch.from_numpy(_blur_matrix(w, int(ks[1]), float(sigma[1]))).to(x.device, acc)
+    y = torch.einsum("Hh,...hw,Ww->...HW", mh, x.to(acc), mw)
     return y.to(x.dtype)
 
 

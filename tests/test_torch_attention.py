@@ -14,7 +14,8 @@ import torch
 from mofa_tpu_torch.kernels import attention
 from mofa_tpu_torch.kernels.flash_attention import kernel_operands as flash_operands
 from mofa_tpu_torch.kernels.short_attention import kernel_operands as short_operands
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 BF, F32 = torch.bfloat16, torch.float32
 

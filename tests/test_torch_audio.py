@@ -32,7 +32,8 @@ from mofa_tpu_torch.models.audio.aniportrait import (Audio2Mesh, Audio2Pose,
                                                      convert_ldmk_to_68, load_wav)
 from mofa_tpu_torch.models.audio.wav2vec2 import TINY_W2V_CONFIG, Wav2Vec2Model
 from tests.torch_port_util import sd_np, seeded, template
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 LATENT, SR, FPS = 64, 16000, 25
 

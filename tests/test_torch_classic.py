@@ -35,7 +35,8 @@ from mofa_tpu_torch.models.svd_unet import (MICRO_UNET_CONFIG,
 from mofa_tpu_torch.models.transformer_blocks import (
     TransformerSpatioTemporalModel, tmajor_enabled)
 from tests.torch_port_util import jax_unet, sd_np, seeded, template
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 
 def _t(x):

@@ -33,7 +33,8 @@ from mofa_tpu_torch import kernels
 from mofa_tpu_torch.kernels.geglu_ffn import (SCHEDULES, VARIANTS, ffn_gemm_gate,
                                               ffn_gemm_out, ffn_ln_rows, ffn_plain,
                                               geglu_ffn, ln_ffn_plain, ln_geglu_ffn)
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 
 def _operands(c, rows, seed):
@@ -70,9 +71,9 @@ def test_geglu_ffn_matches_pallas_interpret_and_ref(c, rows):
     x, _, _, w0, b0, w2, b2 = ops = _operands(c, rows, seed=c + 1)
     tx, _, _, tw0, tb0, tw2, tb2 = _torch_args(*ops)
     got = geglu_ffn(tx, tw0, tb0, tw2, tb2).numpy()
-    args = [jnp.asarray(a) for a in (x, w0, b0, w2, b2)]
-    _close(got, j_geglu_ffn(*args))           # the Pallas kernel, interpret mode
-    _close(got, _ffn_ref(*args))
+    kernel, ref = jax.jit(lambda *a: (j_geglu_ffn(*a), _ffn_ref(*a)))(x, w0, b0, w2, b2)
+    _close(got, kernel)                       # the Pallas kernel, interpret mode
+    _close(got, ref)
 
 
 @pytest.mark.parametrize("variant", ["ilv", "pipe", "tanh"])
@@ -80,9 +81,10 @@ def test_geglu_ffn_matches_pallas_interpret_and_ref(c, rows):
 def test_ln_geglu_ffn_variants_match_pallas_interpret_and_ref(variant, c, rows):
     ops = _operands(c, rows, seed=c + 2)
     got = ln_geglu_ffn(*_torch_args(*ops), variant=variant).numpy()
-    args = [jnp.asarray(a) for a in ops]
-    _close(got, _ln_ffn_fwd(*args, variant=variant))
-    _close(got, (_ln_ffn_ref_tanh if variant == "tanh" else _ln_ffn_ref)(*args))
+    ref_fn = _ln_ffn_ref_tanh if variant == "tanh" else _ln_ffn_ref
+    kernel, ref = jax.jit(lambda *a: (_ln_ffn_fwd(*a, variant=variant), ref_fn(*a)))(*ops)
+    _close(got, kernel)
+    _close(got, ref)
 
 
 def test_tanh_variant_is_the_tanh_form():
@@ -156,7 +158,7 @@ def _jax_ragged(fn, args, block):
     row blocks), cut back to x's rows."""
     x = args[0]
     pad = np.concatenate([x, np.zeros((block - x.shape[0], x.shape[1]), x.dtype)])
-    return np.asarray(fn(jnp.asarray(pad), *[jnp.asarray(a) for a in args[1:]]))[:x.shape[0]]
+    return np.asarray(jax.jit(fn)(pad, *args[1:]))[:x.shape[0]]
 
 
 @pytest.mark.parametrize("kind", ["plain", "tanh", "ilv", "pipe", "geglu_ffn"])
@@ -265,12 +267,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
 
 
 def test_grad_guard_refuses_inputs_that_require_grad(monkeypatch):
-    """The kernels are forward only: with grad enabled, an input that
+    """A kernel without a backward: with grad enabled, an input that
     requires grad must raise before any launch, naming the kernel; under
     no_grad, or without such an input, the guard lets the launch through.
-    The plain version on CPU tensors keeps autograd."""
+    The plain version on CPU tensors keeps autograd, and the models' FFN
+    variant ("plain") has a backward, so under grad it reaches its launch."""
     x = torch.randn(8, 320, requires_grad=True)
-    with pytest.raises(RuntimeError, match="flash_attention.*slice 3"):
+    with pytest.raises(RuntimeError, match="flash_attention.*no backward"):
         kernels.check_no_grad("flash_attention", torch.zeros(1), x)
     kernels.check_no_grad("flash_attention", x.detach(), None)
     with torch.no_grad():
@@ -280,9 +283,11 @@ def test_grad_guard_refuses_inputs_that_require_grad(monkeypatch):
     args[3].requires_grad_()                                  # w0
     assert ln_geglu_ffn(*args).grad_fn is not None            # the plain path
     _fake_card(monkeypatch)
-    with pytest.raises(RuntimeError, match="ln_geglu_ffn_tanh.*forward only"):
+    with pytest.raises(RuntimeError, match="ln_geglu_ffn_tanh.*no backward"):
         ln_geglu_ffn(*args, variant="tanh")
-    with pytest.raises(RuntimeError, match="geglu_ffn.*forward only"):
+    with pytest.raises(RuntimeError, match="geglu_ffn.*no backward"):
         geglu_ffn(args[0], *args[3:])
+    with pytest.raises(RuntimeError, match="launch"):
+        ln_geglu_ffn(*args)
     with torch.no_grad(), pytest.raises(RuntimeError, match="launch"):
         ln_geglu_ffn(*args)

@@ -43,7 +43,8 @@ from mofa_tpu_torch.kernels.conv_fused import (conv3x3_gemm,
 from mofa_tpu_torch.kernels.group_norm import (channel_sums, fused_group_norm,
                                                group_norm_plain)
 from mofa_tpu_torch import kernels
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 
 def _np(x):
@@ -56,6 +57,19 @@ def _t(x):
 
 def _j(x):
     return None if x is None else jnp.asarray(x)
+
+
+def _jit_none(fn, args):
+    """fn(*args) as one jit program (the interpret-mode kernels dispatch
+    op by op otherwise), None arguments passed as they are."""
+    keep = [i for i, v in enumerate(args) if v is not None]
+
+    def inner(*vals):
+        full = list(args)
+        for i, v in zip(keep, vals):
+            full[i] = v
+        return fn(*full)
+    return jax.jit(inner)(*[args[i] for i in keep])
 
 
 def _close(got, ref, rel):
@@ -81,14 +95,14 @@ def test_channel_sums_and_group_norm_match_pallas_interpret(shape, groups):
     bias = (rng.randn(c) * 0.1).astype(np.float32)
     x3 = x.reshape(shape[0], -1, c)
     s1, s2 = channel_sums(_t(x3))
-    j1, j2 = j_channel_sums(_j(x3))
+    j1, j2 = jax.jit(j_channel_sums)(x3)
     # fp32 sums of up to 2048 values of magnitude ~5: relative 2e-6
     np.testing.assert_allclose(s1.numpy(), _np(j1), rtol=2e-6,
                                atol=2e-6 * np.abs(_np(j1)).max())
     np.testing.assert_allclose(s2.numpy(), _np(j2), rtol=2e-6, atol=0)
     got = fused_group_norm(_t(x), _t(scale), _t(bias), groups, 1e-5).numpy()
-    pallas = _np(j_fused_gn(_j(x), _j(scale), _j(bias), groups, 1e-5))
-    ref = _np(_gn_ref(_j(x), _j(scale), _j(bias), groups, 1e-5))
+    pallas, ref = (_np(r) for r in jax.jit(lambda *v: (
+        j_fused_gn(*v, groups, 1e-5), _gn_ref(*v, groups, 1e-5)))(x, scale, bias))
     np.testing.assert_allclose(got, pallas, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
     plain = group_norm_plain(_t(x), _t(scale), _t(bias), groups, 1e-5).numpy()
@@ -114,18 +128,20 @@ def _conv_case(n=2, h=12, w=16, c=32, o=48, seed=0, temb=False, res=False):
 def test_conv3x3_matches_pallas_interpret(h, silu):
     x, a, b, w, bias, _, _ = _conv_case(h=h, seed=h)
     got = gn_silu_conv3x3(_t(x), _t(a), _t(b), _t(w), _t(bias), silu=silu)
-    args = [_j(v) for v in (x, a, b, w, bias)]
-    _close(got, j_conv(*args, None, None, silu, False), 1e-4)
-    _close(got, _ref_chain(*args, None, None, silu), 1e-4)
+    kernel, chain = jax.jit(lambda *v: (j_conv(*v, None, None, silu, False),
+                                        _ref_chain(*v, None, None, silu)))(x, a, b, w, bias)
+    _close(got, kernel, 1e-4)
+    _close(got, chain, 1e-4)
 
 
 def test_conv3x3_epilogues_and_sums_match_pallas_interpret():
     case = _conv_case(temb=True, res=True, seed=1)
     out, s1, s2 = gn_silu_conv3x3(*[_t(v) for v in case], silu=True,
                                   emit_sums=True)
-    j_out, j1, j2 = j_conv(*[_j(v) for v in case], True, True)
+    (j_out, j1, j2), chain = jax.jit(lambda *v: (j_conv(*v, True, True),
+                                                 _ref_chain(*v, True)))(*case)
     _close(out, j_out, 1e-4)
-    _close(out, _ref_chain(*[_j(v) for v in case], True), 1e-4)
+    _close(out, chain, 1e-4)
     np.testing.assert_allclose(s1.numpy(), _np(j1), rtol=5e-4, atol=1e-4)
     np.testing.assert_allclose(s2.numpy(), _np(j2), rtol=5e-4, atol=1e-4)
 
@@ -142,7 +158,7 @@ def test_conv3x3_stages_match_pallas_interpret(silu, temb, res, sums):
     x, a, b, w, bias, tb, rr = [_t(v) for v in case]
     y = gn_silu_act(x, a, b, silu)
     got = conv3x3_gemm(y, w, bias, tb, rr, emit_sums=sums)
-    ref = j_conv(*[_j(v) for v in case], silu, sums)
+    ref = _jit_none(lambda *v: j_conv(*v, silu, sums), case)
     if sums:
         (got, s1, s2), (ref, j1, j2) = got, ref
         np.testing.assert_allclose(s1.numpy(), _np(j1), rtol=5e-4, atol=1e-4)
@@ -162,9 +178,10 @@ def test_tconv3_epilogues_and_sums_match_pallas_interpret():
             f(3, c, o) * 0.1, f(o) * 0.1, f(n, t, o) * 0.2, f(n, t, s, o))
     out, s1, s2 = gn_silu_tconv3(*[_t(v) for v in case], silu=True,
                                  emit_sums=True)
-    j_out, j1, j2 = j_tconv(*[_j(v) for v in case], True, True)
+    (j_out, j1, j2), chain = jax.jit(lambda *v: (j_tconv(*v, True, True),
+                                                 _tref_chain(*v, True)))(*case)
     _close(out, j_out, 1e-4)
-    _close(out, _tref_chain(*[_j(v) for v in case], True), 1e-4)
+    _close(out, chain, 1e-4)
     np.testing.assert_allclose(s1.numpy(), _np(j1), rtol=5e-4, atol=1e-4)
     np.testing.assert_allclose(s2.numpy(), _np(j2), rtol=5e-4, atol=1e-4)
     plain = gn_silu_tconv3(*[_t(v) for v in case[:5]], silu=False)
@@ -194,7 +211,7 @@ def test_tconv3_stages_match_pallas_interpret(silu, temb, res, sums):
     x, a, b, w, bias, tb, rr = [_t(v) for v in case]
     got = tconv3_gemm(gn_silu_act(x, a, b, silu), w, bias, tb, rr,
                       emit_sums=sums)
-    ref = _fused_tconv_fwd(*[_j(v) for v in case], silu, sums)
+    ref = _jit_none(lambda *v: _fused_tconv_fwd(*v, silu, sums), case)
     fused = gn_silu_tconv3(x, a, b, w, bias, tb, rr, silu, sums)
     if sums:
         (got, s1, s2), fused = got, fused[0]

@@ -397,25 +397,25 @@ def test_keypoint_window_step_on_card():
 
 @pytest.mark.gpu
 def test_kernels_raise_under_grad():
-    """The kernels are forward only: on a card, a wrapper raises when grad
-    is enabled and an input requires grad, and launches under no_grad."""
+    """A kernel without a backward: on a card, its wrapper raises when grad
+    is enabled and an input requires grad, and launches under no_grad. The
+    training path's kernels launch under grad as well."""
     rn = _card(5)
     bf = torch.bfloat16
-    q = rn(1, 600, 2, 64).to(bf).requires_grad_()
+    q = rn(2 * 25, 16, 2, 64).to(bf).requires_grad_()
     x = rn(4096, 320).to(bf).requires_grad_()
     ls, lb = rn(320) + 1, rn(320)
     w0, b0 = (rn(2560, 320) / 18).to(bf), rn(2560).to(bf)
     w2, b2 = (rn(320, 1280) / 36).to(bf), rn(320).to(bf)
-    src, flow = rn(1, 8, 8, 64).to(bf).requires_grad_(), rn(2, 8, 8, 2)
     xc, a = rn(2, 8, 8, 64).to(bf).requires_grad_(), rn(2, 64)
     w3, bias = (rn(3, 3, 64, 64) / 24).to(bf), rn(64)
-    calls = {"flash_attention": lambda: flash_attention(q, q, q),
-             "ln_geglu_ffn": lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2),
-             "softsplat": lambda: softsplat(src, flow, None, "avg", 2),
+    calls = {"short_attention": lambda: short_attention(q, q, q),
+             "ln_geglu_ffn_tanh": lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2,
+                                                       variant="tanh"),
              "gn_silu_conv3x3": lambda: gn_silu_conv3x3(xc, a, a, w3, bias)}
     kernels.reset_launch_counts()
     for name, call in calls.items():
-        with pytest.raises(RuntimeError, match=f"{name}.*forward only"):
+        with pytest.raises(RuntimeError, match=f"{name}.*no backward"):
             call()
     assert sum(kernels.launch_counts().values()) == 0
     with torch.no_grad():
@@ -424,6 +424,51 @@ def test_kernels_raise_under_grad():
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert all(counts[name] == 1 for name in calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_path_kernels_backward_on_card(dt):
+    """The training path's four kernels under autograd at micro widths:
+    each gradient (kernel forward, stock backward) against plain autograd
+    through the plain version on the same inputs, one launch each."""
+    rn = _card(6)
+    big = dt == torch.float32
+    tol = 2e-3 if big else 3e-2
+
+    def grads(fn, inputs, weight):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        out = out[0] if isinstance(out, tuple) else out
+        (out.float() * weight).sum().backward()
+        return [t.grad.float() for t in leaves]
+
+    def close(got, ref):
+        for g_, r_ in zip(got, ref):
+            assert (g_ - r_).norm() <= tol * r_.norm() + 1e-6
+
+    q, k, v = (rn(2, 600, 2, 64).to(dt) for _ in range(3))
+    q2, k2, v2 = (rn(2 * 7, 40, 2 * 64).to(dt) for _ in range(3))
+    x = rn(4096, 320).to(dt)
+    ffn = [x, rn(320) + 1, rn(320), rn(2560, 320) / 18, rn(2560),
+           rn(320, 1280) / 36, rn(320)]
+    ffn = ffn[:3] + [t.to(dt) for t in ffn[3:]]
+    src, flow = rn(1, 12, 16, 64).to(dt), rn(3, 12, 16, 2) * 3
+    cases = {
+        "flash_attention": (flash_attention, (q, k, v), rn(2, 600, 2, 64)),
+        "short_attention_tmajor": (lambda *a: short_attention_tmajor(*a, 7, 2),
+                                   (q2, k2, v2), rn(2 * 7, 40, 128)),
+        "ln_geglu_ffn": (ln_geglu_ffn, ffn, rn(4096, 320)),
+        "softsplat": (lambda s, f: softsplat(s, f, None, "avg", 3), (src, flow),
+                      rn(3, 12, 16, 64))}
+    for name, (fn, inputs, weight) in cases.items():
+        kernels.reset_launch_counts()
+        got = grads(fn, inputs, weight)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == 1, name
+        with kernels.plain_reference():
+            ref = grads(fn, inputs, weight)
+        close(got, ref)
 
 
 @pytest.mark.gpu

@@ -61,7 +61,8 @@ from mofa_tpu_torch.utils.profiling import PhaseTimer
 from tests.torch_port_util import (jax_clip, jax_cmp, jax_flow_controlnet,
                                    jax_ldmk_controlnet, jax_unet, jax_vae,
                                    sd_np, seeded, template)
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 H = W = 64
 T, STEPS = 3, 2

@@ -9,7 +9,7 @@ inputs. Tolerances, fp32: 1e-5 absolute for attention and the splat,
 GPU by tests/test_torch_gpu.py and chip_smoke.py.
 """
 
-import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import torch
@@ -33,7 +33,8 @@ from mofa_tpu_torch.kernels.group_norm import fused_group_norm
 from mofa_tpu_torch.kernels.short_attention import (short_attention,
                                                     short_attention_tmajor)
 from mofa_tpu_torch.kernels.softsplat import softsplat, splat_raw
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 
 def _np(x):
@@ -51,8 +52,7 @@ def test_flash_matches_pallas_interpret(l, d):
     rng = np.random.RandomState(l + d)
     q, k, v = (rng.randn(2, l, 3, d).astype(np.float32) for _ in range(3))
     got = flash_attention(_t(q), _t(k), _t(v)).numpy()
-    ref = _np(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 128,
-                      128, False))
+    ref = _np(jax.jit(lambda a, b, c: j_flash(a, b, c, 128, 128, False))(q, k, v))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
@@ -75,9 +75,8 @@ def test_tmajor_matches_pallas_interpret_and_ref(b, nf, s, h, d):
     rng = np.random.RandomState(nf * s)
     q, k, v = (rng.randn(b * nf, s, h * d).astype(np.float32) for _ in range(3))
     got = short_attention_tmajor(_t(q), _t(k), _t(v), nf, h).numpy()
-    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
-    pallas = _np(j_tmajor(jq, jk, jv, nf, h, 0, False))
-    ref = _np(_tmajor_ref(jq, jk, jv, nf, h))
+    pallas, ref = (_np(a) for a in jax.jit(lambda a, b, c: (
+        j_tmajor(a, b, c, nf, h, 0, False), _tmajor_ref(a, b, c, nf, h)))(q, k, v))
     np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
     np.testing.assert_allclose(
@@ -99,9 +98,8 @@ def test_ln_geglu_ffn_matches_pallas_interpret_and_ref(c, rows):
     b2 = (0.1 * rng.randn(c)).astype(np.float32)
     got = ln_geglu_ffn(_t(x), _t(ls), _t(lb), _t(w0.T), _t(b0), _t(w2.T),
                        _t(b2)).numpy()
-    args = [jnp.asarray(a) for a in (x, ls, lb, w0, b0, w2, b2)]
-    pallas = _np(_ln_ffn_fwd(*args, variant="plain"))
-    ref = _np(_ln_ffn_ref(*args))
+    pallas, ref = (_np(a) for a in jax.jit(lambda *a: (
+        _ln_ffn_fwd(*a, variant="plain"), _ln_ffn_ref(*a)))(x, ls, lb, w0, b0, w2, b2))
     # the Pallas kernel's erf is a 1.5e-7 polynomial; the port uses erf
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
     np.testing.assert_allclose(got, pallas, rtol=1e-4,
@@ -138,8 +136,7 @@ def test_splat_raw_matches_pallas_interpret_and_oracle():
     # the one-hot matmul turns a NaN weight into NaN sums (0 * NaN), so the
     # Pallas kernel gets the non-finite pixels as far out-of-bounds flow,
     # which drops all four taps just the same
-    pallas = _np(splat_pallas(jnp.asarray(inp), jnp.asarray(np.nan_to_num(
-        flow, nan=1e9, posinf=1e9))))
+    pallas = _np(jax.jit(splat_pallas)(inp, np.nan_to_num(flow, nan=1e9, posinf=1e9)))
     oracle = softsplat_oracle_np(inp, flow)
     np.testing.assert_allclose(got, oracle, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
@@ -154,8 +151,7 @@ def test_softsplat_modes_match_jax(mode):
         metric = np.random.RandomState(4).rand(*inp.shape[:3], 1).astype(np.float32)
     got = softsplat(_t(inp), _t(flow), None if metric is None else _t(metric),
                     mode).numpy()
-    ref = _np(j_softsplat(jnp.asarray(inp), jnp.asarray(flow),
-                          None if metric is None else jnp.asarray(metric), mode))
+    ref = _np(jax.jit(lambda a, f, m: j_softsplat(a, f, m, mode))(inp, flow, metric))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
@@ -176,8 +172,7 @@ def test_softsplat_broadcast_source_matches_jax(mode):
     m = None if mode in ("sum", "avg") else metric
     got = softsplat(_t(src), _t(flow), None if m is None else _t(m), mode,
                     frames_per_source=3).numpy()
-    ref = _np(j_softsplat(jnp.asarray(expanded), jnp.asarray(flow),
-                          None if m is None else jnp.asarray(m), mode))
+    ref = _np(jax.jit(lambda a, f, mm: j_softsplat(a, f, mm, mode))(expanded, flow, m))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
@@ -192,8 +187,7 @@ def test_splat_norm_plane_matches_pallas_interpret(metric_kind):
                           None if metric_kind == "ones" else _t(m), 3,
                           with_norm=True)
     cat = np.concatenate([expanded * m, m], axis=-1)
-    pallas = _np(splat_pallas(jnp.asarray(cat), jnp.asarray(np.nan_to_num(
-        flow, nan=1e9, posinf=1e9))))
+    pallas = _np(jax.jit(splat_pallas)(cat, np.nan_to_num(flow, nan=1e9, posinf=1e9)))
     np.testing.assert_allclose(acc.numpy(), pallas[..., :-1], rtol=0, atol=1e-5)
     np.testing.assert_allclose(norm.numpy(), pallas[..., -1], rtol=0, atol=1e-5)
 

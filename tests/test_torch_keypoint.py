@@ -50,7 +50,8 @@ from mofa_tpu_torch.pipelines.keypoint import (KeypointPipeline,
 from mofa_tpu_torch.utils.profiling import PhaseTimer
 from tests.torch_port_util import (jax_clip, jax_cmp, jax_ldmk_controlnet,
                                    jax_unet, jax_vae)
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 H = W = 64
 T, WIN, STRIDE, STEPS = 7, 4, 2, 2

@@ -22,7 +22,8 @@ from mofa_tpu_torch.models.weights import (load_safetensors, load_torch_checkpoi
                                            unwrap_state_dict)
 from mofa_tpu_torch.pipelines.common import ModelBundle
 from mofa_tpu_torch.pipelines.hybrid import HybridPipeline
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 CLIP_CFG = CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_layers=2,
                             num_heads=2, patch_size=16, image_size=48,

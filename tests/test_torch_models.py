@@ -38,7 +38,8 @@ from mofa_tpu_torch.models.vae import (TINY_VAE_CONFIG,
 from mofa_tpu_torch.models.weights import state_dict_from_flax
 from tests.torch_port_util import (jax_clip, jax_flow_controlnet, jax_unet,
                                    jax_vae, sd_np, seeded, template)
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 CLIP_KW = dict(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
                patch_size=16, image_size=48, projection_dim=32)

@@ -43,7 +43,8 @@ from mofa_tpu_torch.pipelines.traj import TrajPipeline
 from mofa_tpu_torch.preprocess.traj import DragFlowEngine
 from tests.torch_port_util import (jax_clip, jax_cmp, jax_flow_controlnet,
                                    jax_unet, jax_vae)
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 H, W, T, STEPS = 64, 128, 4, 2
 CLIP_KW = dict(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
@@ -204,15 +205,19 @@ def test_drag_tracks_to_video_matches_jax(pair, cmp_pair, with_brush):
 
 
 def test_port_imports_neither_jax_nor_mofa_tpu():
-    """Every module of the port (walked, not listed) and chip_smoke.py
+    """Every module of the port (walked, not listed; the walk must reach the
+    training slice's train/ and models/gmflow/ modules) and chip_smoke.py
     import in a fresh interpreter without jax, flax or mofa_tpu."""
     code = ("import importlib, pkgutil, sys, mofa_tpu_torch, chip_smoke;"
             "mods = [m.name for m in pkgutil.walk_packages("
             "mofa_tpu_torch.__path__, 'mofa_tpu_torch.')];"
             "[importlib.import_module(m) for m in mods];"
             "want = {'mofa_tpu_torch.apps.' + a for a in ('hybrid_app', 'keypoint_app',"
-            " 'audio2ldmk_app', 'opendomain_app')} | {'mofa_tpu_torch.pipelines.keypoint',"
-            " 'mofa_tpu_torch.models.audio.wav2vec2', 'mofa_tpu_torch.models.audio.aniportrait'};"
+            " 'audio2ldmk_app', 'opendomain_app', 'train_app')} | {'mofa_tpu_torch.pipelines.keypoint',"
+            " 'mofa_tpu_torch.models.audio.wav2vec2', 'mofa_tpu_torch.models.audio.aniportrait',"
+            " 'mofa_tpu_torch.models.gmflow.model', 'mofa_tpu_torch.ops.edm'} | {"
+            "'mofa_tpu_torch.train.' + t for t in ('stage', 'state', 'checkpoint', 'sampler',"
+            " 'data', 'flow_cache', 'inputs')};"
             "assert len(mods) > 40 and want <= set(mods), (want - set(mods), mods);"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'mofa_tpu' or m.startswith('mofa_tpu.') or m == 'flax'"

@@ -39,7 +39,8 @@ from mofa_tpu_torch.ops.rasterize import rasterize_trajectories
 from mofa_tpu_torch.ops.trajectory import interpolate_trajectory, pchip_interpolate
 from mofa_tpu_torch.preprocess import traj as p_traj
 from tests.torch_port_util import cmp_template, jax_cmp
-from tests.torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
+                                   one_torch_thread)  # (both autouse)
 
 TRACKS = [[[10.0, 12.0], [30.5, 20.25], [52.0, 18.0], [70.0, 40.0]],
           [[100.0, 40.0], [90.0, 30.0]],
