@@ -6,7 +6,7 @@
     python3 chip_smoke.py --phase keypoint # build, the keypoint path's kernel
                                            # checks, video and the audio front
     python3 chip_smoke.py --phase train    # build, the training path's kernel
-                                           # backward checks, 5g
+                                           # backward checks, 5g, 5h, 5i
 
 Phases, each printed as it finishes:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -87,6 +87,23 @@ Phases, each printed as it finishes:
      run resumed from step 2 within RESUME_REL of the first run's steps 3
      and 4, a planted fault (the generator not restored) outside it; one
      step without block remat and its peak;
+     5h. stage 2 through `train_app.run` from 5g's exported adapter at
+     the same operating point, a CMP of seeded random weights read from a
+     file: run A sequential with AdamW, run B with --overlap_inputs
+     --use_8bit_adam, 2 steps each; step 1's control flow and loss equal
+     across the runs (CONTROL_REL, STAGE2_RUNS_REL), the flow encoder and
+     the conditioning embedding bit-unchanged, each step's launches as
+     their sites, step 1 recomputed outside the trainer and a
+     planted fault (masks from each clip's first frame) that must miss
+     CONTROL_REL; a line a step with the seconds of batch, teacher, mask
+     sampling, CMP, forward + backward and optimizer, the peak, and both
+     optimizers' state bytes; 5i. the CMP trainer on the shipped config
+     (read from a config.yaml it writes) at crop 384, batch 8, the GMFlow
+     trainer at 384x512, batch 8 (halved while it does not fit), 3 steps
+     each on seeded (image, flow) pairs, and the evaluator on the flow
+     checkpoint: losses and EPE finite, both checkpoints reloaded
+     bit-equal, the CMP one strictly through load_cmp, a checkpoint
+     without one tensor refused;
   6. the GroupNorm / fused-conv entry points: a spatial and a temporal
      resnet block at full width built from `gn_affine`, `gn_silu_conv3x3`
      and `gn_silu_tconv3`, held against the port's stock resnet blocks.
@@ -1458,15 +1475,17 @@ def _bwd_judge(dtype_name, got, ref) -> tuple:
     return ok, worst_max, worst_rms
 
 
-def phase_backward(kres: dict, g) -> list:
+def phase_backward(kres: dict, g, card: str) -> list:
     """Each training-path kernel's autograd route at the training shapes,
     fp32 and bf16: the gradients (kernel forward, the stock backward of
     kernels/*.py) against plain autograd through the plain version, within
     TOL_BWD; the first shape of each timed (the kernel's forward alone,
-    `train_fwd_ms_*`; the backward function alone; CUDA events, median of
-    5; SDPA's backward beside flash's and tmajor's), with its bound (`bwd_*`
-    keys of the kernel's row). Then one planted
-    fault a kernel, which must miss the bounds. Returns the loose faults."""
+    `train_fwd_ms_*`, with its bound, `train_fwd_bound_ms_*`, and SDPA's
+    forward beside flash's and tmajor's, `train_fwd_library_ms_*`; the
+    backward function alone; CUDA events, median of 5; SDPA's backward
+    beside flash's and tmajor's), with its bound (`bwd_*` keys of the
+    kernel's row). Then one planted fault a kernel, which must miss the
+    bounds. Returns the loose faults."""
     import torch
     import torch.nn.functional as F
     from mofa_tpu_torch import kernels
@@ -1479,8 +1498,10 @@ def phase_backward(kres: dict, g) -> list:
     randn = lambda *s, dt: torch.randn(*s, generator=g, device=dev).to(dt)
     loose = []
 
+    log(f"  [card] {card}")
+
     def check(name, dn, label, fn, inputs, cot, first, bwd_fn=None, work=None,
-              library=None, fault=None):
+              library=None, fault=None, fwd_work=None, fwd_library=None):
         got = _grads(fn, inputs, cot)
         torch.cuda.synchronize()
         with kernels.plain_reference():
@@ -1494,7 +1515,13 @@ def phase_backward(kres: dict, g) -> list:
         if first:
             with torch.no_grad():
                 r["train_fwd_ms_" + dn] = time_ms(lambda: fn(*inputs))
-            line += f"  fwd {r['train_fwd_ms_' + dn]:.3f} ms"
+                r["train_fwd_library_ms_" + dn] = (None if fwd_library is None
+                                                   else time_ms(fwd_library))
+            f_ms, f_by = bound(*fwd_work)
+            r["train_fwd_bound_ms_" + dn], r["train_fwd_bound_by_" + dn] = f_ms, f_by
+            line += (f"  fwd {r['train_fwd_ms_' + dn]:.3f} ms (bound {f_ms:.3f}, {f_by}"
+                     + ("" if fwd_library is None else
+                        f"; SDPA fwd {r['train_fwd_library_ms_' + dn]:.3f}") + ")")
             r["bwd_ms_" + dn] = time_ms(bwd_fn)
             line += f"  bwd {r['bwd_ms_' + dn]:.3f} ms"
             b_ms, b_by = bound(*work)
@@ -1535,7 +1562,10 @@ def phase_backward(kres: dict, g) -> list:
                   bwd_fn=lambda: fm.flash_backward(q, k, v, out, cot),
                   work=(10 * B * H * L * L * D, 8 * nbytes(q), dn),
                   library=sdpa_bwd(t4(q), t4(k), t4(v), t4(cot)) if i == 0 else None,
-                  fault=dropped_chunk if i == 0 else None)
+                  fault=dropped_chunk if i == 0 else None,
+                  fwd_work=(4 * B * H * L * L * D, 4 * nbytes(q), dn),
+                  fwd_library=(lambda a=t4(q), b_=t4(k), c=t4(v):
+                               F.scaled_dot_product_attention(a, b_, c)) if i == 0 else None)
             del q, k, v, cot, out
         for i, (S, HD, H) in enumerate(BWD_TMAJOR):
             q, k, v, cot = (randn(25, S, HD, dt=dt) for _ in range(4))
@@ -1552,7 +1582,10 @@ def phase_backward(kres: dict, g) -> list:
                   bwd_fn=lambda: sm.tmajor_backward(q, k, v, cot, 25, H),
                   work=(10 * S * H * 25 * 25 * (HD // H), 7 * nbytes(q), dn),
                   library=sdpa_bwd(to4(q), to4(k), to4(v), to4(cot)) if i == 0 else None,
-                  fault=last_frame_unread if i == 0 else None)
+                  fault=last_frame_unread if i == 0 else None,
+                  fwd_work=(4 * S * H * 25 * 25 * (HD // H), 4 * nbytes(q), dn),
+                  fwd_library=(lambda a=to4(q), b_=to4(k), c=to4(v):
+                               F.scaled_dot_product_attention(a, b_, c)) if i == 0 else None)
             del q, k, v, cot
         for i, (C, R) in enumerate(BWD_FFN):
             args = ffn_operands(g, C, R, dt)
@@ -1566,7 +1599,8 @@ def phase_backward(kres: dict, g) -> list:
             check("ln_geglu_ffn", dn, f"rows={R} C={C}", gm.ln_geglu_ffn, args, cot,
                   i == 0, bwd_fn=lambda: gm.ln_ffn_backward(*args, cot),
                   work=(48 * R * C * C, 4 * nbytes(args[0]) + 2 * nbytes(*args[3:]), dn),
-                  fault=no_dgamma if i == 0 else None)
+                  fault=no_dgamma if i == 0 else None,
+                  fwd_work=(24 * R * C * C, 2 * nbytes(args[0]) + nbytes(*args[1:]), dn))
             del args, cot
         for i, (h, w, c) in enumerate(BWD_SPLAT):
             src, flow, _ = splat_inputs(g, h, w, c, dt, sources=1)
@@ -1588,7 +1622,9 @@ def phase_backward(kres: dict, g) -> list:
                   cot, i == 0, bwd_fn=bwd,
                   work=(16 * fr * h * w * c, nbytes(src, flow, cot) + nbytes(src, flow)
                         + 4 * fr * h * w, "fp32"),
-                  fault=flow_sign_flipped if i == 0 else None)
+                  fault=flow_sign_flipped if i == 0 else None,
+                  fwd_work=(8 * fr * h * w * c, nbytes(src, flow, cot) + 4 * fr * h * w,
+                            "fp32"))
             del src, flow, cot
     return loose
 
@@ -2476,8 +2512,347 @@ def phase_train(dev) -> dict:
         f"{r['fwd_bwd_s']:.3f} s, peak {r['peak_gib']:.2f} GiB")
     del run_d
     torch.cuda.empty_cache()
+    # stage 2 (phase 5h) starts from the exported adapter on the same clips
+    for tag in ("b", "c", "d"):
+        shutil.rmtree(os.path.join(root, tag), ignore_errors=True)
+    shutil.rmtree(os.path.join(out_a, "checkpoints"), ignore_errors=True)
+    return launches, dict(root=root, csv=csv_path, folder=folder, adapter=export)
+
+
+# ------------------------------------------------ phase 5h: stage 2
+
+# Stage 2 through train_app from phase 5g's exported adapter, at the same
+# operating point (384^2, 25 frames, batch 1, fp32, remat, EMA) and clips,
+# with a CMP of seeded random weights read from a file: run A sequential
+# with AdamW, run B with --overlap_inputs --use_8bit_adam, 2 steps each.
+# Step 1 draws the same clip, masks and noise in both and the optimizer
+# has not acted yet, so B's control flow equals A's (CONTROL_REL) and its
+# loss, and step 1's loss recomputed outside the trainer from the same
+# inputs, equal A's within STAGE2_RUNS_REL.
+STAGE2_STEPS = 2
+# |loss difference| / loss of two fp32 runs of stage 2's step 1: the
+# splat's atomics and cuDNN's TF32 convolutions sum in another order each
+# run, about 2.4e-6 absolute as in 5g's resume (1.8-2.0e-6 there), which at
+# this loss of 0.239 is 1e-5 relative (readings 9.2e-6 and 1.02e-5 A vs B,
+# 1.4e-6 and 4.8e-6 recomputed; PERF.md); a generator not restored moves a
+# loss by 2.2e-2
+STAGE2_RUNS_REL = 5e-5
+# the control flow's sum and sum of squares of two computations of step 1's
+# batch (the same clip and masks; CMP's fp32 convs rerun): relative bound
+CONTROL_REL = 1e-5
+
+
+def control_rel(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def mask_from_first_frame(flows, rng=None):
+    """A planted fault for phase 5h: clip_sample_mask sampling each clip's
+    FIRST frame flow instead of its last."""
+    import numpy as np
+    from mofa_tpu_torch.train.flow_sampler import flow_sampler
+    b, t = flows.shape[:2]
+    masks = [flow_sampler(flows[i, 0], ("grid", "watershed"), rng=rng)[1] for i in range(b)]
+    return np.repeat(np.stack(masks).astype(flows.dtype)[:, None], t, axis=1)
+
+
+def phase_stage2(dev, train: dict) -> dict:
+    """5h (module note above). Returns run A's launches over its steps."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.apps import train_app
+    from mofa_tpu_torch.apps.loaders import init_random_cmp_
+    from mofa_tpu_torch.models.cmp.model import CMP, CMPConfig
+    from mofa_tpu_torch.train import inputs as inputs_mod
+    from mofa_tpu_torch.train.checkpoint import import_adapter
+    from mofa_tpu_torch.train.data import ResumableBatches, WebVidDataset
+    from mofa_tpu_torch.train.stage import draw, edm_loss
+    from mofa_tpu_torch.train.state import optimizer_state_bytes
+
+    root = train["root"]
+    cmp_path = os.path.join(root, "cmp_seeded.pth.tar")
+    cmp = init_random_cmp_(CMP(CMPConfig()), torch.Generator().manual_seed(21))
+    torch.save({"step": 0, "state_dict": cmp.state_dict()}, cmp_path)
+    del cmp
+
+    def stage2_args(tag, *extra):
+        return train_args(train["csv"], train["folder"], os.path.join(root, tag),
+                          STAGE2_STEPS, "--stage", "2", "--controlnet_resume",
+                          train["adapter"], "--cmp_ckpt", cmp_path,
+                          "--gradient_checkpointing", "--checkpointing_steps", "1000",
+                          *extra)
+
+    def frozen_digests(trainer):
+        cn = trainer.bundle.controlnet
+        return {n: train_app.module_digest(getattr(cn, n))
+                for n in ("flow_encoder", "controlnet_cond_embedding")}
+
+    runs = {}
+    for tag, extra in (("A", ()), ("B", ("--overlap_inputs", "--use_8bit_adam"))):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_app.Trainer(stage2_args(tag, *extra))
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        before = frozen_digests(trainer)
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        check_train_steps(f"stage 2 {tag}", trainer.records, remat=True)
+        if frozen_digests(trainer) != before:
+            fail(f"stage 2 {tag}: the frozen flow encoder or conditioning embedding moved")
+        if trainer.digests()["controlnet"] == trainer.digests_at_setup["controlnet"]:
+            fail(f"stage 2 {tag}: the adapter did not move")
+        opt_bytes = optimizer_state_bytes(trainer.state.optimizer)
+        runs[tag] = dict(records=trainer.records, launches=launches, total=total,
+                         opt_bytes=opt_bytes, setup=setup)
+        log(f"[stage2] run {tag} {' '.join(extra) or '(sequential, AdamW)'}: setup "
+            f"{setup:.1f} s, {STAGE2_STEPS} steps in {total:.1f} s; optimizer state "
+            f"{opt_bytes} bytes; flow_encoder and controlnet_cond_embedding "
+            "bit-unchanged; launches each step as their sites")
+        for r in trainer.records:
+            log(f"[stage2] {tag} step {r['step']}: " + json.dumps(
+                {k: r.get(k) for k in ("loss", "grad_norm", "batch_s", "teacher_s",
+                                       "mask_s", "cmp_s", "fwd_bwd_s", "optimizer_s",
+                                       "wall_s", "peak_gib")}))
+        if tag == "A":
+            del trainer                  # B's peak must not count A's state
+            gc.collect()
+        torch.cuda.empty_cache()
+    keep = trainer
+
+    la, lb = runs["A"]["records"][0]["loss"], runs["B"]["records"][0]["loss"]
+    rel = abs(la - lb) / abs(la)
+    ca = runs["A"]["records"][0]["control_sums"]
+    rel_c = control_rel(runs["B"]["records"][0]["control_sums"], ca)
+    log(f"[stage2] step 1 loss A {la:.6f} B {lb:.6f}: rel {rel:.3e} (bound "
+        f"{STAGE2_RUNS_REL}); control flow sums rel {rel_c:.3e} (bound {CONTROL_REL})")
+    if rel > STAGE2_RUNS_REL or rel_c > CONTROL_REL:
+        fail("stage 2: the overlapped run's first step departs from the sequential one")
+    wall = {t: [round(r["wall_s"], 3) for r in runs[t]["records"]] for t in runs}
+    log(f"[stage2] wall a step: B {wall['B']} s beside A {wall['A']} s; optimizer state "
+        f"AdamW {runs['A']['opt_bytes']} B, factored {runs['B']['opt_bytes']} B; peak "
+        f"A {[r['peak_gib'] for r in runs['A']['records']]} GiB, B "
+        f"{[r['peak_gib'] for r in runs['B']['records']]} GiB")
+
+    # step 1's loss again, outside the trainer (B's parts), from the exported
+    # adapter on the same clip, masks and draws; then with the masks drawn
+    # from each clip's first frame (a planted fault), which must miss the bound
+    cn, bundle, args = keep.state.model, keep.bundle, keep.args
+    import_adapter(cn, train["adapter"])
+    b = next(iter(ResumableBatches(
+        WebVidDataset(train["csv"], train["folder"], sample_size=TRAIN["size"],
+                      sample_stride=1, sample_n_frames=TRAIN["frames"], seed=args.seed),
+        1, STAGE2_STEPS, args.seed)))
+    px = torch.from_numpy(b["pixel_values01"]).to(dev)
+    flows = keep.teacher(px).cpu().numpy()
+    draws = draw(torch.Generator(device=dev).manual_seed(args.seed), bundle, *px.shape[:4])
+    cn.remat_blocks = bundle.unet.remat_blocks = False
+
+    def loss_with(sampler):
+        """(loss, control flow sums) of step 1's batch with `sampler` as
+        clip_sample_mask."""
+        real = inputs_mod.clip_sample_mask
+        inputs_mod.clip_sample_mask = sampler
+        try:
+            batch = inputs_mod.make_stage2_batch(keep.cmp, px, flows,
+                                                 rng=np.random.RandomState(args.seed))
+            with torch.no_grad():
+                loss, _ = edm_loss(cn, bundle, batch, draws, args.conditioning_dropout_prob)
+            f64 = batch["flows"].double()
+            return float(loss), (float(f64.sum()), float((f64 * f64).sum()))
+        finally:
+            inputs_mod.clip_sample_mask = real
+
+    again, c_again = loss_with(inputs_mod.clip_sample_mask)
+    planted, c_planted = loss_with(mask_from_first_frame)
+    rel_again, rel_fault = abs(again - la) / abs(la), abs(planted - la) / abs(la)
+    rc_again, rc_fault = control_rel(c_again, ca), control_rel(c_planted, ca)
+    log(f"[stage2] step 1 recomputed: loss {again:.6f} (rel {rel_again:.3e}), control "
+        f"sums rel {rc_again:.3e}; masks from the first frame (planted fault): loss "
+        f"{planted:.6f} (rel {rel_fault:.3e}), control sums rel {rc_fault:.3e} "
+        f"{'CAUGHT' if rc_fault > CONTROL_REL else 'LOOSE'}")
+    if rel_again > STAGE2_RUNS_REL or rc_again > CONTROL_REL:
+        fail("stage 2: step 1's loss and control flow do not recompute from its inputs")
+    if rc_fault <= CONTROL_REL:
+        fail("stage 2: the control-flow bound lets masks from the first frame pass")
+    del keep, cn, bundle, draws
+    torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return {"A": runs["A"]["launches"], "B": runs["B"]["launches"]}
+
+
+# ------------------------------------- phase 5i: the CMP and GMFlow trainers
+
+# train_cmp_app on the shipped CMP config (read from a config.yaml the
+# script writes: the card has no PyYAML) at crop 384, batch 8; train_flow_app
+# on the teacher's config at 384x512, batch 8 (halved while it does not
+# fit); eval_flow_app on the flow checkpoint; 3 steps each, on seeded
+# (image, flow) pairs in the triples layout.
+FLOW_TRAIN = dict(pairs=8, h=384, w=512, steps=3, batch=8)
+# the CMP trainer's learning rate here: the config's 0.1 from a random
+# init, without its BatchNorm statistics' warm start, may push a trained
+# variance below -eps within 3 steps (ROADMAP Queue 3 item 9)
+CMP_SMOKE_LR = 0.01
+SHIPPED_CMP_YAML = """\
+model:
+    arch: CMP
+    total_iter: 42000
+    lr_steps: [24000, 36000]
+    lr_mults: [0.1, 0.1]
+    lr: 0.1
+    optim: SGD
+    warmup_lr: []
+    warmup_steps: []
+    module:
+        arch: CMP
+        image_encoder: resnet50
+        sparse_encoder: shallownet8x
+        flow_decoder: MotionDecoderSkipLayer
+        skip_layer: True
+        img_enc_dim: 256
+        sparse_enc_dim: 16
+        output_dim: 198
+        decoder_combo: [1, 2, 4]
+        pretrained_image_encoder: False
+        flow_criterion: "DiscreteLoss"
+        nbins: 99
+        fmax: 50
+data:
+    data_mean: [123.675, 116.28, 103.53] # RGB
+    data_div: [58.395, 57.12, 57.375]
+    crop_size: [384, 384]
+    sample_strategy: ['grid', 'watershed']
+    train_source:
+        - data/train.txt
+"""
+
+
+def write_flow_pairs(root: str, seed: int) -> str:
+    """FLOW_TRAIN['pairs'] seeded (img1, img2, flow) triples: smooth blobs,
+    the second image the first moved by a smooth flow field (cv2 PNGs and
+    Middlebury .flo). Returns the data directory."""
+    import cv2
+    import numpy as np
+    from mofa_tpu_torch.ops.flow_viz import write_flo
+    rng = np.random.RandomState(seed)
+    h, w = FLOW_TRAIN["h"], FLOW_TRAIN["w"]
+    data = os.path.join(root, "pairs")
+    os.makedirs(data, exist_ok=True)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(FLOW_TRAIN["pairs"]):
+        img = np.zeros((h, w, 3), np.float32) + 30
+        for _ in range(8):
+            cy, cx = rng.rand(2) * (h, w)
+            img += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 30.0 ** 2))[..., None] \
+                * rng.rand(3) * 220
+        fx = 6 * np.sin(yy / 40.0 + rng.rand() * 6) + rng.randn() * 3
+        fy = 4 * np.cos(xx / 50.0 + rng.rand() * 6) + rng.randn() * 3
+        flow = np.stack([fx, fy], -1).astype(np.float32)
+        moved = cv2.remap(img, xx - fx, yy - fy, cv2.INTER_LINEAR,
+                          borderMode=cv2.BORDER_REFLECT)
+        cv2.imwrite(os.path.join(data, f"p{i}_img1.png"), np.clip(img, 0, 255).astype(np.uint8))
+        cv2.imwrite(os.path.join(data, f"p{i}_img2.png"), np.clip(moved, 0, 255).astype(np.uint8))
+        write_flo(flow, os.path.join(data, f"p{i}_flow.flo"))
+    return data
+
+
+def phase_flow_trainers(dev) -> None:
+    """5i (module note above)."""
+    import math
+    import shutil
+    import torch
+    from mofa_tpu_torch.apps import eval_flow_app, train_cmp_app, train_flow_app
+    from mofa_tpu_torch.apps.loaders import cmp_state_dict, load_cmp
+    from mofa_tpu_torch.models.gmflow.model import GMFlow, GMFlowConfig, load_gmflow
+    from mofa_tpu_torch.models.weights import load_torch_checkpoint
+
+    root = os.path.join(REPO, "build", "flow_train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    data = write_flow_pairs(root, seed=31)
+    config = os.path.join(root, "config.yaml")
+    with open(config, "w") as f:
+        f.write(SHIPPED_CMP_YAML)
+
+    # the CMP trainer
+    steps = FLOW_TRAIN["steps"]
+    t0 = time.perf_counter()
+    res = train_cmp_app.run(train_cmp_app.build_parser().parse_args(
+        ["--data_dir", data, "--output_dir", os.path.join(root, "cmp"), "--config", config,
+         "--lr", str(CMP_SMOKE_LR),
+         "--crop_size", "384", "--batch_size", "8", "--num_steps", str(steps),
+         "--save_every", str(steps), "--log_every", "1", "--seed", "5"]))
+    total = time.perf_counter() - t0
+    log(f"[cmp_train] {res.cfg}; {steps} steps in {total:.1f} s: " + json.dumps(
+        [{k: r[k] for k in ("step", "loss", "batch_s", "step_s", "peak_gib")}
+         for r in res.records]))
+    if not all(math.isfinite(r["loss"]) for r in res.records):
+        fail("cmp_train: a loss is not finite")
+    ckpt = res.checkpoints[-1]
+    loaded = load_cmp(ckpt, dev, cfg=res.cfg)          # strict
+    want = res.model.state_dict()
+    got = {k: v for k, v in loaded.state_dict().items() if not k.endswith("num_batches_tracked")}
+    if got.keys() != want.keys() or any(not torch.equal(got[k], want[k]) for k in want):
+        fail("cmp_train: the checkpoint does not reload bit-equal through load_cmp")
+    raw = cmp_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True))
+    raw.pop("flow_decoder.head.bias")
+    try:
+        loaded.load_state_dict(raw, strict=True)
+        fail("cmp_train: a checkpoint without flow_decoder.head.bias loaded strictly")
+    except RuntimeError:
+        log(f"[cmp_train] checkpoint ({len(want)} tensors) reloads bit-equal through "
+            "load_cmp(strict=True); one without flow_decoder.head.bias is refused: CAUGHT")
+    del res, loaded, want, got
+    torch.cuda.empty_cache()
+
+    # the GMFlow trainer: batch 8, halved while it does not fit
+    batch = FLOW_TRAIN["batch"]
+    while True:
+        try:
+            t0 = time.perf_counter()
+            fres = train_flow_app.run(train_flow_app.build_parser().parse_args(
+                ["--data_dir", data, "--output_dir", os.path.join(root, "flow"),
+                 "--batch_size", str(batch), "--num_steps", str(steps),
+                 "--image_height", str(FLOW_TRAIN["h"]), "--image_width", str(FLOW_TRAIN["w"]),
+                 "--save_every", str(steps), "--log_every", "1"]))
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            if batch == 1:
+                fail("flow_train: batch 1 does not fit")
+            log(f"[flow_train] batch {batch} does not fit the card; halving")
+            batch //= 2
+    total = time.perf_counter() - t0
+    log(f"[flow_train] batch {batch}, {FLOW_TRAIN['h']}x{FLOW_TRAIN['w']}, {steps} steps in "
+        f"{total:.1f} s: " + json.dumps(
+            [{k: r[k] for k in ("step", "loss", "epe", "batch_s", "step_s", "peak_gib")}
+             for r in fres.records]))
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["epe"]) for r in fres.records):
+        fail("flow_train: a loss or EPE is not finite")
+    with torch.device(dev):
+        again = load_gmflow(GMFlow(GMFlowConfig()),
+                            load_torch_checkpoint(fres.checkpoints[-1]))
+    want = fres.model.state_dict()
+    if any(not torch.equal(v, want[k]) for k, v in again.state_dict().items()):
+        fail("flow_train: the checkpoint does not reload bit-equal")
+    log("[flow_train] checkpoint reloads bit-equal through load_gmflow (strict)")
+    del fres, again, want
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    means = eval_flow_app.run(eval_flow_app.build_parser().parse_args(
+        ["--data_dir", data, "--gmflow_ckpt", os.path.join(
+            root, "flow", f"gmflow_{steps:07d}.pth")]))
+    log(f"[eval_flow] {FLOW_TRAIN['pairs']} pairs in {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps(means)}")
+    if not all(math.isfinite(v) for v in means.values()):
+        fail("eval_flow: a metric is not finite")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 # --------------------------------- phase 6: the GroupNorm / conv entries
@@ -2605,6 +2980,20 @@ def phase_profile(dev, steps: int = 2) -> None:
 
 # ------------------------------------------------------------------- main
 
+def disk_writes() -> str:
+    """This process's storage writes so far, from /proc/self/io (Linux):
+    write_bytes (sent to storage, the page cache's writeback counted) and
+    wchar (bytes passed to write calls); the nvcc processes not counted."""
+    try:
+        with open("/proc/self/io") as f:
+            io = dict(line.split(": ") for line in f.read().splitlines())
+    except OSError as e:
+        return f"unknown ({e})"
+    gib = lambda k: int(io[k]) / 2 ** 30
+    return (f"write_bytes {int(io['write_bytes'])} ({gib('write_bytes'):.2f} GiB), "
+            f"wchar {int(io['wchar'])} ({gib('wchar'):.2f} GiB)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "profile", "keypoint",
@@ -2649,12 +3038,17 @@ def main() -> None:
         dev = torch.device("cuda")
         kres = {n: {} for n in TRAIN_KERNELS}
         log("[backward] the training path's kernels under autograd, fp32 and bf16")
-        loose = phase_backward(kres, torch.Generator(device=dev).manual_seed(13))
+        loose = phase_backward(kres, torch.Generator(device=dev).manual_seed(13), card)
         bad = [n for n in TRAIN_KERNELS if not kres[n]["bwd_ok"]]
         if bad or loose:
             fail(f"backward: outside the bounds {bad}; planted faults passing {loose}")
         log("[train] stage-1 training through train_app, SVD-XT widths, fp32")
-        phase_train(dev)
+        _, kept = phase_train(dev)
+        log("[stage2] stage 2 through train_app from the exported adapter: sequential "
+            "AdamW vs --overlap_inputs --use_8bit_adam, 2 steps each")
+        phase_stage2(dev, kept)
+        log("[flow_trainers] train_cmp_app, train_flow_app, eval_flow_app at full widths")
+        phase_flow_trainers(dev)
         return
 
     if args.phase == "keypoint":
@@ -2695,7 +3089,7 @@ def main() -> None:
     # 3c. the training path's kernels under autograd
     log("[backward] the training path's kernels under autograd at the stage-1 "
         "shapes, fp32 and bf16: gradients vs plain autograd, planted faults")
-    loose = phase_backward(kres, torch.Generator(device="cuda").manual_seed(13))
+    loose = phase_backward(kres, torch.Generator(device="cuda").manual_seed(13), card)
     bad = [n for n in TRAIN_KERNELS if not kres[n]["bwd_ok"]]
     if bad or loose:
         fail(f"backward: outside the bounds {bad}; planted faults passing {loose}")
@@ -2759,7 +3153,14 @@ def main() -> None:
         # 5g. stage-1 training through train_app
         log("[train] stage-1 training through train_app: 384x384, 25 frames, "
             "batch 1, fp32, block remat, EMA, SVD-XT widths")
-        train_launches = phase_train(dev)
+        train_launches, kept = phase_train(dev)
+        # 5h. stage 2 from the exported adapter
+        log("[stage2] stage 2 through train_app from the exported adapter: sequential "
+            "AdamW vs --overlap_inputs --use_8bit_adam, 2 steps each")
+        stage2_launches = phase_stage2(dev, kept)
+        # 5i. the CMP and GMFlow trainers
+        log("[flow_trainers] train_cmp_app, train_flow_app, eval_flow_app at full widths")
+        phase_flow_trainers(dev)
         # 6. the GroupNorm / fused-conv entry points
         log("[gn_conv] resnet blocks through gn_affine + gn_silu_conv3x3 / "
             "gn_silu_tconv3, bf16")
@@ -2774,6 +3175,7 @@ def main() -> None:
             launches[name] = gn_launches[name]
         for name in TRAIN_KERNELS:
             kres[name]["train_launches"] = train_launches[name]
+            kres[name]["stage2_launches"] = stage2_launches["A"][name]
         for name in KERNEL_META:        # the 25-step spatial-major video's own
             kres[name]["main_path_launches"] = main_run["launches"][name]
             kres[name]["hybrid_launches"] = hybrid_run["launches"][name]
@@ -2786,6 +3188,7 @@ def main() -> None:
                 fail(f"flash_attention: the main path never launched site {site} {shape}")
             by_site[site] = n
 
+    log(f"[disk] {disk_writes()}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("chain_ms", "ms_b50", "library_ms_b50", "bound_ms_b50", "ms_c640",
@@ -2796,10 +3199,13 @@ def main() -> None:
              "ms_keypoint", "plain_ms_keypoint", "library_ms_keypoint",
              "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint",
              "ms_keypoint16", "plain_ms_keypoint16", "library_ms_keypoint16",
-             "bound_ms_keypoint16", "bound_by_keypoint16", "train_launches") + tuple(
+             "bound_ms_keypoint16", "bound_by_keypoint16", "train_launches",
+             "stage2_launches") + tuple(
                  f"{k}_{d}" for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by",
                                       "bwd_library_ms", "bwd_max_rel_err",
-                                      "train_fwd_ms") for d in ("fp32", "bf16"))
+                                      "train_fwd_ms", "train_fwd_bound_ms",
+                                      "train_fwd_bound_by", "train_fwd_library_ms")
+                 for d in ("fp32", "bf16"))
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],
              **{k: kres[n][k] for k in keys},

@@ -1,25 +1,35 @@
-"""MOFA-Adapter training CLI, stage 1, on the card.
+"""MOFA-Adapter training CLI, stages 1 and 2, on the card.
 
 Counterpart of mofa_tpu/apps/train_app.py (the reference's
-Training/train_stage1.py training loop and train_stage1.sh's arguments):
-WebVid-style clips -> the GMFlow teacher's dense flows (optionally from a
-teacher-flow cache) -> the EDM step on the FlowControlNet against the
-frozen SVD UNet (AdamW, global-norm clipping, EMA) -> checkpoints,
-validation renders and the exported adapter.
+Training/train_stage{1,2}.py training loops and train_stage{1,2}.sh's
+arguments): WebVid-style clips -> the GMFlow teacher's dense flows
+(optionally from a teacher-flow cache) -> stage 1: those flows; stage 2:
+(grid, watershed) hints sampled from each clip's last flow, completed by
+CMP (`--cmp_ckpt`, `--cmp_bf16`), with the adapter's flow encoder and
+conditioning embedding frozen -> the EDM step on the FlowControlNet
+against the frozen SVD UNet (AdamW, or with `--use_8bit_adam` the
+factored optimizer; global-norm clipping, EMA) -> checkpoints, validation
+renders and the exported adapter. With `--overlap_inputs` (stage 2,
+gradient_accumulation_steps 1) the next batch's teacher runs on the card
+while the host samples this batch's masks (`Stage2InputPipeline`).
 
     python -m mofa_tpu_torch.apps.train_app --csv_path clips.csv \
         --video_folder videos --gradient_checkpointing --use_ema
     python -m mofa_tpu_torch.apps.train_app --csv_path clips.csv \
         --video_folder videos --device cpu --tiny --sample_size 64 \
         --sample_n_frames 4 --num_train_steps 2 --checkpointing_steps 1
+    python -m mofa_tpu_torch.apps.train_app --stage 2 --controlnet_resume \
+        runs/mofa/adapter_final --cmp_ckpt ckpt_iter_42000.pth.tar \
+        --csv_path clips.csv --video_folder videos --overlap_inputs \
+        --use_8bit_adam --gradient_checkpointing --use_ema
 
 It runs on the CUDA device unless `--device cpu` is given, and raises when
 there is none. Everything trains in fp32, as the JAX package does; on the
 card PyTorch's defaults hold: float32 matmuls in full fp32
-(`allow_tf32` False), cuDNN convolutions in TF32. Stage 2, the mesh
-options, CMP training and the factored optimizer exit naming the ROADMAP
-item that holds them. `run(args)` returns the `Trainer` after training,
-with one record per step.
+(`allow_tf32` False), cuDNN convolutions in TF32. The mesh options exit
+naming the ROADMAP item that holds them. With `--tiny` stage 2 runs the
+tiny CMP (the JAX app keeps the full one). `run(args)` returns the
+`Trainer` after training, with one record per step.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 from mofa_tpu_torch import kernels
@@ -37,11 +48,7 @@ from mofa_tpu_torch.models.weights import init_adapter_from_unet, load_torch_che
 
 # options the JAX CLI has and this one does not take yet: flag -> ROADMAP item
 NOT_PORTED = {
-    "stage": "ROADMAP Queue 1 item 7 (stage 2: sparse hints and CMP completion)",
     "mesh": "ROADMAP Queue 1 item 13 (the multi-GPU layer)",
-    "cmp": "ROADMAP Queue 1 item 7 (stage 2's CMP)",
-    "overlap_inputs": "ROADMAP Queue 1 item 7 (stage 2's input pipeline)",
-    "use_8bit_adam": "ROADMAP Queue 1 item 5 (the factored optimizer)",
 }
 
 
@@ -97,11 +104,7 @@ def build_parser():
 
 def refuse_unported(args) -> None:
     """SystemExit naming the ROADMAP item for an option not ported yet."""
-    chosen = {"stage": args.stage != 1,
-              "mesh": args.mesh_data * args.mesh_model * args.mesh_frames > 1,
-              "cmp": bool(args.cmp_ckpt) or args.cmp_bf16,
-              "overlap_inputs": args.overlap_inputs,
-              "use_8bit_adam": args.use_8bit_adam}
+    chosen = {"mesh": args.mesh_data * args.mesh_model * args.mesh_frames > 1}
     for flag, on in chosen.items():
         if on:
             raise SystemExit(f"train_app: --{flag} is not ported to the PyTorch "
@@ -163,22 +166,39 @@ class Teacher:
                                      self.size)
             self.cache = TeacherFlowCache(args.flow_cache, fp)
 
-    def __call__(self, px: torch.Tensor, keys=None) -> torch.Tensor:
+    def flows(self, px: torch.Tensor) -> torch.Tensor:
+        """The teacher's fp32 flows of the clips px, on their device."""
         from mofa_tpu_torch.train.inputs import make_stage1_batch
+        return make_stage1_batch(self.gmflow, px.to(self.dtype), self.size,
+                                 pair_chunk=8)["flows"].float()
+
+    def __call__(self, px: torch.Tensor, keys=None) -> torch.Tensor:
         if self.cache is not None and keys is not None:
             hit = self.cache.get_batch(keys)
             if hit is not None:
                 return torch.from_numpy(hit).to(px.device)
-        flows = make_stage1_batch(self.gmflow, px.to(self.dtype), self.size,
-                                  pair_chunk=8)["flows"].float()
+        flows = self.flows(px)
         if self.cache is not None and keys is not None:
             self.cache.put_batch(keys, flows.cpu().numpy())
         return flows
 
 
+def rng_state(rng: np.random.RandomState) -> dict:
+    """A RandomState's state as tensors and numbers (a checkpoint loads
+    with weights_only=True)."""
+    _, keys, pos, has_gauss, gauss = rng.get_state()
+    return {"keys": torch.from_numpy(keys.astype(np.int64)), "pos": int(pos),
+            "has_gauss": int(has_gauss), "gauss": float(gauss)}
+
+
+def set_rng_state(rng: np.random.RandomState, st: dict) -> None:
+    rng.set_state(("MT19937", st["keys"].numpy().astype(np.uint32), st["pos"],
+                   st["has_gauss"], st["gauss"]))
+
+
 class Trainer:
-    """Stage-1 training as `train_app.run` drives it: `setup` in the
-    constructor, `train()` for the steps, `export()` for the adapter."""
+    """Training as `train_app.run` drives it: `setup` in the constructor,
+    `train()` for the steps, `export()` for the adapter."""
 
     def __init__(self, args):
         from mofa_tpu_torch.models.clip_vision import TINY_CLIP_CONFIG
@@ -187,7 +207,7 @@ class Trainer:
         from mofa_tpu_torch.train.checkpoint import CheckpointManager, import_adapter
         from mofa_tpu_torch.train.data import Prefetcher, ResumableBatches, WebVidDataset
         from mofa_tpu_torch.train.stage import make_train_step
-        from mofa_tpu_torch.train.state import TrainState
+        from mofa_tpu_torch.train.state import STAGE2_FROZEN, TrainState
 
         refuse_unported(args)
         self.args = args
@@ -200,13 +220,24 @@ class Trainer:
         cn = self.bundle.controlnet
         if args.controlnet_resume:
             import_adapter(cn, args.controlnet_resume)
-        else:
+        elif args.stage == 1:
             # stage-1 adapters start from the frozen UNet's trunk
             # (FlowControlNet.from_unet, controlnet_sdv.py:617-627)
             init_adapter_from_unet(cn, self.bundle.unet)
         self.teacher = Teacher(args, dev)
-        self.state = TrainState(cn, lr=args.learning_rate, ema=args.use_ema)
+        self.cmp = None
+        if args.stage == 2:
+            from mofa_tpu_torch.apps.loaders import load_cmp
+            from mofa_tpu_torch.models.cmp.model import TINY_CMP_CONFIG, CMPConfig
+            self.cmp = load_cmp(args.cmp_ckpt, dev,
+                                dtype=torch.bfloat16 if args.cmp_bf16 else torch.float32,
+                                cfg=TINY_CMP_CONFIG if args.tiny else CMPConfig(),
+                                seed=args.seed)
+        self.state = TrainState(cn, lr=args.learning_rate, ema=args.use_ema,
+                                frozen_patterns=STAGE2_FROZEN if args.stage == 2 else (),
+                                memory_lean=args.use_8bit_adam)
         self.generator = torch.Generator(device=dev).manual_seed(args.seed)
+        self.rng = np.random.RandomState(args.seed)      # stage 2's mask draws
         self.accum = max(1, args.gradient_accumulation_steps)
         self.step_fn = make_train_step(
             self.bundle, self.state, self.generator,
@@ -222,6 +253,8 @@ class Trainer:
             if step is not None:
                 extra = self.ckpt.restore(self.state, step)
                 self.generator.set_state(extra["generator"])
+                if "rng" in extra:           # stage-1 checkpoints before the mask draws
+                    set_rng_state(self.rng, extra["rng"])
                 self.start_step = self.state.step
                 print(f"[train] resumed from step {self.start_step}")
         ds = WebVidDataset(args.csv_path, args.video_folder,
@@ -233,6 +266,12 @@ class Trainer:
             iter(ResumableBatches(ds, self.batch_size, args.num_train_steps,
                                   args.seed, start=self.start_step)),
             depth=2, pin=dev.type == "cuda")
+        self.pipeline = None
+        if args.stage == 2 and args.overlap_inputs and self.accum == 1:
+            from mofa_tpu_torch.train.inputs import Stage2InputPipeline
+            self.pipeline = Stage2InputPipeline(
+                self.teacher.flows, self.cmp, (args.sample_size, args.sample_size),
+                rng=self.rng, flow_cache=self.teacher.cache)
         self.records: list = []
         self.digests_at_setup = self.digests()
 
@@ -250,45 +289,104 @@ class Trainer:
         return batch
 
     def train(self) -> list:
-        args, dev = self.args, self.dev
         try:
-            for step_no in range(self.start_step, args.num_train_steps):
-                self.records.append(self._one_step(step_no))
+            if self.pipeline is not None:
+                self._train_overlapped()
+            else:
+                for step_no in range(self.start_step, self.args.num_train_steps):
+                    self.records.append(self._one_step(step_no))
         finally:
             self.loader.close()
         return self.records
 
+    def _next_clip(self):
+        b = next(self.loader)
+        return b, b["pixel_values01"].to(self.dev, non_blocking=True)
+
+    def _control(self, px, flows, times: dict, sync: bool):
+        """Stage 1: the teacher's flows; stage 2: CMP's completion of hints
+        sampled from them (flows on the device, or on the host as numpy)."""
+        from mofa_tpu_torch.train.inputs import stage2_control_flow
+        if self.cmp is None:
+            return flows
+        host = flows if isinstance(flows, np.ndarray) else flows.cpu().numpy()
+        dense, _ = stage2_control_flow(self.cmp, px, host, px.shape[2:4], rng=self.rng,
+                                       times=times, sync=sync)
+        return dense
+
     def _one_step(self, step_no: int) -> dict:
-        args, dev = self.args, self.dev
+        dev = self.dev
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         before = kernels.launch_counts()
         t0 = _sync(dev)
-        b = next(self.loader)
-        px = b["pixel_values01"].to(dev, non_blocking=True)
+        b, px = self._next_clip()
         t1 = _sync(dev)
         flows = self.teacher(px, b.get("clip_key"))
         t2 = _sync(dev)
+        times = {"batch_s": t1 - t0, "teacher_s": t2 - t1}
+        flows = self._control(px, flows, times, sync=True)
         metrics = self.step_fn(self._batch(px, flows))
+        return self._finish(step_no, metrics, times, before, t0, px, flows)
+
+    def _train_overlapped(self) -> None:
+        """Stage 2 through Stage2InputPipeline: batch i's masks are sampled
+        while batch i+1's teacher runs; one record a step (teacher and CMP
+        run overlapped, so only the host's mask seconds are timed apart)."""
+        cache = self.teacher.cache
+        box = {"t0": _sync(self.dev), "times": {}}
+
+        def clips():
+            for _ in range(self.start_step, self.args.num_train_steps):
+                t = time.perf_counter()
+                b, px = self._next_clip()
+                box["times"] = {"batch_s": time.perf_counter() - t}
+                keys = b.get("clip_key")
+                yield (keys, px) if cache is not None and keys is not None else px
+
+        def step(batch):
+            if self.dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(self.dev)
+            before = kernels.launch_counts()
+            metrics = self.step_fn(batch)
+            box["times"].update(self.pipeline.times)
+            rec = self._finish(self.start_step + len(self.records), metrics, box["times"],
+                               before, box["t0"], batch["pixel_values01"], batch["flows"])
+            box["t0"] = time.perf_counter()
+            return rec
+
+        for rec in self.pipeline.run(clips(), step):
+            self.records.append(rec)
+
+    def _finish(self, step_no, metrics, times, before, t0, px, flows) -> dict:
+        """The step's record (printed), its checkpoint and render. The
+        record keeps the control flow's sum and sum of squares (float64),
+        which tell two runs' inputs apart."""
+        args, dev = self.args, self.dev
         after = kernels.launch_counts()
+        wall = _sync(dev) - t0
+        f64 = flows.detach().double()
         rec = {"step": step_no + 1, "loss": float(metrics["loss"]),
+               "control_sums": (float(f64.sum()), float((f64 * f64).sum())),
                "grad_norm": float(metrics["grad_norm"]),
                "sigma_mean": float(metrics["sigma_mean"]),
-               "batch_s": t1 - t0, "teacher_s": t2 - t1,
-               "fwd_bwd_s": metrics["fwd_bwd_s"],
-               "optimizer_s": metrics["optimizer_s"],
+               **times, "fwd_bwd_s": metrics["fwd_bwd_s"],
+               "optimizer_s": metrics["optimizer_s"], "wall_s": wall,
                "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None),
                "launches": {k: after[k] - before[k] for k in after
                             if after[k] != before[k]}}
+        parts = " ".join(f"{k[:-2]} {rec[k]:.3f} s" for k in
+                         ("batch_s", "teacher_s", "mask_s", "cmp_s", "fwd_bwd_s",
+                          "optimizer_s", "wall_s") if rec.get(k) is not None)
+        peak = rec["peak_gib"]
         print(f"[train] step {rec['step']} loss {rec['loss']:.6f} grad_norm "
-              f"{rec['grad_norm']:.6f} batch {rec['batch_s']:.3f} s teacher "
-              f"{rec['teacher_s']:.3f} s fwd+bwd {rec['fwd_bwd_s']:.3f} s "
-              f"optimizer {rec['optimizer_s']:.3f} s peak "
-              f"{rec['peak_gib'] if rec['peak_gib'] is None else round(rec['peak_gib'], 2)}"
-              f" GiB launches {rec['launches']}", flush=True)
+              f"{rec['grad_norm']:.6f} {parts} peak "
+              f"{peak if peak is None else round(peak, 2)} GiB launches "
+              f"{rec['launches']}", flush=True)
         self.ckpt.save(step_no + 1, self.state,
-                       extra={"generator": self.generator.get_state()})
+                       extra={"generator": self.generator.get_state(),
+                              "rng": rng_state(self.rng)})
         if (step_no + 1) % args.validation_steps == 0:
             self.render_validation(px, flows, step_no + 1)
         return rec

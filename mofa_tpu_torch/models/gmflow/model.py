@@ -1,4 +1,4 @@
-"""GMFlow / UniMatch optical-flow teacher, forward only.
+"""GMFlow / UniMatch optical flow: the teacher, and its training forward.
 
 Counterpart of mofa_tpu/models/gmflow/model.py (the flow path of the
 reference's Training/train_utils/unimatch/unimatch/unimatch.py, config
@@ -16,7 +16,13 @@ Module and parameter names are UniMatch's, so its checkpoint loads with
 `load_state_dict(strict=True)` (`load_gmflow`, which drops the unused
 `upsampler.` keys as mofa_tpu's `convert_gmflow_state_dict` does).
 Layouts follow the JAX package: images and features [B, H, W, C], the
-convs in NCHW inside. Attention and correlations are plain matmul +
+convs in NCHW inside. `forward(..., return_preds=True)` is the training
+mode (unimatch.py:226-358): it also returns every full-resolution
+prediction the sequence loss reads (a bilinear upsample after each
+scale's propagation, a convex upsample after every refinement), with the
+flow detached where the JAX package stops its gradient (the scale-2 start,
+the propagation's input, each refinement's input). The forward runs under
+autograd; `get_optical_flows` is the no-grad teacher. Attention and correlations are plain matmul +
 softmax (no kernel: GMFlow reaches no Pallas kernel). The LayerNorms use
 the JAX package's epsilon, 1e-6 (UniMatch's torch modules take 1e-5).
 """
@@ -32,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mofa_tpu_torch.ops.consts import device_constant
 from mofa_tpu_torch.ops.resize import resize_nhwc
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -171,9 +178,11 @@ def local_correlation_softmax(f0: torch.Tensor, f1: torch.Tensor, radius: int):
         valids.append((cx >= 0) & (cx < w) & (cy >= 0) & (cy < h))
         offs.append([dx, dy])
     corr = torch.stack(corrs, dim=-1) / c ** 0.5                 # [B, H, W, k*k]
-    corr = torch.where(torch.stack(valids, dim=-1), corr, corr.new_tensor(-1e4))
+    corr = torch.where(torch.stack(valids, dim=-1), corr, -1e4)
     prob = torch.softmax(corr, dim=-1)
-    offsets = torch.tensor(offs, dtype=f0.dtype, device=f0.device)
+    offsets = device_constant(("local_offsets", radius),
+                              lambda: torch.tensor(offs, dtype=torch.float64),
+                              f0.device, f0.dtype)
     sample = grid[None, :, :, None, :] + offsets
     return torch.einsum("bhwk,bhwkc->bhwc", prob, sample) - grid[None]
 
@@ -185,9 +194,12 @@ def local_correlation_with_flow(f0: torch.Tensor, f1: torch.Tensor,
     h, w, c = f0.shape[1:]
     base = coords_grid(h, w, f0)[None] + flow
     corrs = []
-    for dy, dx in _shifts(radius):
-        offset = torch.tensor([dx, dy], dtype=f0.dtype, device=f0.device)
-        corrs.append((f0 * bilinear_sample(f1, base + offset)).sum(-1))
+    offsets = device_constant(("flow_offsets", radius),
+                              lambda: torch.tensor([[dx, dy] for dy, dx in _shifts(radius)],
+                                                   dtype=torch.float64),
+                              f0.device, f0.dtype)
+    for i in range(offsets.shape[0]):
+        corrs.append((f0 * bilinear_sample(f1, base + offsets[i])).sum(-1))
     return torch.stack(corrs, dim=-1) / c ** 0.5
 
 
@@ -317,7 +329,8 @@ class FeatureTransformer(nn.Module):
         """f0 / f1 [B, H, W, C], k attention splits; both directions in one
         pass (source = cat(f0, f1), target = cat(f1, f0))."""
         b, h, w, c = f0.shape
-        mask = (torch.from_numpy(shift_window_attn_mask(h, w, k)).to(f0.device)
+        mask = (device_constant(("shift_window_mask", h, w, k),
+                                lambda: shift_window_attn_mask(h, w, k), f0.device)
                 if k > 1 else None)
         s, t = f0.reshape(b, h * w, c), f1.reshape(b, h * w, c)
         src, tgt = torch.cat([s, t]), torch.cat([t, s])
@@ -439,33 +452,46 @@ class GMFlow(nn.Module):
         self.refine_proj = nn.Conv2d(c, 256, 1)
         self.refine = BasicUpdateBlock(cfg)
 
-    def forward(self, img0, img1):
+    def forward(self, img0, img1, return_preds: bool = False):
+        """Flow [B, H, W, 2]; with return_preds, (flow, preds)."""
         cfg = self.cfg
         c = cfg.feature_channels
-        mean = img0.new_tensor(IMAGENET_MEAN)
-        std = img0.new_tensor(IMAGENET_STD)
+        mean = device_constant("imagenet_mean", lambda: np.asarray(IMAGENET_MEAN),
+                               img0.device, img0.dtype)
+        std = device_constant("imagenet_std", lambda: np.asarray(IMAGENET_STD),
+                              img0.device, img0.dtype)
         img0 = (img0 / 255.0 - mean) / std
         img1 = (img1 / 255.0 - mean) / std
         feats = [_nhwc(f) for f in self.backbone(_nchw(torch.cat([img0, img1])))]
         b = img0.shape[0]
-        flow, flow_up = None, None
+        flow, flow_up, preds = None, None, []
         for scale_idx in range(cfg.num_scales):
             f0, f1 = feats[scale_idx][:b], feats[scale_idx][b:]
             f0_ori, f1_ori = f0, f1
             if scale_idx > 0:
                 flow = resize_nhwc(flow, f0.shape[1:3], "bilinear",
-                                   align_corners=True) * 2.0
+                                   align_corners=True).detach() * 2.0
                 f1 = flow_warp(f1, flow)
             k = cfg.attn_splits[scale_idx]
             h, w = f0.shape[1:3]
-            pos = torch.from_numpy(position_embedding_sine(h // k, w // k, c // 2))
-            posf = merge_windows(pos[None].repeat(k * k, 1, 1, 1), k).to(f0)
+            posf = device_constant(
+                ("position_sine", h, w, k, c),
+                lambda: merge_windows(torch.from_numpy(position_embedding_sine(
+                    h // k, w // k, c // 2))[None].repeat(k * k, 1, 1, 1), k),
+                f0.device, f0.dtype)
             f0, f1 = self.transformer(f0 + posf, f1 + posf, k)
             radius = cfg.corr_radius[scale_idx]
             flow_pred = (global_correlation_softmax(f0, f1) if radius == -1
                          else local_correlation_softmax(f0, f1, radius))
             flow = flow_pred if flow is None else flow + flow_pred
-            flow = self.feature_flow_attn(f0, flow, cfg.prop_radius[scale_idx])
+            flow = self.feature_flow_attn(f0, flow.detach(), cfg.prop_radius[scale_idx])
+            if return_preds:
+                # bilinear (align_corners) to the image's size, times the
+                # factor (unimatch.py:230-232, 271-274)
+                factor = cfg.upsample_factor * 2 ** (cfg.num_scales - 1 - scale_idx)
+                hh, ww = flow.shape[1:3]
+                preds.append(resize_nhwc(flow, (hh * factor, ww * factor), "bilinear",
+                                         align_corners=True) * factor)
             if scale_idx == cfg.num_scales - 1:
                 # the reference re-initialises the GRU state from refine_proj
                 # every iteration (unimatch.py:278-327); only flow carries
@@ -473,13 +499,17 @@ class GMFlow(nn.Module):
                 net0, inp = torch.tanh(net0), F.relu(inp)
                 up_mask = None
                 for _ in range(cfg.num_reg_refine):
+                    flow = flow.detach()
                     corr = local_correlation_with_flow(f0_ori, f1_ori, flow, 4)
                     _, up_mask, delta = self.refine(net0, inp, _nchw(corr),
                                                     _nchw(flow))
                     flow = flow + _nhwc(delta)
+                    if return_preds:                  # unimatch.py:355-358
+                        preds.append(upsample_flow_with_mask(
+                            flow, _nhwc(up_mask), cfg.upsample_factor))
                 flow_up = upsample_flow_with_mask(flow, _nhwc(up_mask),
                                                   cfg.upsample_factor)
-        return flow_up
+        return (flow_up, preds) if return_preds else flow_up
 
 
 def load_gmflow(model: GMFlow, state_dict: dict) -> GMFlow:
@@ -520,6 +550,9 @@ def get_optical_flows(gmflow: GMFlow, video01: torch.Tensor,
                       for i in range(0, n, chunk)])
     if (h, w) != (ih, iw):
         flow = resize_nhwc(flow, (h, w), "bilinear", align_corners=True)
-        flow = flow * flow.new_tensor([w / iw, h / ih])
+        flow = flow * device_constant(("flow_scale", w / iw, h / ih),
+                                      lambda: torch.tensor([w / iw, h / ih],
+                                                           dtype=torch.float64),
+                                      flow.device, flow.dtype)
     flow = flow.reshape(b, t - 1, h, w, 2)
     return flow.transpose(2, 3) if transpose else flow

@@ -203,10 +203,11 @@ def _family_key(family: str, parts: list[str]) -> list[str]:
 
 
 def _cmp_parts(mods: list[str]) -> list[str]:
-    """The inverse of mofa_tpu's `remap_cmp_key` for the shipped CMP:
-    `layer1_0` -> layer1.0, `downsample_1` / `features_4` -> .1 / .4, the
-    decoder's `decoderN_i` + conv|bn -> its Sequential index (a MaxPool leads
-    decoder2/4/8), `fusion8` / `skipconv4` + conv|bn -> .0 / .1."""
+    """The inverse of mofa_tpu's `remap_cmp_key`: `layer1_0` -> layer1.0,
+    `downsample_1` / `features_4` -> .1 / .4, the decoders' `decoderN_i` +
+    conv|bn -> its Sequential index (a MaxPool leads decoder2/4/8),
+    `fusion8` / `skipconv4` and the AlexNet encoder's `conv1` ... `fc7` +
+    conv|bn -> .0 / .1, the FlowNet decoder's `deconvN` -> deconvN.0."""
     parts, i = [], 0
     while i < len(mods):
         m = mods[i]
@@ -216,14 +217,25 @@ def _cmp_parts(mods: list[str]) -> list[str]:
             parts += [dec.group(1), str(conv_at + (mods[i + 1] == "bn"))]
             i += 2
             continue
-        if re.fullmatch(r"(fusion|skipconv)\d", m) and i + 1 < len(mods):
+        if re.fullmatch(r"(fusion|skipconv|conv|fc)\d", m) and i + 1 < len(mods) \
+                and mods[i + 1] in ("conv", "bn"):
             parts += [m, "1" if mods[i + 1] == "bn" else "0"]
             i += 2
+            continue
+        if re.fullmatch(r"deconv\d", m):
+            parts += [m, "0"]
+            i += 1
             continue
         idx = re.fullmatch(r"(layer\d|downsample|features)_(\d+)", m)
         parts += list(idx.groups()) if idx else [m]
         i += 1
     return parts
+
+
+def _cmp_transposed(mods: list[str]) -> bool:
+    """A FlowNet decoder's transposed conv, whose Flax kernel mofa_tpu keeps
+    pre-flipped in HWIO."""
+    return bool(mods) and re.fullmatch(r"deconv\d|upsampled_flow\d_to_\d", mods[-1]) is not None
 
 
 def state_dict_from_flax(params_np: dict, family: str) -> dict:
@@ -239,6 +251,9 @@ def state_dict_from_flax(params_np: dict, family: str) -> dict:
         if family == "cmp":                  # BatchNorm mean / var: buffers
             if leaf in ("mean", "var"):
                 name = f"running_{leaf}"
+            elif leaf == "kernel" and _cmp_transposed(mods):
+                # HWIO, flipped -> ConvTranspose2d's [I, O, kh, kw]
+                name, value = "weight", value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
             else:
                 name, value = _to_torch(leaf, value)
             key = ".".join(_cmp_parts(mods) + [name])

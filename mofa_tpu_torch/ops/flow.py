@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from mofa_tpu_torch.ops.consts import device_constant
 from mofa_tpu_torch.ops.resize import resize_nhwc
 
 
@@ -26,7 +27,9 @@ def rescale_flow(flow: torch.Tensor, height: int, width: int) -> torch.Tensor:
     if (h, w) == (height, width):
         return flow
     f = resize_nhwc(flow, (height, width), method="nearest")
-    scale = torch.tensor([width / w, height / h], dtype=f.dtype, device=f.device)
+    scale = device_constant(("flow_scale", width / w, height / h),
+                            lambda: torch.tensor([width / w, height / h], dtype=torch.float64),
+                            f.device, f.dtype)
     return f * scale
 
 

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from mofa_tpu_torch.ops.consts import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def interp_matrix(in_size: int, out_size: int, method: str = "bilinear",
@@ -69,8 +71,9 @@ def _acc(x: torch.Tensor) -> torch.dtype:
 
 
 def _matrix(in_size, out_size, method, align_corners, like: torch.Tensor):
-    m = interp_matrix(in_size, out_size, method, align_corners)
-    return torch.from_numpy(m).to(like.device, _acc(like))
+    return device_constant(("interp", in_size, out_size, method, align_corners),
+                           lambda: interp_matrix(in_size, out_size, method, align_corners),
+                           like.device, _acc(like))
 
 
 def resize_hw(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
@@ -94,8 +97,8 @@ def resize_nhwc(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear"
     if (h, w) == (oh, ow):
         return x
     if method == "nearest":
-        ih = torch.from_numpy(_nearest_index(h, oh)).to(x.device)
-        iw = torch.from_numpy(_nearest_index(w, ow)).to(x.device)
+        ih = device_constant(("nearest", h, oh), lambda: _nearest_index(h, oh), x.device)
+        iw = device_constant(("nearest", w, ow), lambda: _nearest_index(w, ow), x.device)
         return x.index_select(-3, ih).index_select(-2, iw)
     mh = _matrix(h, oh, method, align_corners, x)
     mw = _matrix(w, ow, method, align_corners, x)

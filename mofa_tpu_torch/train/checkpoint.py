@@ -6,9 +6,10 @@ resume in the reference, Training/train_stage1.py:1000-1028, 1177-1208):
 - `CheckpointManager` writes one `checkpoint-<step>.pt` (`torch.save`,
   read back with `weights_only=True`) every `save_interval_steps` steps,
   keeps the newest `max_to_keep`, and restores a step bit for bit: the
-  trainable parameters, the AdamW moments and step, the EMA, and whatever
-  the caller adds (the train app adds its generator's state and the data
-  stream's position);
+  trainable parameters, the optimizer's state (AdamW's moments and steps,
+  or the factored optimizer's v_row / v_col / v and its update count), the
+  EMA, and whatever the caller adds (the train app adds its generator's
+  and its mask RandomState's states);
 - `export_adapter` writes the adapter's state dict, with the EMA in place
   of the trained parameters where there is one, as .safetensors under the
   reference's names, which `apps/loaders.py::load_bundle` reads strictly;

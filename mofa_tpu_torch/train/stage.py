@@ -1,4 +1,4 @@
-"""EDM training step of the MOFA adapter (stage 1).
+"""EDM training step of the MOFA adapter (stages 1 and 2).
 
 Counterpart of mofa_tpu/train/stage.py (the reference's
 Training/train_stage1.py:1040-1166 inner loop):
@@ -15,7 +15,10 @@ Training/train_stage1.py:1040-1166 inner loop):
 - denoised = pred * c_out + c_skip * noisy, the (1 + s^2) / s^2-weighted
   MSE to the clean latents;
 - gradients reach only the adapter: the UNet, VAE and CLIP hold
-  requires_grad False (the UNet is differentiated through, not into).
+  requires_grad False (the UNet is differentiated through, not into);
+- with `ldmk=True` the adapter is an LdmkFlowControlNet and the batch's
+  rasterised landmark frames [B, T, H, W, 3] go to it (a library option,
+  as in the JAX package, whose train app always passes ldmk=False).
 
 The random draws (the VAE sample's eps, the noise, the sigmas, the
 dropout p) come from one `torch.Generator` in that order (`draw`), or are
@@ -89,10 +92,11 @@ def draw(generator: torch.Generator, bundle: ModelBundle, b: int, t: int,
 
 
 def edm_loss(controlnet, bundle: ModelBundle, batch: dict, draws: dict,
-             cond_dropout_prob: float | None = 0.1):
-    """batch: pixel_values01 [B, T, H, W, 3], flows [B, T-1, H, W, 2];
-    draws as `draw` returns them. Computes in the UNet's dtype (fp32 in
-    training, as the JAX package). Returns (loss, metrics)."""
+             cond_dropout_prob: float | None = 0.1, ldmk: bool = False):
+    """batch: pixel_values01 [B, T, H, W, 3], flows [B, T-1, H, W, 2], and
+    with ldmk landmarks [B, T, H, W, 3]; draws as `draw` returns them.
+    Computes in the UNet's dtype (fp32 in training, as the JAX package).
+    Returns (loss, metrics)."""
     dtype = params_dtype(bundle.unet)
     px01 = batch["pixel_values01"].to(dtype)
     flows = batch["flows"].to(dtype)
@@ -122,8 +126,10 @@ def edm_loss(controlnet, bundle: ModelBundle, batch: dict, draws: dict,
     inp = torch.cat([inp, cond_lat], dim=-1)
 
     ts = timesteps.reshape(b)
-    down, mid = controlnet(inp, ts, ehs, added_time_ids,
-                           controlnet_cond=pixels_pm1[:, 0], controlnet_flow=flows)
+    cn_args = dict(controlnet_cond=pixels_pm1[:, 0], controlnet_flow=flows)
+    if ldmk:
+        cn_args["landmarks"] = batch["landmarks"].to(dtype)
+    down, mid = controlnet(inp, ts, ehs, added_time_ids, **cn_args)
     pred = unet(inp, ts, ehs, added_time_ids, down, mid)
 
     denoised = pred * c_out + c_skip * noisy
@@ -142,7 +148,7 @@ def _sync(device) -> float:
 
 def make_train_step(bundle: ModelBundle, state, generator: torch.Generator,
                     cond_dropout_prob: float | None = 0.1, remat: bool = False,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, ldmk: bool = False):
     """Returns step(batch) -> metrics: `accum_steps` micro-batches (batch
     tensors with a leading [accum_steps] axis when it is above 1; replaces
     accelerator.accumulate, train_stage1.py:1040), each with its draws from
@@ -163,7 +169,7 @@ def make_train_step(bundle: ModelBundle, state, generator: torch.Generator,
         losses, sig = [], []
         for mb in micro:
             d = draw(generator, bundle, *mb["pixel_values01"].shape[:4])
-            loss, metrics = edm_loss(controlnet, bundle, mb, d, cond_dropout_prob)
+            loss, metrics = edm_loss(controlnet, bundle, mb, d, cond_dropout_prob, ldmk)
             (loss / accum_steps).backward()
             losses.append(metrics["loss"])
             sig.append(metrics["sigma_mean"])

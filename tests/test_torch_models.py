@@ -37,7 +37,7 @@ from mofa_tpu_torch.models.vae import (TINY_VAE_CONFIG,
                                        AutoencoderKLTemporalDecoder)
 from mofa_tpu_torch.models.weights import state_dict_from_flax
 from tests.torch_port_util import (jax_clip, jax_flow_controlnet, jax_unet,
-                                   jax_vae, sd_np, seeded, template)
+                                   jax_vae, jit_fast, sd_np, seeded, template)
 from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
                                    one_torch_thread)  # (both autouse)
 
@@ -112,7 +112,7 @@ def test_spatio_temporal_res_block_matches_jax():
     params = convert_torch_state_dict(tpl, sd_np(m))
     with torch.no_grad():
         got = m(_t(x.transpose(0, 3, 1, 2)), _t(temb), _t(ind))
-    ref = jax.jit(jm.apply)(params, x, temb, ind)
+    ref = jit_fast(jm.apply)(params, x, temb, ind)
     _close(got.permute(0, 2, 3, 1).numpy(), ref)
 
 
@@ -131,7 +131,7 @@ def test_transformer_spatio_temporal_matches_jax(quirk):
     params = convert_torch_state_dict(tpl, sd_np(m))
     with torch.no_grad():
         got = m(_t(x.transpose(0, 3, 1, 2)), _t(ehs), _t(ind))
-    ref = jax.jit(jm.apply)(params, x, ehs, ind)
+    ref = jit_fast(jm.apply)(params, x, ehs, ind)
     _close(got.permute(0, 2, 3, 1).numpy(), ref)
 
 
@@ -171,17 +171,17 @@ def test_adapter_and_unet_match_jax(unet_and_adapter):
         down, mid = cn(_t(sample), 15.3, _t(ehs), _t(ids),
                        precomputed_features=inject)
         out = unet(_t(sample), 15.3, _t(ehs), _t(ids), down, mid)
-    j_inject = jax.jit(lambda p, c, f: jc.apply(
+    j_inject = jit_fast(lambda p, c, f: jc.apply(
         p, c, f, method=type(jc).encode_features))(jc_p, cond, flow)
     for g, r in zip(inject, j_inject):
         _close(g.numpy(), r, rel=1e-5)
-    j_down, j_mid = jax.jit(lambda p, x, e, i, f: jc.apply(
+    j_down, j_mid = jit_fast(lambda p, x, e, i, f: jc.apply(
         p, x, 15.3, e, i, precomputed_features=f))(jc_p, sample, ehs, ids,
                                                    j_inject)
     assert len(down) == len(j_down) == 8
     for g, r in zip(down + (mid,), tuple(j_down) + (j_mid,)):
         _close(g.numpy(), r)
-    j_out = jax.jit(lambda p, x, e, i, d, m: ju.apply(
+    j_out = jit_fast(lambda p, x, e, i, d, m: ju.apply(
         p, x, 15.3, e, i, down_block_additional_residuals=d,
         mid_block_additional_residual=m))(ju_p, sample, ehs, ids, j_down, j_mid)
     _close(out.numpy(), j_out)
@@ -205,9 +205,9 @@ def test_vae_encode_decode_match_jax():
     with torch.no_grad():
         lat = vae.encode_mode(_t(img))
         frames = vae.decode(_t(z), 3)
-    _close(lat.numpy(), jax.jit(lambda p, x: jv.apply(
+    _close(lat.numpy(), jit_fast(lambda p, x: jv.apply(
         p, x, method=type(jv).encode_mode))(jv_p, img))
-    _close(frames.numpy(), jax.jit(lambda p, x: jv.apply(
+    _close(frames.numpy(), jit_fast(lambda p, x: jv.apply(
         p, x, 3, method=type(jv).decode))(jv_p, z))
 
 
@@ -223,7 +223,7 @@ def test_vae_mid_attention_runs_at_two_layers_per_block():
     z = np.random.RandomState(4).randn(2, 5, 6, 4).astype(np.float32)
     with torch.no_grad():
         frames = vae.decode(_t(z), 2)
-    _close(frames.numpy(), jax.jit(lambda p, x: jv.apply(
+    _close(frames.numpy(), jit_fast(lambda p, x: jv.apply(
         p, x, 2, method=type(jv).decode))(jv_p, z))
 
 
@@ -234,4 +234,4 @@ def test_clip_matches_jax():
     x = np.random.RandomState(5).rand(2, 48, 48, 3).astype(np.float32)
     with torch.no_grad():
         got = clip(_t(x))
-    _close(got.numpy(), jax.jit(jm.apply)(jp, x))
+    _close(got.numpy(), jit_fast(jm.apply)(jp, x))

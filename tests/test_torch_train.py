@@ -75,9 +75,9 @@ from mofa_tpu_torch.train.state import STAGE2_FROZEN, TrainState, freeze_mask
 from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
                                    one_torch_thread)  # (both autouse)
 from tests.torch_port_util import (_cached_templates, _tree, jax_clip,
-                                   jax_flow_controlnet,
-                                   jax_unet, jax_vae, sd_np, shapes_of,
-                                   template_key, trace_tree)
+                                   jax_flow_controlnet, jax_ldmk_controlnet,
+                                   jax_unet, jax_vae, jit_fast, sd_np, seeded,
+                                   shapes_of, template_key, trace_tree)
 
 CLIP_KW = dict(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
                patch_size=16, image_size=48, projection_dim=32)
@@ -106,7 +106,7 @@ def _grads(fn, inputs, cot):
 def _jax_vjp(fn, args, cot):
     """jax.vjp of fn at args applied to cot, as one jit program (eager
     dispatch of the interpret-mode kernels costs several times more)."""
-    return jax.jit(lambda a, c: jax.vjp(fn, *a)[1](c))(tuple(args), cot)
+    return jit_fast(lambda a, c: jax.vjp(fn, *a)[1](c))(tuple(args), cot)
 
 
 def _as_card(monkeypatch, mod, **launches):
@@ -311,7 +311,7 @@ def test_edm_loss_matches_jax(micro):
     rng = np.random.RandomState(9)
     batch = {"pixel_values01": rng.rand(b, t, h, w, 3).astype(np.float32),
              "flows": (rng.randn(b, t - 1, h, w, 2) * 2).astype(np.float32)}
-    want = float(jax.jit(lambda p, bt, k: j_edm_loss(p, jb, bt, k, cond_dropout_prob=q)[0])(
+    want = float(jit_fast(lambda p, bt, k: j_edm_loss(p, jb, bt, k, cond_dropout_prob=q)[0])(
         jb.controlnet_params, batch, key))
     tb = {k_: _t(v) for k_, v in batch.items()}
     draws = _jax_draws(key, b, t, lat)
@@ -322,6 +322,36 @@ def test_edm_loss_matches_jax(micro):
         none_q, _ = edm_loss(bundle.controlnet, bundle, tb, kept, q)
     assert abs(float(got) - want) <= 1e-4 * abs(want), (float(got), want)
     assert float(none) == float(none_q) and float(none) != float(got)
+
+
+def test_edm_loss_ldmk_matches_jax(micro):
+    """`edm_loss(ldmk=True)`: a MICRO LdmkFlowControlNet in the bundle's
+    place, the batch's rasterised landmark frames [B, T, H, W, 3] passed to
+    it; B = 4, T = 2, 64 x 64, JAX's draws: relative 1e-4 to JAX's
+    edm_loss(ldmk=True) (one jit). Blank landmark frames change the loss."""
+    import dataclasses
+    from mofa_tpu_torch.models.mofa_adapter import LdmkFlowControlNet
+    bundle, jb = micro
+    ldmk = seeded(LdmkFlowControlNet(MICRO_UNET_CONFIG), 17)
+    jcn, jcn_p = jax_ldmk_controlnet(J_MICRO, ldmk)
+    jb = dataclasses.replace(jb, controlnet=jcn, controlnet_params=jcn_p)
+    bundle = dataclasses.replace(bundle, controlnet=ldmk)
+    b, t, h, w = 4, 2, 64, 64     # test_edm_loss_matches_jax's shapes: JAX's traces reused
+    rng = np.random.RandomState(18)
+    batch = {"pixel_values01": rng.rand(b, t, h, w, 3).astype(np.float32),
+             "flows": (rng.randn(b, t - 1, h, w, 2) * 2).astype(np.float32),
+             "landmarks": (rng.rand(b, t, h, w, 3) > 0.97).astype(np.float32)}
+    key = jax.random.PRNGKey(19)
+    want = float(jit_fast(lambda p, bt, k: j_edm_loss(p, jb, bt, k, cond_dropout_prob=0.1,
+                                                      ldmk=True)[0])(jcn_p, batch, key))
+    with torch.no_grad():
+        got, _ = edm_loss(ldmk, bundle, {k_: _t(v) for k_, v in batch.items()},
+                          _jax_draws(key, b, t, (h // 8, w // 8, 4)), 0.1, ldmk=True)
+        blank, _ = edm_loss(ldmk, bundle, {k_: _t(v) for k_, v in dict(
+            batch, landmarks=np.zeros_like(batch["landmarks"])).items()},
+            _jax_draws(key, b, t, (h // 8, w // 8, 4)), 0.1, ldmk=True)
+    assert abs(float(got) - want) <= 1e-4 * abs(want), (float(got), want)
+    assert float(blank) != float(got)
 
 
 def _micro_loss(bundle, cn, dtype, seed=10):
@@ -555,21 +585,44 @@ def test_flow_cache_round_trip_fingerprint_and_contains(tmp_path):
         TeacherFlowCache(str(tmp_path), other)
 
 
+class _WithPreds:
+    """A JAX GMFlow for `get_optical_flows` whose apply runs the training
+    mode (return_preds) and keeps the predictions, returning the flow."""
+
+    def __init__(self, module):
+        self.module, self.preds = module, None
+
+    def apply(self, params, img0, img1):
+        flow, self.preds = self.module.apply(params, img0, img1, return_preds=True)
+        return flow
+
+
 def test_tiny_gmflow_matches_jax_and_loads_strictly():
     """The tiny teacher (2 layers, 2 refinements) at 64 x 96 on a 3-frame
     clip, on UniMatch-named weights carried to Flax by mofa_tpu's
     converter: relative 1e-4 to JAX's get_optical_flows (op by op: its
-    81-tap loops make a jit program dearer to lower and compile). `load_gmflow` takes `module.` prefixes and drops
-    `upsampler.` keys; a missing key raises."""
+    81-tap loops make a jit program dearer to lower and compile); the same
+    JAX call run in the training mode, whose return_preds predictions (one
+    a scale, one a refinement, at full size) the port's forward with
+    return_preds gives within 1e-4, its flow the teacher's. `load_gmflow`
+    takes `module.` prefixes and drops `upsampler.` keys; a missing key
+    raises."""
     m = init_random_(GMFlow(TINY_GMFLOW_CONFIG), torch.Generator().manual_seed(2)).eval()
     jcfg = JGMFlowConfig(num_transformer_layers=2, num_reg_refine=2)
-    jm = JGMFlow(jcfg)
+    jm = _WithPreds(JGMFlow(jcfg))
     size = (64, 96)
     jp = convert_gmflow_state_dict(_tree("gmflow", jcfg), sd_np(m))
     vid = np.random.RandomState(3).rand(1, 3, 64, 96, 3).astype(np.float32)
     got = get_optical_flows(m, _t(vid), size).numpy()
     want = np.asarray(j_optical_flows(jm, jp, jnp.asarray(vid), size))
     _close(got, want, 1e-4)
+    px = _t(vid * 255.0)
+    with torch.no_grad():
+        flow, preds = m(px[:, 0].expand(2, -1, -1, -1), px[0, 1:], return_preds=True)
+    _close(flow.numpy(), want[0], 1e-4)
+    assert len(preds) == len(jm.preds) == jcfg.num_scales + jcfg.num_reg_refine
+    for g, r in zip(preds, jm.preds):
+        _close(g.numpy(), r, 1e-4)
     sd = {"module." + k: v for k, v in m.state_dict().items()}
     sd["upsampler.0.weight"] = torch.zeros(1)
     other = load_gmflow(GMFlow(TINY_GMFLOW_CONFIG), sd)
@@ -720,10 +773,13 @@ def test_gradient_accumulation_averages_the_micro_batches(micro, monkeypatch):
 
 
 def test_train_app_refuses_what_is_not_ported(tmp_path):
-    """--stage 2, the mesh, CMP options and --use_8bit_adam exit naming
-    their ROADMAP item, before any model is built."""
-    for extra in (["--stage", "2"], ["--mesh_data", "2"], ["--cmp_ckpt", "x"],
+    """The mesh options exit naming their ROADMAP item, before any model is
+    built; stage 2, the CMP options, --overlap_inputs and --use_8bit_adam
+    are ported and pass the refusal check."""
+    args = _train_args(str(tmp_path), "none.csv", "none", str(tmp_path), "--mesh_data", "2")
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 13"):
+        train_app.run(args)
+    for extra in (["--stage", "2"], ["--cmp_ckpt", "x"], ["--cmp_bf16"],
                   ["--overlap_inputs"], ["--use_8bit_adam"]):
-        args = _train_args(str(tmp_path), "none.csv", "none", str(tmp_path), *extra)
-        with pytest.raises(SystemExit, match="ROADMAP Queue 1"):
-            train_app.run(args)
+        train_app.refuse_unported(_train_args(str(tmp_path), "none.csv", "none",
+                                              str(tmp_path), *extra))

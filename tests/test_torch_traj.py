@@ -206,22 +206,25 @@ def test_drag_tracks_to_video_matches_jax(pair, cmp_pair, with_brush):
 
 def test_port_imports_neither_jax_nor_mofa_tpu():
     """Every module of the port (walked, not listed; the walk must reach the
-    training slice's train/ and models/gmflow/ modules) and chip_smoke.py
-    import in a fresh interpreter without jax, flax or mofa_tpu."""
+    training slices' train/, models/gmflow/ and models/cmp/ modules and the
+    trainer apps) and chip_smoke.py import in a fresh interpreter without
+    jax, flax, optax or mofa_tpu."""
     code = ("import importlib, pkgutil, sys, mofa_tpu_torch, chip_smoke;"
             "mods = [m.name for m in pkgutil.walk_packages("
             "mofa_tpu_torch.__path__, 'mofa_tpu_torch.')];"
             "[importlib.import_module(m) for m in mods];"
             "want = {'mofa_tpu_torch.apps.' + a for a in ('hybrid_app', 'keypoint_app',"
-            " 'audio2ldmk_app', 'opendomain_app', 'train_app')} | {'mofa_tpu_torch.pipelines.keypoint',"
+            " 'audio2ldmk_app', 'opendomain_app', 'train_app', 'train_cmp_app',"
+            " 'train_flow_app', 'eval_flow_app')} | {'mofa_tpu_torch.pipelines.keypoint',"
             " 'mofa_tpu_torch.models.audio.wav2vec2', 'mofa_tpu_torch.models.audio.aniportrait',"
-            " 'mofa_tpu_torch.models.gmflow.model', 'mofa_tpu_torch.ops.edm'} | {"
+            " 'mofa_tpu_torch.models.gmflow.model', 'mofa_tpu_torch.models.gmflow.train',"
+            " 'mofa_tpu_torch.models.cmp.train', 'mofa_tpu_torch.ops.edm'} | {"
             "'mofa_tpu_torch.train.' + t for t in ('stage', 'state', 'checkpoint', 'sampler',"
-            " 'data', 'flow_cache', 'inputs')};"
+            " 'data', 'flow_cache', 'inputs', 'flow_sampler', 'flow_datasets')};"
             "assert len(mods) > 40 and want <= set(mods), (want - set(mods), mods);"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'mofa_tpu' or m.startswith('mofa_tpu.') or m == 'flax'"
-            " or m.startswith('flax.')];"
+            " or m.startswith('flax.') or m == 'optax' or m.startswith('optax.')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

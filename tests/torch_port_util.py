@@ -103,6 +103,28 @@ def flax_apply_without_shape_recheck():
     flax.core.scope.Scope.param = _FLAX_PARAM
 
 
+# XLA CPU compile options for one-shot test programs: the backend's
+# optimisation off and LLVM's expensive passes skipped (the MICRO edm_loss
+# compiles in about 12 s instead of about 40; fp32 math either way)
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def jit_fast(fn):
+    """jax.jit(fn), each new argument signature compiled with FAST_COMPILE
+    (the compiled programs kept per signature)."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(compiler_options=FAST_COMPILE)
+        return compiled[key](*args)
+
+    return call
+
+
 def seeded(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     return init_random_(module, torch.Generator().manual_seed(seed)).eval()
 
