@@ -19,8 +19,11 @@ Phases, each printed as it finishes:
      PyTorch call's times (CUDA events, median of 5) and, for the FFN,
      GroupNorm and fused-conv kernels, the stock chain the port's models
      run; flash also timed beside SDPA at each of the main path's sites
-     (B*T = 50; no plain version: its logits would not fit); the FFN at
-     both widths, and its bf16 route's three stages (LN pass, gate GEMM,
+     (B*T = 50; no plain version: its logits would not fit); the fp32
+     routes (split TF32) of flash and the FFN timed at the stage-1
+     training shapes beside their plain versions, SDPA's fp32 forward and
+     the stock fp32 chain, with their split-TF32 and CUDA-core bounds;
+     the FFN at both widths, and its bf16 route's three stages (LN pass, gate GEMM,
      out GEMM) each alone against its plain stage, timed beside one
      cuBLAS call of the same product, with the gate GEMM's "ilv" and
      "pipe" schedules checked and timed beside plain's; softsplat at the
@@ -29,8 +32,8 @@ Phases, each printed as it finishes:
      whole 'avg' call timed against the wrapper path before the
      redesign; each fused conv's two stages (activation pass, wgmma GEMM
      over 9 or 3 taps) each alone, timed beside one cuDNN conv of the
-     same product; then planted faults, which the bf16 bounds must
-     reject;
+     same product; then planted faults, which the fp32 and bf16 bounds
+     must reject;
      3b. the FFN variants (tools/bench_ffn.py's A/B): plain, ilv, pipe,
      tanh, geglu_ffn and the stock chain at the main path's three FF
      shapes, their agreement with "plain" and one pass's launch counts;
@@ -193,14 +196,19 @@ def time_queued_ms(fn, calls: int = 20) -> float:
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # the least time a kernel could take is the larger of its bytes over the
 # memory rate and its operations over the peak rate for their type.
+# "split_tf32": fp32 products as three TF32 products (small * big + big *
+# small + big * big) on the tensor cores, 495 TFLOP/s dense TF32, so an
+# fp32 operation costs three; the fp32 routes' least time ("fp32": the
+# CUDA cores' FMA, printed beside it).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "split_tf32": 495e12 / 3}
 
 
 def bound(ops: float, nbytes: float, kind: str) -> tuple:
     """(bound_ms, "bytes" or "operations") for work of `ops` operations
-    of type `kind` (bf16 tensor core, or fp32 outside the tensor cores)
-    that must move `nbytes` bytes."""
+    of type `kind` (bf16 tensor core, fp32 outside the tensor cores, or
+    fp32 as split TF32 on the tensor cores) that must move `nbytes`
+    bytes."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -253,9 +261,14 @@ KERNEL_META = {
 
 # Bounds on a kernel's agreement with its plain version.
 # fp32: max |kernel - plain| <= tol, or for a (max_rel, rms_rel) pair the
-# relative bounds below. Both sides are exact fp32 math in another
-# summation order (atomics for the splat and the channel sums, tiles for
-# the rest); the channel sums grow with S, so their bound is relative.
+# relative bounds below. Both sides are fp32 math in another summation
+# order (atomics for the splat and the channel sums, tiles for the rest);
+# the channel sums grow with S, so their bound is relative. Flash and the
+# FFN take their fp32 products as split TF32 (three TF32 products, about
+# 22 bits): their bounds sit a few times above those routes' sound
+# readings on an H100 (flash 1.9e-6, the FFN 1.1e-5 at 14,400 x 640) and
+# an order of magnitude below a single TF32 product's (2.6e-4 and 2.0e-3,
+# planted faults).
 # bf16: (max_rel, rms_rel): max |diff| <= max_rel * max |plain| and
 # ||diff|| / ||plain|| <= rms_rel. The plain versions round P (attention)
 # and the LN output and the GEMM1 result (FFN) to bf16 at other points
@@ -268,8 +281,8 @@ KERNEL_META = {
 # the plain version in fp32 on their upcast inputs (TF32 off). The bounds
 # sit a few times above the sound readings and below those of the planted
 # faults, which `planted_faults` checks on every run (readings in PERF.md).
-TOL_FP32 = {"flash_attention": 1e-4, "short_attention_tmajor": 1e-4,
-            "short_attention": 1e-4, "ln_geglu_ffn": 1e-3, "softsplat": 1e-4,
+TOL_FP32 = {"flash_attention": 2e-5, "short_attention_tmajor": 1e-4,
+            "short_attention": 1e-4, "ln_geglu_ffn": 5e-5, "softsplat": 1e-4,
             "channel_sums": (1e-5, 1e-5)}
 TOL_BF16 = {"flash_attention": (2e-2, 7e-3),
             "softsplat": (1e-2, 1e-3),
@@ -376,6 +389,14 @@ def _check(results, name, dtype_name, label, kernel_fn, plain_fn, time_it,
     torch.cuda.empty_cache()
 
 
+def fp32_cores_bound(r: dict, work: tuple, suffix: str) -> None:
+    """An fp32 row's bound on the CUDA cores (FMA at 67 TFLOP/s), beside
+    its split-TF32 bound (`bound_ms`): `bound_cores_ms` + suffix."""
+    ms, by = bound(work[0], work[1], "fp32")
+    r["bound_cores_ms" + suffix] = ms
+    log(f"  {'':24s}      bound on the CUDA cores {ms:.3f} ms ({by})")
+
+
 def ffn_operands(g, c: int, rows: int, dtype, tail: bool = False):
     """(x [rows, c], LN scale and shift [c] fp32, w0 [8c, c], b0 [8c],
     w2 [c, 4c], b2 [c]) drawn from generator g, on its device. tail: the
@@ -433,8 +454,12 @@ def short_walk_warps(d: int) -> int:
 
 
 def planted_faults() -> list:
-    """The bf16 kernels held, with the bf16 bounds, against the plain
-    version of a faulty kernel: one that skips a 64-key tile (flash,
+    """The kernels held, with the bounds of their dtype, against the plain
+    version of a faulty kernel. In fp32: one that takes one TF32 product
+    for each fp32 product, dropping the split's two correction products
+    (FFN at 57,600 x 320, flash at [25, 2304, 5, 64]), skips the out
+    GEMM's last k-tile of 32 (FFN) or skips a 64-key tile at a ragged L
+    (flash, L=1000). In bf16: one that skips a 64-key tile (flash,
     L=9216), leaves the ragged tail's zero-filled keys unmasked (flash,
     L=1000), consumes a ring stage before its barrier completes (flash:
     key tile 3 read as the stale tile 0 of the same stage), skips the last
@@ -461,11 +486,15 @@ def planted_faults() -> list:
     one must MISS; returns the labels of those that passed."""
     import torch
     from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.kernels import tf32_round
     from mofa_tpu_torch.kernels.attention import attention_plain
     from mofa_tpu_torch.kernels.conv_fused import (gn_silu_conv3x3,
                                                    gn_silu_tconv3)
     from mofa_tpu_torch.kernels.flash_attention import flash_attention
-    from mofa_tpu_torch.kernels.geglu_ffn import geglu_ffn, ln_geglu_ffn
+    from mofa_tpu_torch.kernels.geglu_ffn import (ffn_gemm_gate_plain,
+                                                  ffn_gemm_out_plain,
+                                                  ffn_ln_rows_plain, geglu_ffn,
+                                                  ln_geglu_ffn)
     from mofa_tpu_torch.kernels.group_norm import (channel_sums,
                                                    channel_sums_plain,
                                                    slab_rows)
@@ -568,6 +597,36 @@ def planted_faults() -> list:
         # tanh: the erf function, at the negative-tail gate inputs
         return lambda: ln_geglu_ffn(*args, variant="tanh"), lambda: ln_geglu_ffn(*args)
 
+    def ffn32_case(fault):
+        c = 320
+        args = ffn_operands(g, c, 57600, torch.float32)
+        x, ls, lb, w0, b0, w2, b2 = args
+        if fault == "1xtf32":
+            def one_product():
+                xn = ffn_ln_rows_plain(x, ls, lb)
+                h = ffn_gemm_gate_plain(tf32_round(xn), tf32_round(w0), b0)
+                return ffn_gemm_out_plain(tf32_round(h), tf32_round(w2), b2, x)
+            return lambda: ln_geglu_ffn(*args), one_product
+        w2f = w2.clone()                    # the out GEMM's last k-tile of 32
+        w2f[:, -32:] = 0
+        return (lambda: ln_geglu_ffn(*args),
+                lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2f, b2))
+
+    def flash32_case(fault):
+        rn32 = lambda *s: torch.randn(*s, generator=g, device=dev)
+        if fault == "1xtf32":
+            q, k, v = (rn32(25, 2304, 5, 64) for _ in range(3))
+
+            def one_product():
+                qh, kh, vh = (tf32_round(t).transpose(1, 2) for t in (q, k, v))
+                p = torch.softmax(qh @ kh.transpose(-1, -2) * 64 ** -0.5, dim=-1)
+                return (tf32_round(p) @ vh).transpose(1, 2)
+            return lambda: flash_attention(q, k, v), one_product
+        q, k, v = (rn32(2, 1000, 5, 64) for _ in range(3))
+        keep = torch.cat([torch.arange(64), torch.arange(128, 1000)]).to(dev)
+        return (lambda: flash_attention(q, k, v),
+                lambda: flash_attention(q, k[:, keep], v[:, keep]))
+
     def sums_case():
         x3 = randn(50, 9216, 320, mean=0.5)
         cut = x3.shape[1] - slab_rows(320, bf)
@@ -662,7 +721,15 @@ def planted_faults() -> list:
         fn = gn_silu_tconv3 if temporal else gn_silu_conv3x3
         return (lambda: fn(x, a, b, w, bias), lambda: fn(x, a, b, wf, bias))
 
-    cases = [("flash_attention", "B=2 L=9216 H=5 D=64, keys 64-127 skipped",
+    cases = [("flash_attention", "B=25 L=2304 H=5 D=64, one TF32 product",
+              lambda: flash32_case("1xtf32"), "fp32"),
+             ("flash_attention", "B=2 L=1000 H=5 D=64, keys 64-127 skipped",
+              lambda: flash32_case("tile"), "fp32"),
+             ("ln_geglu_ffn", "rows=57600 C=320, one TF32 product",
+              lambda: ffn32_case("1xtf32"), "fp32"),
+             ("ln_geglu_ffn", "rows=57600 C=320, out GEMM last k-tile",
+              lambda: ffn32_case("ktile"), "fp32"),
+             ("flash_attention", "B=2 L=9216 H=5 D=64, keys 64-127 skipped",
               lambda: flash_case(9216, "tile")),
              ("flash_attention", "B=2 L=1000 H=5 D=64, tail unmasked",
               lambda: flash_case(1000, "tail")),
@@ -713,15 +780,16 @@ def planted_faults() -> list:
              ("gn_silu_tconv3", "[2, 25, 9216, 320]->320, t+1 box at frame t",
               lambda: tconv_case("tap"))]
     passed = []
-    for name, label, make in cases:
+    for name, label, make, *dn in cases:
+        dn = dn[0] if dn else "bf16"
         with torch.no_grad():
             kernel_fn, faulty_fn = make()
             got = kernel_fn()
             with kernels.plain_reference():
                 bad = faulty_fn()
-            fine, err, ref_max, rms = judge(name, "bf16", got, bad)
+            fine, err, ref_max, rms = judge(name, dn, got, bad)
         caught = not fine
-        log(f"  {name:24s} bf16 {label:44s} max|diff| {err:.3e} max|ref| "
+        log(f"  {name:24s} {dn:4s} {label:44s} max|diff| {err:.3e} max|ref| "
             f"{ref_max:.3e} rel rms {rms:.3e} "
             f"{'MISS, as it must' if caught else 'PASSED: bounds too loose'}")
         if not caught:
@@ -1024,6 +1092,17 @@ def phase_kernels() -> dict:
                    lambda: flash_attention(q, k, v), timed and dn == "bf16",
                    library_fn=sdpa(q, k, v) if timed and dn == "bf16" else None,
                    work=(4 * B * H * L * L * D, 4 * nbytes(q), "bf16"))
+    # the fp32 route at the stage-1 training site (384^2, 25 frames, /8),
+    # timed beside its plain version and SDPA's fp32 forward (keys end in
+    # _fp32; the bound split TF32's, the CUDA cores' beside it)
+    q, k, v = (randn(25, 2304, 5, 64) for _ in range(3))
+    work = (4 * 25 * 5 * 2304 ** 2 * 64, 4 * nbytes(q), "split_tf32")
+    _check(results, "flash_attention", "fp32", "B=25 L=2304 H=5 D=64",
+           lambda: flash_attention(q, k, v), lambda: flash_attention(q, k, v), True,
+           library_fn=sdpa(q, k, v), work=work, suffix="_fp32")
+    fp32_cores_bound(results["flash_attention"], work, "_fp32")
+    del q, k, v
+    torch.cuda.empty_cache()
     # flash at the main path's own /8 shape, B*T = 50 (7 of its 21 launches
     # a step): the kernel and SDPA, no plain version
     q, k, v = (randn(50, 9216, 5, 64, dtype=torch.bfloat16) for _ in range(3))
@@ -1084,23 +1163,27 @@ def phase_kernels() -> dict:
                    if dn == "bf16" else None,
                    library_fn=sdpa(q, k, v) if timed and dn == "bf16" else None,
                    work=(4 * B * H * L * L * 64, 4 * nbytes(q), "bf16"))
-    # ln_geglu_ffn: rows of the /8 (C=320) and /16 (C=640) sites, both
-    # timed (the C=640 keys end in _c640); fp32 on a row cut (its kernel is
-    # the plain-FMA correctness path); chain: the stock LayerNorm + Linear
-    # + gelu gate + Linear + add
-    for C, R, suffix in ((320, 460800, ""), (640, 115200, "_c640")):
+    # ln_geglu_ffn: rows of the /8 (C=320) and /16 (C=640) sites in bf16,
+    # and in fp32 the training sites' rows (384^2, 25 frames: 57,600 at
+    # C=320, 14,400 at C=640, whose last row tile is ragged), all timed
+    # (keys: the C=640 ones end in _c640, the fp32 ones in _fp32); chain:
+    # the stock LayerNorm + Linear + gelu gate + Linear + add (TF32 off).
+    # The fp32 bound is split TF32's, the CUDA cores' printed beside it
+    # (`bound_cores_ms` keys).
+    for C, R, R32, suffix in ((320, 460800, 57600, ""), (640, 115200, 14400, "_c640")):
         for dn in ("bf16", "fp32"):
-            rows = R if dn == "bf16" else 16384 + 7
+            rows = R if dn == "bf16" else R32
             args = ffn_operands(g, C, rows, dts[dn])
             x, ls, lb, w0, b0, w2, b2 = args
-            timed_here = dn == "bf16"
+            sfx = suffix if dn == "bf16" else "_fp32" + suffix
+            work = (24 * rows * C * C, 2 * nbytes(x) + nbytes(w0, w2),
+                    "bf16" if dn == "bf16" else "split_tf32")
             _check(results, "ln_geglu_ffn", dn, f"rows={rows} C={C}",
                    lambda: ln_geglu_ffn(*args), lambda: ln_geglu_ffn(*args),
-                   timed_here,
-                   chain_fn=(lambda: ffn_chain(x, (ls, lb), *args[3:]))
-                   if timed_here else None,
-                   work=(24 * rows * C * C, 2 * nbytes(x) + nbytes(w0, w2),
-                         "bf16"), suffix=suffix)
+                   True, chain_fn=lambda: ffn_chain(x, (ls, lb), *args[3:]),
+                   work=work, suffix=sfx)
+            if dn == "fp32":
+                fp32_cores_bound(results["ln_geglu_ffn"], work, sfx)
         del args, x, w0, w2
         ffn_stages(results, g, C, R)
     # the bf16 route at a ragged row count (a partial last row tile)
@@ -1519,9 +1602,13 @@ def phase_backward(kres: dict, g, card: str) -> list:
                                                    else time_ms(fwd_library))
             f_ms, f_by = bound(*fwd_work)
             r["train_fwd_bound_ms_" + dn], r["train_fwd_bound_by_" + dn] = f_ms, f_by
-            line += (f"  fwd {r['train_fwd_ms_' + dn]:.3f} ms (bound {f_ms:.3f}, {f_by}"
-                     + ("" if fwd_library is None else
-                        f"; SDPA fwd {r['train_fwd_library_ms_' + dn]:.3f}") + ")")
+            line += f"  fwd {r['train_fwd_ms_' + dn]:.3f} ms (bound {f_ms:.3f}, {f_by}"
+            if fwd_work[2] == "split_tf32":       # the fp32 forward on split TF32
+                r["train_fwd_bound_cores_ms_" + dn] = bound(fwd_work[0], fwd_work[1],
+                                                            "fp32")[0]
+                line += f"; CUDA cores {r['train_fwd_bound_cores_ms_' + dn]:.3f}"
+            line += ("" if fwd_library is None else
+                     f"; SDPA fwd {r['train_fwd_library_ms_' + dn]:.3f}") + ")"
             r["bwd_ms_" + dn] = time_ms(bwd_fn)
             line += f"  bwd {r['bwd_ms_' + dn]:.3f} ms"
             b_ms, b_by = bound(*work)
@@ -1546,6 +1633,8 @@ def phase_backward(kres: dict, g, card: str) -> list:
         return lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True)
 
     for dn, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        # flash's and the FFN's fp32 forwards run on split TF32
+        fwd_kind = "split_tf32" if dn == "fp32" else dn
         for i, (B, L, H, D) in enumerate(BWD_FLASH):
             q, k, v, cot = (randn(B, L, H, D, dt=dt) for _ in range(4))
             with torch.no_grad():
@@ -1563,7 +1652,7 @@ def phase_backward(kres: dict, g, card: str) -> list:
                   work=(10 * B * H * L * L * D, 8 * nbytes(q), dn),
                   library=sdpa_bwd(t4(q), t4(k), t4(v), t4(cot)) if i == 0 else None,
                   fault=dropped_chunk if i == 0 else None,
-                  fwd_work=(4 * B * H * L * L * D, 4 * nbytes(q), dn),
+                  fwd_work=(4 * B * H * L * L * D, 4 * nbytes(q), fwd_kind),
                   fwd_library=(lambda a=t4(q), b_=t4(k), c=t4(v):
                                F.scaled_dot_product_attention(a, b_, c)) if i == 0 else None)
             del q, k, v, cot, out
@@ -1600,7 +1689,8 @@ def phase_backward(kres: dict, g, card: str) -> list:
                   i == 0, bwd_fn=lambda: gm.ln_ffn_backward(*args, cot),
                   work=(48 * R * C * C, 4 * nbytes(args[0]) + 2 * nbytes(*args[3:]), dn),
                   fault=no_dgamma if i == 0 else None,
-                  fwd_work=(24 * R * C * C, 2 * nbytes(args[0]) + nbytes(*args[1:]), dn))
+                  fwd_work=(24 * R * C * C, 2 * nbytes(args[0]) + nbytes(*args[1:]),
+                            fwd_kind))
             del args, cot
         for i, (h, w, c) in enumerate(BWD_SPLAT):
             src, flow, _ = splat_inputs(g, h, w, c, dt, sources=1)
@@ -3072,13 +3162,13 @@ def main() -> None:
     # 3. kernels vs plain versions
     log("[kernels] kernel vs plain version on the card")
     kres = phase_kernels()
-    log("[kernels] planted faults against the bf16 bounds")
+    log("[kernels] planted faults against the fp32 and bf16 bounds")
     loose = planted_faults()
     bad = [n for n, r in kres.items() if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     if loose:
-        fail(f"the bf16 bounds let planted faults pass: {loose}")
+        fail(f"the bounds let planted faults pass: {loose}")
     log("[kernels] all within tolerance; every planted fault caught")
 
     # 3b. the FFN variants at the main path's FF shapes
@@ -3200,7 +3290,10 @@ def main() -> None:
              "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint",
              "ms_keypoint16", "plain_ms_keypoint16", "library_ms_keypoint16",
              "bound_ms_keypoint16", "bound_by_keypoint16", "train_launches",
-             "stage2_launches") + tuple(
+             "stage2_launches", "train_fwd_bound_cores_ms_fp32") + tuple(
+                 k + s for s in ("_fp32", "_fp32_c640")
+                 for k in ("ms", "plain_ms", "library_ms", "chain_ms", "bound_ms",
+                           "bound_by", "bound_cores_ms")) + tuple(
                  f"{k}_{d}" for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by",
                                       "bwd_library_ms", "bwd_max_rel_err",
                                       "train_fwd_ms", "train_fwd_bound_ms",

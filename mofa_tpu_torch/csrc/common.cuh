@@ -119,6 +119,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
 }
+// TMA: the box of a 3-D tensor map at coordinates (c0 innermost .. c2) into
+// shared memory at `dst`; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
 // TMA: the box of a 2-D tensor map at coordinates (c0 innermost, c1) into
 // shared memory at `dst`; completion is counted in bytes on `bar`
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar,

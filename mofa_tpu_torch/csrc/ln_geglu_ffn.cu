@@ -112,8 +112,35 @@
 //   that runs no epilogue at the time.
 // Bound of either gate GEMM: operations, 2 M C 8C (0.763 ms at M =
 // 460,800, C = 320).
-// fp32 (composition checks, tests; plain variant only): the chunked
-// schedule in plain FMA, 16 rows per block, exact fp32.
+// fp32 plain (training: stage 1 and stage 2 run the adapter in fp32;
+// composition checks): the bf16 route's three stages on split TF32. The
+// plain version computes in full fp32 (TF32 off), and one TF32 product
+// keeps about 11 bits, so every GEMM operand is split into big = tf32(x)
+// and small = tf32(x - big) and each product is small * big + big * small
+// + big * big on `wgmma` (tf32, k8) with fp32 accumulation: about 22 bits.
+// Bound: operations, 3 x 24 M C^2 against 495 TFLOP/s dense TF32 (0.86 ms
+// at M = 57,600, C = 320 and at M = 14,400, C = 640, the training sites;
+// 2.11 ms of fp32 FMA on the CUDA cores). tf32 `wgmma` reads both operands
+// K-major, which all four are here (xn, W0, h, W2). The design:
+// - `split_planes_kernel`: W0 and W2 into big / small planes once a call
+//   (4.9 MB at C = 320);
+// - `ffn_ln_split_kernel`: xn = LN(x) in fp32, written as its two planes;
+// - `ffn_gemm_f32_kernel<C, true>`: h = (a + b0) * gelu_erf(g + b0') from
+//   three products a k8 step over the planes in shared memory, a tile of
+//   128 rows x 64 gate columns (W0's a and g boxes back to back: one
+//   m64n128k8 a product), h stored as its two planes;
+// - `ffn_gemm_f32_kernel<C, false>`: out = h W2^T + b2 + x, a tile of 128
+//   rows x 160 columns (m64n160k8).
+// Both GEMMs keep the bf16 GEMM's shape (persistent, a TMA producer
+// warpgroup, two consumer warpgroups, a ring of three stages of k = 32:
+// each stage carries A's and B's two planes, 64 / 72 KB). A consumer
+// takes a k-tile's 12 products into a fresh accumulator and adds it to
+// the tile's sum in fp32: the tensor cores' accumulation truncates. The
+// A operands' planes go through device memory (xn and h twice, 2.2 GB at
+// 57,600 x 320, about 0.4 ms at 3.35 TB/s beside the 0.86 ms of
+// products): both operands of a shared-memory `wgmma` are read as they
+// lie, so each is split where it is written. The gate is the plain
+// version's gelu, fp32 erf.
 #include <algorithm>
 
 #include "hopper.cuh"
@@ -123,7 +150,6 @@ using bf16 = __nv_bfloat16;
 namespace {
 
 constexpr float LN_EPS = 1e-5f;
-constexpr int KC = 32;     // inner chunk of the fp32 path
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return 0.5f * g * (1.0f + erff(g * 0.70710678118654752f));
@@ -133,7 +159,6 @@ __device__ __forceinline__ float gelu_erf(float g) {
 __device__ __forceinline__ float gelu_tanh(float g) {
   return 0.5f * g * (1.0f + tanhf(0.7978845608028654f * (g + 0.044715f * g * g * g)));
 }
-__device__ __forceinline__ float gelu_gate(float a, float g) { return a * gelu_erf(g); }
 // erf as Abramowitz-Stegun 7.1.26 (max abs error 1.5e-7), the TPU
 // kernel's own formula: one reciprocal, five FMAs and one exp2
 __device__ __forceinline__ float gelu_erf_as(float g) {
@@ -166,93 +191,6 @@ __device__ __forceinline__ float gate_ftz(float a, float g) {
 template <int GELU>
 __device__ __forceinline__ float gate_of(float a, float g) {
   return a * (GELU == 1 ? gelu_tanh(g) : gelu_erf_as(g));
-}
-
-// LayerNorm of rows [row0, row0 + nrows) into dst (pitch ldx), zero past R.
-template <typename T, typename TD, int C>
-__device__ __forceinline__ void layer_norm_rows(TD* dst, int ldx, const T* __restrict__ x,
-                                                const float* __restrict__ ls,
-                                                const float* __restrict__ lb, long long row0,
-                                                int nrows, long long R, int warp, int nwarps,
-                                                int lane) {
-  for (int r = warp; r < nrows; r += nwarps) {
-    const long long row = row0 + r;
-    if (row >= R) {
-      for (int c = lane; c < C; c += 32) dst[r * ldx + c] = mofa::from_f32<TD>(0.0f);
-      continue;
-    }
-    const T* xr = x + row * C;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = mofa::to_f32(xr[c]);
-      s1 += v;
-      s2 += v * v;
-    }
-    s1 = mofa::warp_sum(s1);
-    s2 = mofa::warp_sum(s2);
-    const float mean = s1 / C;
-    const float var = fmaxf(s2 / C - mean * mean, 0.0f);
-    const float rstd = rsqrtf(var + LN_EPS);
-    for (int c = lane; c < C; c += 32)
-      dst[r * ldx + c] = mofa::from_f32<TD>((mofa::to_f32(xr[c]) - mean) * rstd * ls[c] + lb[c]);
-  }
-}
-
-constexpr int F32_BR = 16, F32_NT = 256;
-
-template <int C>
-__global__ void __launch_bounds__(F32_NT) ffn_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ ls, const float* __restrict__ lb,
-    const float* __restrict__ w0, const float* __restrict__ b0, const float* __restrict__ w2,
-    const float* __restrict__ b2, float* __restrict__ out, long long R) {
-  constexpr int I4 = 4 * C, NO = F32_BR * C / F32_NT;
-  static_assert((F32_BR * C) % F32_NT == 0, "outputs must split evenly");
-  __shared__ float Xs[F32_BR][C];
-  __shared__ float Hs[F32_BR][2 * KC];
-  __shared__ float As[F32_BR][KC];
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * F32_BR;
-  layer_norm_rows<float, float, C>(&Xs[0][0], C, x, ls, lb, row0, F32_BR, R, tid / 32,
-                                   F32_NT / 32, tid % 32);
-  __syncthreads();
-  float acc[NO];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
-
-  for (int j0 = 0; j0 < I4; j0 += KC) {
-    for (int o = tid; o < F32_BR * 2 * KC; o += F32_NT) {
-      const int r = o / (2 * KC), j = o % (2 * KC);
-      const int wrow = j < KC ? j0 + j : I4 + j0 + (j - KC);
-      const float* wr = w0 + (long long)wrow * C;
-      float s = 0.0f;
-      for (int c = 0; c < C; ++c) s = fmaf(Xs[r][c], wr[c], s);
-      Hs[r][j] = s + b0[wrow];
-    }
-    __syncthreads();
-    for (int o = tid; o < F32_BR * KC; o += F32_NT) {
-      const int r = o / KC, j = o % KC;
-      As[r][j] = gelu_gate(Hs[r][j], Hs[r][KC + j]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      const int o = tid + F32_NT * i;
-      const int r = o / C, col = o % C;
-      const float* wr = w2 + (long long)col * I4 + j0;
-      float s = acc[i];
-#pragma unroll 8
-      for (int j = 0; j < KC; ++j) s = fmaf(As[r][j], wr[j], s);
-      acc[i] = s;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < NO; ++i) {
-    const int o = tid + F32_NT * i;
-    const int r = o / C, col = o % C;
-    const long long row = row0 + r;
-    if (row < R) out[row * C + col] = acc[i] + b2[col] + x[row * C + col];
-  }
 }
 
 // ---- the bf16 route of plain / tanh / geglu_ffn: LN pass, two wgmma GEMMs
@@ -522,6 +460,243 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_kernel(
             }
             *reinterpret_cast<uint2*>(out + grow * C + n0 + ch * OUT_CH + c) =
                 make_uint2(mofa::pack_bf16(v.x, v.y), mofa::pack_bf16(v.z, v.w));
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---- the fp32 route of plain: LN pass, two split-TF32 wgmma GEMMs
+
+// the big and small planes of n4 float4s (W0 and W2, once a call)
+__global__ void split_planes_kernel(const float4* __restrict__ x, float4* __restrict__ big,
+                                    float4* __restrict__ small, long long n4) {
+  mofa::split_tf32_planes(x, big, small, n4);
+}
+
+// xn = LN(x) in fp32 as its big and small TF32 planes, one warp per row:
+// the statistics as the bf16 pass (E[x^2] - mean^2), 16-byte loads
+template <int C>
+__global__ void __launch_bounds__(256) ffn_ln_split_kernel(
+    const float* __restrict__ x, const float* __restrict__ ls, const float* __restrict__ lb,
+    float* __restrict__ xb, float* __restrict__ xs, long long R) {
+  constexpr int V = C / 4;                          // 16-byte vectors a row
+  constexpr int PER = (V + 31) / 32;                // vectors a lane
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= R) return;
+  const float4* xr = reinterpret_cast<const float4*>(x + row * C);
+  float4 v[PER];
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {                  // a lane past the row reads zeros
+    const int c = lane + 32 * i;
+    v[i] = c < V ? xr[c] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    s1 += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+    s2 += (v[i].x * v[i].x + v[i].y * v[i].y) + (v[i].z * v[i].z + v[i].w * v[i].w);
+  }
+  s1 = mofa::warp_sum(s1);
+  s2 = mofa::warp_sum(s2);
+  const float mean = s1 / C;
+  const float var = fmaxf(s2 / C - mean * mean, 0.0f);
+  const float rstd = rsqrtf(var + LN_EPS);
+  float4* br = reinterpret_cast<float4*>(xb + row * C);
+  float4* sr = reinterpret_cast<float4*>(xs + row * C);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane + 32 * i;
+    if (c < V) {
+      const float4 sc = reinterpret_cast<const float4*>(ls)[c];
+      const float4 sh = reinterpret_cast<const float4*>(lb)[c];
+      float4 bg, sm;
+      mofa::split_tf32((v[i].x - mean) * rstd * sc.x + sh.x, bg.x, sm.x);
+      mofa::split_tf32((v[i].y - mean) * rstd * sc.y + sh.y, bg.y, sm.y);
+      mofa::split_tf32((v[i].z - mean) * rstd * sc.z + sh.z, bg.z, sm.z);
+      mofa::split_tf32((v[i].w - mean) * rstd * sc.w + sh.w, bg.w, sm.w);
+      br[c] = bg;
+      sr[c] = sm;
+    }
+  }
+}
+
+// The two fp32 products as TN GEMMs on split TF32: A and B each as a big
+// and a small plane, both K-major; per k8 step three `wgmma` (small * big,
+// big * small, big * big) into one fp32 accumulator. GATE: A = xn [M, C],
+// B = W0 [8C, C], a tile of TN = 64 gate columns (B: the a rows and the g
+// rows, two boxes of 64, one m64n128k8 per product); otherwise A = h
+// [M, 4C], B = W2 [C, 4C], a tile of TN = 160 output columns (one box,
+// m64n160k8). A stage holds a k-tile of 32 (one 128-byte swizzled row) of
+// A's two planes and B's two.
+constexpr int F32_KTILE = 32;
+template <int C, bool GATE>
+struct GemmF32Cfg {
+  static constexpr int K = GATE ? C : 4 * C;
+  static constexpr int KT = K / F32_KTILE;
+  static constexpr int N = GATE ? 4 * C : C;             // output columns
+  static constexpr int TN = GATE ? 64 : 160;             // output columns per tile
+  static constexpr int N_TILES = N / TN;
+  static constexpr int B_ROWS = GATE ? 2 * TN : TN;      // B rows a plane: a | g, or W2's
+  static constexpr int BOX_ROWS = GATE ? TN : B_ROWS;    // B rows a box
+  static constexpr int ACC = B_ROWS / 2;                 // fp32 accumulators a thread
+  static constexpr int A_BYTES = GEMM_BM * 128;          // one plane's A box
+  static constexpr int B_BYTES = B_ROWS * 128;           // one plane's B boxes
+  static constexpr int STAGE_BYTES = 2 * (A_BYTES + B_BYTES);
+  static constexpr int STAGES_FIT = (SMEM_LIMIT - 1024 - 256) / STAGE_BYTES;
+  static constexpr int STAGES = STAGES_FIT < 6 ? STAGES_FIT : 6;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;   // + alignment
+  static_assert(K % F32_KTILE == 0 && N % TN == 0, "whole tiles");
+  static_assert(B_BYTES % 1024 == 0 && BOX_ROWS * 128 % 1024 == 0, "1024-byte swizzle atoms");
+  static_assert(STAGES >= 2, "a ring");
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 128) mofa::wgmma_m64n128k8_tf32_ss(d, da, db, acc);
+  else mofa::wgmma_m64n160k8_tf32_ss(d, da, db, acc);
+}
+
+// Persistent (one block per SM walks the tiles, N fastest), a producer
+// warpgroup and two consumer warpgroups of 64 rows, as the bf16 GEMM.
+// Epilogue, GATE: h = (a + b0) * gelu_erf(g + b0') in fp32, stored as its
+// big and small planes (out_b, out_s: the out GEMM's A); otherwise out =
+// acc + b2 + x in fp32 (out_b). Fragment stores of two floats: four
+// threads write a row's 32 contiguous bytes, whole sectors.
+template <int C, bool GATE>
+__global__ void __launch_bounds__(GEMM_THREADS, 1) ffn_gemm_f32_kernel(
+    const __grid_constant__ CUtensorMap tab, const __grid_constant__ CUtensorMap tas,
+    const __grid_constant__ CUtensorMap tbb, const __grid_constant__ CUtensorMap tbs,
+    const float* __restrict__ bias, const float* __restrict__ resid,
+    float* __restrict__ out_b, float* __restrict__ out_s, int M) {
+  using G = GemmF32Cfg<C, GATE>;
+  constexpr int TN = G::TN;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * G::STAGES];
+  // a stage: [A big | A small | B big | B small], 1024-byte aligned boxes
+  const uint32_t base = (mofa::smem_addr(smem_raw) + 1023) & ~1023u;
+  auto stage = [&](int s) { return base + s * G::STAGE_BYTES; };
+  auto full = [&](int s) { return mofa::smem_addr(&bars[s]); };
+  auto empty = [&](int s) { return mofa::smem_addr(&bars[G::STAGES + s]); };
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int tiles = (M + GEMM_BM - 1) / GEMM_BM * G::N_TILES;
+  if (tid == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      mofa::mbar_init(full(s), 1);
+      mofa::mbar_init(empty(s), 8);                 // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy, running ahead of the
+    // consumers by up to STAGES k-tiles, across tiles
+    mofa::setmaxnreg_dec<24>();
+    if (tid == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / G::N_TILES * GEMM_BM, n0 = tile % G::N_TILES * TN;
+        for (int kt = 0; kt < G::KT; ++kt, ++it) {
+          const int s = it % G::STAGES, round = it / G::STAGES;
+          if (round > 0) mofa::mbar_wait(empty(s), (round - 1) & 1);
+          const uint32_t st = stage(s);
+          const int k0 = kt * F32_KTILE;
+          mofa::mbar_arrive_expect_tx(full(s), G::STAGE_BYTES);
+          mofa::tma_load_2d(st, &tab, full(s), k0, m0);
+          mofa::tma_load_2d(st + G::A_BYTES, &tas, full(s), k0, m0);
+#pragma unroll
+          for (int q = 0; q < G::B_ROWS / G::BOX_ROWS; ++q) {
+            const int row = GATE ? n0 + q * 4 * C : n0;
+            const uint32_t bo = st + 2 * G::A_BYTES + q * G::BOX_ROWS * 128;
+            mofa::tma_load_2d(bo, &tbb, full(s), k0, row);
+            mofa::tma_load_2d(bo + G::B_BYTES, &tbs, full(s), k0, row);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 rows of the tile each. A k-tile's products go to a
+  // fresh accumulator, which is added to the tile's sum in fp32 adds: the
+  // tensor cores' fp32 accumulation truncates each product group's sum.
+  // With the whole row summed there (the out GEMM's 480 groups at C =
+  // 320) the route read 7.4e-6 relative RMS from the plain version on an
+  // H100; with the k-tile sums added in fp32, 6.0e-7.
+  mofa::setmaxnreg_inc<240>();
+  const int warp = (tid % 128) / 32, lane = tid % 32, t = lane & 3;
+  const int wrow = warp * 16 + (lane >> 2);         // the fragment's first row in the warpgroup
+  float acc[G::ACC], sum[G::ACC];
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < G::ACC; ++i) mofa::fence_operand(acc[i]);
+  };
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / G::N_TILES * GEMM_BM, n0 = tile % G::N_TILES * TN;
+#pragma unroll
+    for (int i = 0; i < G::ACC; ++i) sum[i] = 0.0f;
+    for (int kt = 0; kt < G::KT; ++kt, ++it) {
+      const int s = it % G::STAGES;
+      mofa::mbar_wait(full(s), (it / G::STAGES) & 1);
+      const uint32_t a = stage(s) + wg * 64 * 128, b = stage(s) + 2 * G::A_BYTES;
+      fence_acc();
+      mofa::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F32_KTILE / 8; ++kk) {  // a k8 step is 32 bytes of the row
+        const uint64_t ab = mofa::gmma_desc_sw128(a + kk * 32, 16, 1024);
+        const uint64_t as = mofa::gmma_desc_sw128(a + G::A_BYTES + kk * 32, 16, 1024);
+        const uint64_t bb = mofa::gmma_desc_sw128(b + kk * 32, 16, 1024);
+        const uint64_t bs = mofa::gmma_desc_sw128(b + G::B_BYTES + kk * 32, 16, 1024);
+        wgmma_tf32<G::B_ROWS>(acc, as, bb, kk > 0);
+        wgmma_tf32<G::B_ROWS>(acc, ab, bs, 1);
+        wgmma_tf32<G::B_ROWS>(acc, ab, bb, 1);
+      }
+      mofa::wgmma_commit();
+      mofa::wgmma_wait<0>();
+      fence_acc();
+      __syncwarp();
+      if (lane == 0) mofa::mbar_arrive(empty(s));   // the stage may be refilled
+#pragma unroll
+      for (int i = 0; i < G::ACC; ++i) sum[i] += acc[i];
+    }
+
+    // ---- epilogue: fragment (warp, lane) holds rows wrow and wrow + 8 of
+    // every n8 block j at columns 8j + 2t, 8j + 2t + 1
+    const long long r0 = m0 + wg * 64 + wrow;
+    if constexpr (GATE) {
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float2 ba = __ldg(reinterpret_cast<const float2*>(bias + col));
+        const float2 bg = __ldg(reinterpret_cast<const float2*>(bias + 4 * C + col));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long row = r0 + 8 * hh;
+          if (row < M) {
+            const int e = 4 * j + 2 * hh, f = TN / 2 + 4 * j + 2 * hh;   // a, then g
+            float2 hb, hs;
+            mofa::split_tf32((sum[e] + ba.x) * gelu_erf(sum[f] + bg.x), hb.x, hs.x);
+            mofa::split_tf32((sum[e + 1] + ba.y) * gelu_erf(sum[f + 1] + bg.y), hb.y, hs.y);
+            *reinterpret_cast<float2*>(out_b + row * (4 * C) + col) = hb;
+            *reinterpret_cast<float2*>(out_s + row * (4 * C) + col) = hs;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long row = r0 + 8 * hh;
+          if (row < M) {
+            const float2 xr = __ldg(reinterpret_cast<const float2*>(resid + row * C + col));
+            *reinterpret_cast<float2*>(out_b + row * C + col) =
+                make_float2(sum[4 * j + 2 * hh] + bb.x + xr.x,
+                            sum[4 * j + 2 * hh + 1] + bb.y + xr.y);
           }
         }
       }
@@ -1001,29 +1176,68 @@ int launch_ffn(const void* x, const void* ls, const void* lb, const void* w0, co
   return err;
 }
 
+// one split-TF32 GEMM: A's and B's planes as 2-D tensor maps, a
+// persistent grid of at most one block per SM
+template <int C, bool GATE>
+int launch_gemm_f32(const float* ab, const float* as, const float* bb, const float* bs,
+                    const void* bias, const void* resid, float* out_b, float* out_s, int M,
+                    cudaStream_t st) {
+  using G = GemmF32Cfg<C, GATE>;
+  CUtensorMap tab, tas, tbb, tbs;
+  if (!mofa::f32_rows_map(&tab, ab, M, G::K, GEMM_BM) ||
+      !mofa::f32_rows_map(&tas, as, M, G::K, GEMM_BM) ||
+      !mofa::f32_rows_map(&tbb, bb, GATE ? 8 * C : C, G::K, G::BOX_ROWS) ||
+      !mofa::f32_rows_map(&tbs, bs, GATE ? 8 * C : C, G::K, G::BOX_ROWS))
+    return (int)cudaErrorNotSupported;
+  auto kernel = ffn_gemm_f32_kernel<C, GATE>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  const int tiles = (M + GEMM_BM - 1) / GEMM_BM * G::N_TILES;
+  kernel<<<std::min(tiles, sm_count()), GEMM_THREADS, G::SMEM, st>>>(
+      tab, tas, tbb, tbs, (const float*)bias, (const float*)resid, out_b, out_s, M);
+  return (int)cudaGetLastError();
+}
+
+// the fp32 route: W0 and W2 split into planes (ws: 24 C^2 floats), xn =
+// LN(x) as planes (xn: 2 R C), h as planes (h: 2 R 4C), then out
 template <int C>
 int launch_f32(const void* x, const void* ls, const void* lb, const void* w0, const void* b0,
-               const void* w2, const void* b2, void* out, long long R, cudaStream_t st) {
+               const void* w2, const void* b2, void* xn, void* h, void* ws, void* out, int R,
+               cudaStream_t st) {
   if (R <= 0) return (int)cudaGetLastError();
-  const long long blocks = (R + F32_BR - 1) / F32_BR;
-  ffn_f32_kernel<C><<<(unsigned)blocks, F32_NT, 0, st>>>(
-      (const float*)x, (const float*)ls, (const float*)lb, (const float*)w0,
-      (const float*)b0, (const float*)w2, (const float*)b2, (float*)out, R);
-  return (int)cudaGetLastError();
+  float* w0b = static_cast<float*>(ws);
+  float* w0s = w0b + 8 * C * C;
+  float* w2b = w0s + 8 * C * C;
+  float* w2s = w2b + 4 * C * C;
+  float* xb = static_cast<float*>(xn);
+  float* xs = xb + (long long)R * C;
+  float* hb = static_cast<float*>(h);
+  float* hs = hb + (long long)R * 4 * C;
+  split_planes_kernel<<<(2 * C * C + 255) / 256, 256, 0, st>>>(
+      (const float4*)w0, (float4*)w0b, (float4*)w0s, 2 * C * C);
+  split_planes_kernel<<<(C * C + 255) / 256, 256, 0, st>>>(
+      (const float4*)w2, (float4*)w2b, (float4*)w2s, C * C);
+  ffn_ln_split_kernel<C><<<(R + 7) / 8, 256, 0, st>>>(
+      (const float*)x, (const float*)ls, (const float*)lb, xb, xs, R);
+  int err = (int)cudaGetLastError();
+  if (err == 0) err = launch_gemm_f32<C, true>(xb, xs, w0b, w0s, b0, nullptr, hb, hs, R, st);
+  if (err == 0)
+    err = launch_gemm_f32<C, false>(hb, hs, w2b, w2s, b2, x, (float*)out, nullptr, R, st);
+  return err;
 }
 
 }  // namespace
 
 // Arguments of every entry: x/out [R, C]; ls/lb [C] fp32; w0 [8C, C], b0
-// [8C], w2 [C, 4C], b2 [C] in x's dtype; scratch xn [R, C] and h [R, 4C]
-// in x's dtype (bf16 only); all contiguous and 32-byte aligned. C in
-// {320, 640}; dtype 0 = fp32, 1 = bf16; gelu 0 = erf, 1 = tanh (bf16
-// only); sched: the gate GEMM's schedule, 0 = plain, 1 = ilv, 2 = pipe
-// (bf16 and erf only for ilv and pipe).
+// [8C], w2 [C, 4C], b2 [C] in x's dtype; all contiguous and 32-byte
+// aligned. Scratch in x's dtype: bf16, xn [R, C] and h [R, 4C] (ws null);
+// fp32, the big and small planes, xn [2, R, C], h [2, R, 4C] and ws (of
+// W0 and W2) 24 C^2 floats. C in {320, 640}; dtype 0 = fp32, 1 = bf16;
+// gelu 0 = erf, 1 = tanh (bf16 only); sched: the gate GEMM's schedule, 0 =
+// plain, 1 = ilv, 2 = pipe (bf16 and erf only for ilv and pipe).
 extern "C" int mofa_ln_geglu_ffn(const void* x, const void* ls, const void* lb,
                                  const void* w0, const void* b0, const void* w2,
-                                 const void* b2, void* xn, void* h, void* out, int R, int C,
-                                 int dtype, int gelu, int sched, void* stream) {
+                                 const void* b2, void* xn, void* h, void* ws, void* out,
+                                 int R, int C, int dtype, int gelu, int sched, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (ls == nullptr || lb == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == mofa::kBF16) {
@@ -1031,14 +1245,13 @@ extern "C" int mofa_ln_geglu_ffn(const void* x, const void* ls, const void* lb,
       return launch_ffn<320>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, sched, st);
     if (C == 640)
       return launch_ffn<640>(x, ls, lb, w0, b0, w2, b2, xn, h, out, R, gelu, sched, st);
-  } else if (dtype == mofa::kF32 && gelu == 0 && sched == kPlain) {
-    if (C == 320) return launch_f32<320>(x, ls, lb, w0, b0, w2, b2, out, R, st);
-    if (C == 640) return launch_f32<640>(x, ls, lb, w0, b0, w2, b2, out, R, st);
+  } else if (dtype == mofa::kF32 && gelu == 0 && sched == kPlain && ws != nullptr) {
+    if (C == 320) return launch_f32<320>(x, ls, lb, w0, b0, w2, b2, xn, h, ws, out, R, st);
+    if (C == 640) return launch_f32<640>(x, ls, lb, w0, b0, w2, b2, xn, h, ws, out, R, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// geglu_ffn: out = GEGLU-FF(x), no LayerNorm, no residual; bf16 only.
 extern "C" int mofa_geglu_ffn(const void* x, const void* w0, const void* b0, const void* w2,
                               const void* b2, void* h, void* out, int R, int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

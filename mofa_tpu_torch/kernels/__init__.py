@@ -105,3 +105,19 @@ def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
     _shape_launches.clear()
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to 10
+    mantissa bits, ties away from zero (half of the dropped ulp added to
+    the magnitude's bit pattern, the low 13 bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_plain(x: torch.Tensor) -> tuple:
+    """(big, small) = (tf32(x), tf32(x - big)): the split of each operand
+    of the fp32 routes' products (`split_tf32`, csrc/hopper.cuh), which
+    take small * big + big * small + big * big."""
+    big = tf32_round(x)
+    return big, tf32_round(x.float() - big)

@@ -31,8 +31,8 @@ _SIGNATURES = {
     "mofa_softsplat": [_P] * 5 + [_I] * 6 + [_P],
     "mofa_softsplat_normalize": [_P] * 3 + [_I] * 4 + [_P],
     "mofa_tmajor_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mofa_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mofa_ln_geglu_ffn": [_P] * 10 + [_I] * 5 + [_P],
+    "mofa_flash_attention": [_P] * 5 + [_I] * 6 + [_P],
+    "mofa_ln_geglu_ffn": [_P] * 11 + [_I] * 5 + [_P],
     "mofa_geglu_ffn": [_P] * 7 + [_I] * 2 + [_P],
     "mofa_ffn_ln_rows": [_P] * 4 + [_I, _I, _P],
     "mofa_ffn_gemm_gate": [_P] * 4 + [_I] * 4 + [_P],

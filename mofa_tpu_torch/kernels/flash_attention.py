@@ -11,9 +11,13 @@ on the accumulator fragments (the TPU default is the clamped fixed-max
 softmax, exact only for logits <= 69), each pipelined one tile deep and
 taking turns to issue, so the softmax overlaps the products. It is bound
 by tensor-core operations and the softmax's exp2; the [L, L] logits never
-reach device memory. fp32
-inputs take a plain-FMA correctness kernel. D in {64, 128}; ragged L is
-masked in the kernel.
+reach device memory. fp32 inputs
+(training) take the same tiled forward on split TF32: a pass writes q and
+k as big / small TF32 planes and v transposed ([B·H, D, keys], the
+K-major operand tf32 `wgmma` takes) as two planes; each product is
+small * big + big * small + big * big with fp32 accumulation, about 22 of
+fp32's 24 bits, P split in registers (`split_tf32_plain` has the
+arithmetic). D in {64, 128}; ragged L is masked in the kernel.
 
 The gradient (`flash_backward`) is the JAX package's `_flash_bwd`
 (mofa_tpu/kernels/flash_attention.py:207) in stock PyTorch: fp32, one
@@ -33,6 +37,7 @@ from mofa_tpu_torch.kernels import count_launch, math_dtype, use_kernel
 HEAD_DIMS = (64, 128)
 BWD_CHUNK = 256                            # query rows a backward chunk recomputes
 MAX_BATCH_HEADS = 65535                    # the grid's y dimension
+KEY_PAD = 64                               # the fp32 route's Vt key padding (the C source's)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -96,13 +101,25 @@ def flash_backward(q, k, v, out, g, chunk: int = BWD_CHUNK):
     return (torch.cat(dq, dim=1).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
+def f32_scratch_elems(b: int, lq: int, lk: int, h: int, d: int) -> int:
+    """Floats of the fp32 route's scratch: the big and small planes of q
+    and k, and of v transposed with its keys padded to KEY_PAD."""
+    lp = -(-lk // KEY_PAD) * KEY_PAD
+    return 2 * b * h * d * (lq + lk + lp)
+
+
 def _launch(q, k, v) -> torch.Tensor:
     b, lq, h, d = q.shape
     q, k, v = kernel_operands(q, k, v)
     from mofa_tpu_torch.kernels._build import launch
     out = torch.empty_like(q)
+    scratch = None
+    if q.dtype == torch.float32:
+        scratch = torch.empty(f32_scratch_elems(b, lq, k.shape[1], h, d),
+                              device=q.device, dtype=torch.float32)
     launch("mofa_flash_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           out.data_ptr(), b, lq, k.shape[1], h, d, _DTYPES[q.dtype])
+           out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, lq,
+           k.shape[1], h, d, _DTYPES[q.dtype])
     count_launch("flash_attention", (b, lq, h, d))
     return out
 

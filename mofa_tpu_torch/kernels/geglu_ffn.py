@@ -29,8 +29,13 @@ per call, under the variant's own name; the stage entry points launch one
 stage each and count nothing (`chip_smoke.py` uses them to place a fault
 in its stage and to time each gate schedule). Weights use torch Linear
 layouts: w0 [8C, C], w2 [C, 4C]. The "plain" variant also has an fp32
-path (plain FMA); the others take bf16 only and raise on fp32 tensors on
-a card.
+route (training, which runs in fp32): the same three stages on split
+TF32, each GEMM operand written as a big and a small TF32 plane (the LN
+pass's xn, the gate GEMM's h, W0 and W2 split once a call) and each
+product taken as small * big + big * small + big * big on `wgmma`, fp32
+accumulation, about 22 of fp32's 24 bits (`split_tf32_plain` has its
+arithmetic); the others take bf16 only and raise on fp32 tensors on a
+card.
 
 Only the models' kernel, `ln_geglu_ffn` with variant "plain", has a
 gradient: with grad enabled on a CUDA tensor it runs inside
@@ -129,20 +134,31 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _scratch(rows, c, dtype, device, ln=True):
+    """The C entry's scratch: bf16, xn [rows, C] (with LN) and h [rows, 4C];
+    fp32, the big and small TF32 planes of xn [2, rows, C] and h [2, rows,
+    4C], and of W0 and W2 (24 C^2 floats)."""
+    if dtype == torch.bfloat16:
+        xn = torch.empty(rows, c, device=device, dtype=dtype) if ln else None
+        return xn, torch.empty(rows, 4 * c, device=device, dtype=dtype), None
+    f32 = dict(device=device, dtype=torch.float32)
+    return (torch.empty(2, rows, c, **f32), torch.empty(2, rows, 4 * c, **f32),
+            torch.empty(24 * c * c, **f32))
+
+
 def _launch_ffn(name, x, ln, weights, approximate="none", schedule="plain"):
     """ln_geglu_ffn (ln = (scale, shift)) or geglu_ffn (ln = ()): the three
-    stages in bf16 with the gate GEMM's `schedule` or, for "plain" in
-    fp32, the fused FMA kernel; one count per call, under `name`."""
+    stages with the gate GEMM's `schedule` in bf16 or, for "plain" in
+    fp32, on split TF32; one count per call, under `name`."""
     from mofa_tpu_torch.kernels._build import launch
     dtypes = _DTYPES if name == "ln_geglu_ffn" else (torch.bfloat16,)
     args = _operands(name, x, ln, weights, dtypes)
     x2, c = args[0], x.shape[-1]
-    rows, dev, bf16 = x2.shape[0], x.device, x2.dtype == torch.bfloat16
+    rows, dev = x2.shape[0], x.device
     out = torch.empty_like(x2)
-    xn = torch.empty_like(x2) if ln and bf16 else None
-    h = torch.empty(rows, 4 * c, device=dev, dtype=x2.dtype) if bf16 else None
+    xn, h, ws = _scratch(rows, c, x2.dtype, dev, bool(ln))
     if ln:
-        launch("mofa_ln_geglu_ffn", dev, *map(_ptr, args), _ptr(xn), _ptr(h),
+        launch("mofa_ln_geglu_ffn", dev, *map(_ptr, args), _ptr(xn), _ptr(h), _ptr(ws),
                out.data_ptr(), rows, c, _DTYPES[x2.dtype], _GELU.index(approximate),
                SCHEDULES.index(schedule))
     else:

@@ -112,17 +112,34 @@ def _card(seed):
     return lambda *s: torch.randn(*s, generator=g, device="cuda")
 
 
+def _assert_fp32_within(name, fn):
+    """fn() through the kernel against fn() inside plain_reference(),
+    within chip_smoke.TOL_FP32[name] (max |diff|)."""
+    from chip_smoke import TOL_FP32
+    got = fn()
+    with kernels.plain_reference():
+        ref = fn()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= TOL_FP32[name]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("length", [576, 1000, 2304])
+@pytest.mark.parametrize("length", [77, 576, 1000, 2304])
 def test_flash_on_card(length, d, dt):
-    """The wgmma flash kernel (bf16; fp32 its FMA path) at whole and ragged
-    128-key tiles, both head widths, against its plain version."""
+    """The wgmma flash kernel against its plain version, both head widths:
+    bf16 at whole and ragged 128-key tiles; fp32 (split TF32, key tiles of
+    64 at D = 64 and 32 at D = 128) at whole tiles and at L = 77 and 1000,
+    which end ragged in both, held to chip_smoke's TOL_FP32."""
     rn = _card(length + d)
     q, k, v = (rn(2, length, 3, d).to(dt) for _ in range(3))
     kernels.reset_launch_counts()
-    _assert_like_plain(lambda: flash_attention(q, k, v), dt)
+    if dt == torch.float32:
+        _assert_fp32_within("flash_attention", lambda: flash_attention(q, k, v))
+    else:
+        _assert_like_plain(lambda: flash_attention(q, k, v), dt)
     assert kernels.launch_counts()["flash_attention"] == 1
 
 
@@ -147,7 +164,7 @@ def test_short_body_on_card(frames, slots, dt):
 
 _FFN_NAMES = {"plain": "ln_geglu_ffn", "tanh": "ln_geglu_ffn_tanh",
               "ilv": "ln_geglu_ffn_ilv", "pipe": "ln_geglu_ffn_pipe",
-              "geglu_ffn": "geglu_ffn"}
+              "geglu_ffn": "geglu_ffn", "plain_fp32": "ln_geglu_ffn"}
 
 
 @pytest.mark.gpu
@@ -155,38 +172,44 @@ _FFN_NAMES = {"plain": "ln_geglu_ffn", "tanh": "ln_geglu_ffn_tanh",
 @pytest.mark.parametrize("c", [320, 640])
 @pytest.mark.parametrize("rows", [4096, 4096 + 7, 16384 + 1])
 def test_ffn_route_on_card(rows, c, kind):
-    """The bf16 FFN route (LN pass, gate GEMM, out GEMM on wgmma) against
+    """The FFN route (LN pass, gate GEMM, out GEMM on wgmma; "plain_fp32":
+    the fp32 route on split TF32, held to chip_smoke's TOL_FP32) against
     its plain version at whole and ragged row tiles, one launch count per
-    call; then each stage alone against its plain stage: h from the gate
+    call; then, in bf16, each stage alone against its plain stage: h from the gate
     GEMM (in the variant's schedule) on the kernel's own xn, and the out
     GEMM on it. The ilv schedule's blocks walk pair tiles (two 64-row
     tiles a cluster of two blocks); with the 66 clusters of an H100 five
     of the six shapes here leave blocks an odd tile count (4103 rows, C =
     320: 330 pair tiles, 5 a cluster), so one warpgroup has no last tile."""
     rn = _card(rows + c)
-    bf = torch.bfloat16
-    x = rn(rows, c).to(bf)
+    dt = torch.float32 if kind == "plain_fp32" else torch.bfloat16
+    x = rn(rows, c).to(dt)
     ls, lb = rn(c) * 0.2 + 1, rn(c) * 0.2
-    w0, b0 = (rn(8 * c, c) * c ** -0.5).to(bf), (rn(8 * c) * 0.1).to(bf)
-    w2, b2 = (rn(c, 4 * c) * (4 * c) ** -0.5).to(bf), (rn(c) * 0.1).to(bf)
+    w0, b0 = (rn(8 * c, c) * c ** -0.5).to(dt), (rn(8 * c) * 0.1).to(dt)
+    w2, b2 = (rn(c, 4 * c) * (4 * c) ** -0.5).to(dt), (rn(c) * 0.1).to(dt)
     gelu = "tanh" if kind == "tanh" else "none"
     kernels.reset_launch_counts()
+    if kind == "plain_fp32":            # split TF32; no stage entry points
+        _assert_fp32_within("ln_geglu_ffn",
+                            lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2))
+        assert kernels.launch_counts()["ln_geglu_ffn"] == 1
+        return
     if kind == "geglu_ffn":
-        _assert_like_plain(lambda: geglu_ffn(x, w0, b0, w2, b2), bf)
+        _assert_like_plain(lambda: geglu_ffn(x, w0, b0, w2, b2), dt)
     else:
         _assert_like_plain(lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2,
-                                                variant=kind), bf)
+                                                variant=kind), dt)
     counts = kernels.launch_counts()
     assert counts[_FFN_NAMES[kind]] == 1 and sum(counts.values()) == 1
     with torch.no_grad():
         xn = x if kind == "geglu_ffn" else ffn_ln_rows(x, ls, lb)
     if kind != "geglu_ffn":
-        _assert_like_plain(lambda: ffn_ln_rows(x, ls, lb), bf)
+        _assert_like_plain(lambda: ffn_ln_rows(x, ls, lb), dt)
     schedule = kind if kind in ("ilv", "pipe") else "plain"
-    _assert_like_plain(lambda: ffn_gemm_gate(xn, w0, b0, gelu, schedule), bf)
+    _assert_like_plain(lambda: ffn_gemm_gate(xn, w0, b0, gelu, schedule), dt)
     h = ffn_gemm_gate(xn, w0, b0, gelu, schedule)
     resid = None if kind == "geglu_ffn" else x
-    _assert_like_plain(lambda: ffn_gemm_out(h, w2, b2, resid), bf)
+    _assert_like_plain(lambda: ffn_gemm_out(h, w2, b2, resid), dt)
 
 
 @pytest.mark.gpu
