@@ -23,6 +23,9 @@ Phases, each printed as it finishes:
      routes (split TF32) of flash and the FFN timed at the stage-1
      training shapes beside their plain versions, SDPA's fp32 forward and
      the stock fp32 chain, with their split-TF32 and CUDA-core bounds;
+     short attention's fp32 route (split TF32 on mma.sync) timed at the
+     training site in both layouts and at the classic inference site,
+     beside its plain version and SDPA's fp32 forward;
      the FFN at both widths, and its bf16 route's three stages (LN pass, gate GEMM,
      out GEMM) each alone against its plain stage, timed beside one
      cuBLAS call of the same product, with the gate GEMM's "ilv" and
@@ -37,12 +40,17 @@ Phases, each printed as it finishes:
      3b. the FFN variants (tools/bench_ffn.py's A/B): plain, ilv, pipe,
      tanh, geglu_ffn and the stock chain at the main path's three FF
      shapes, their agreement with "plain" and one pass's launch counts;
-     3c. the training path's four kernels under autograd (kernel forward,
-     the stock backward of kernels/*.py) at the stage-1 shapes, fp32 and
-     bf16: every gradient against plain autograd through the plain version
-     (TOL_BWD), each backward timed beside SDPA's where it computes the
-     same function, and a planted fault a kernel (a key chunk dropped, the
-     last frame unread, no d gamma, d_flow's sign flipped) that must miss;
+     3c. the training path's four kernels and classic short attention
+     under autograd (kernel forward, the stock backward of kernels/*.py)
+     at the stage-1 shapes, fp32 and bf16: every gradient against plain
+     autograd through the plain version (TOL_BWD), each backward timed
+     beside SDPA's where it computes the same function, and a planted
+     fault a kernel (a key chunk dropped, the last frame unread, the last
+     key's gradient dropped, no d gamma, d_flow's sign flipped) that must
+     miss; then each other entry point the JAX package differentiates
+     (geglu_ffn, the ilv / pipe / tanh FFNs, the channel sums, the fused
+     GroupNorm, both fused convs) at one shape, its gradients against
+     plain autograd and a planted fault of its own;
   4. the composition check: the full trajectory pipeline at full SVD-XT
      widths but a small video, in both temporal layouts (spatial-major
      and classic, `MOFA_TMAJOR=0`), once through the kernels and once
@@ -86,10 +94,13 @@ Phases, each printed as it finishes:
      and gradient norm finite; the frozen UNet, VAE and CLIP bit-unchanged
      and the adapter moved; the exported adapter through `load_bundle`
      bit-equal; a restore of step 2 bit-equal to the saved state; one step
-     through the kernels against `plain_reference()` (TRAIN_PLAIN_REL); a
-     run resumed from step 2 within RESUME_REL of the first run's steps 3
-     and 4, a planted fault (the generator not restored) outside it; one
-     step without block remat and its peak;
+     through the kernels against `plain_reference()` (TRAIN_PLAIN_REL),
+     and the same step in the classic temporal layout (`MOFA_TMAJOR=0`,
+     classic short attention launched at its sites); a run resumed from
+     step 2 within RESUME_REL of the first run's steps 3 and 4, a planted
+     fault (the generator not restored) outside it; one step without block
+     remat and its peak; one step through `train_app` in the classic
+     layout, its launches held to the classic sites, its time and peak;
      5h. stage 2 through `train_app.run` from 5g's exported adapter at
      the same operating point, a CMP of seeded random weights read from a
      file: run A sequential with AdamW, run B with --overlap_inputs
@@ -263,12 +274,13 @@ KERNEL_META = {
 # fp32: max |kernel - plain| <= tol, or for a (max_rel, rms_rel) pair the
 # relative bounds below. Both sides are fp32 math in another summation
 # order (atomics for the splat and the channel sums, tiles for the rest);
-# the channel sums grow with S, so their bound is relative. Flash and the
-# FFN take their fp32 products as split TF32 (three TF32 products, about
-# 22 bits): their bounds sit a few times above those routes' sound
-# readings on an H100 (flash 1.9e-6, the FFN 1.1e-5 at 14,400 x 640) and
-# an order of magnitude below a single TF32 product's (2.6e-4 and 2.0e-3,
-# planted faults).
+# the channel sums grow with S, so their bound is relative. Flash, short
+# attention (both layouts) and the FFN take their fp32 products as split
+# TF32 (three TF32 products, about 22 bits): their bounds sit a few times
+# above those routes' sound readings on an H100 (flash 1.9e-6, the FFN
+# 1.1e-5 at 14,400 x 640, short attention 1.4-2.0e-6) and an order of
+# magnitude or more below a single TF32 product's (2.6e-4, 2.0e-3 and
+# 1.7-2.4e-3: planted faults).
 # bf16: (max_rel, rms_rel): max |diff| <= max_rel * max |plain| and
 # ||diff|| / ||plain|| <= rms_rel. The plain versions round P (attention)
 # and the LN output and the GEMM1 result (FFN) to bf16 at other points
@@ -281,8 +293,8 @@ KERNEL_META = {
 # the plain version in fp32 on their upcast inputs (TF32 off). The bounds
 # sit a few times above the sound readings and below those of the planted
 # faults, which `planted_faults` checks on every run (readings in PERF.md).
-TOL_FP32 = {"flash_attention": 2e-5, "short_attention_tmajor": 1e-4,
-            "short_attention": 1e-4, "ln_geglu_ffn": 5e-5, "softsplat": 1e-4,
+TOL_FP32 = {"flash_attention": 2e-5, "short_attention_tmajor": 1e-5,
+            "short_attention": 1e-5, "ln_geglu_ffn": 5e-5, "softsplat": 1e-4,
             "channel_sums": (1e-5, 1e-5)}
 TOL_BF16 = {"flash_attention": (2e-2, 7e-3),
             "softsplat": (1e-2, 1e-3),
@@ -397,6 +409,18 @@ def fp32_cores_bound(r: dict, work: tuple, suffix: str) -> None:
     log(f"  {'':24s}      bound on the CUDA cores {ms:.3f} ms ({by})")
 
 
+def queued_times(r: dict, suffix: str, kernel_fn, library_fn) -> None:
+    """The kernel's and the library call's device times with the host's
+    work of each call hidden behind the calls queued before it
+    (`time_queued_ms`): `queued_ms` + suffix, `library_queued_ms` + suffix."""
+    import torch
+    with torch.no_grad():
+        r["queued_ms" + suffix] = time_queued_ms(kernel_fn)
+        r["library_queued_ms" + suffix] = time_queued_ms(library_fn)
+    log(f"  {'':24s}      queued: kernel {r['queued_ms' + suffix]:.3f} ms, "
+        f"library {r['library_queued_ms' + suffix]:.3f} ms")
+
+
 def ffn_operands(g, c: int, rows: int, dtype, tail: bool = False):
     """(x [rows, c], LN scale and shift [c] fp32, w0 [8c, c], b0 [8c],
     w2 [c, 4c], b2 [c]) drawn from generator g, on its device. tail: the
@@ -457,7 +481,8 @@ def planted_faults() -> list:
     """The kernels held, with the bounds of their dtype, against the plain
     version of a faulty kernel. In fp32: one that takes one TF32 product
     for each fp32 product, dropping the split's two correction products
-    (FFN at 57,600 x 320, flash at [25, 2304, 5, 64]), skips the out
+    (FFN at 57,600 x 320, flash at [25, 2304, 5, 64], short attention at
+    the training site in both layouts), skips the out
     GEMM's last k-tile of 32 (FFN) or skips a 64-key tile at a ragged L
     (flash, L=1000). In bf16: one that skips a 64-key tile (flash,
     L=9216), leaves the ragged tail's zero-filled keys unmasked (flash,
@@ -547,6 +572,28 @@ def planted_faults() -> list:
             out[-short_walk_warps(64):] = 0
             return out.reshape(18432, 5, 25, 64).transpose(1, 2)
         return lambda: short_attention(q, k, v), unwritten
+
+    def short32_case(tmajor):
+        """fp32 short attention at the training site, tmajor [25, 2304,
+        320] or classic [2304, 25, 5, 64], against one TF32 product for
+        each fp32 product (the split's corrections dropped)."""
+        rn32 = lambda *s: torch.randn(*s, generator=g, device=dev)
+        if tmajor:
+            q, k, v = (rn32(25, 2304, 320) for _ in range(3))
+            run = lambda: short_attention_tmajor(q, k, v, 25, 5)
+            heads = lambda x: x.reshape(1, 25, 2304, 5, 64).permute(0, 2, 3, 1, 4)
+            back = lambda o: o.permute(0, 3, 1, 2, 4).reshape(25, 2304, 320)
+        else:
+            q, k, v = (rn32(2304, 25, 5, 64) for _ in range(3))
+            run = lambda: short_attention(q, k, v)
+            heads = lambda x: x.transpose(1, 2)
+            back = lambda o: o.transpose(1, 2)
+
+        def one_product():
+            qh, kh, vh = (tf32_round(heads(t)) for t in (q, k, v))
+            p = torch.softmax(qh @ kh.transpose(-1, -2) * 64 ** -0.5, dim=-1)
+            return back(tf32_round(p) @ vh)
+        return run, one_product
 
     def ffn_case():
         c = 320
@@ -729,6 +776,10 @@ def planted_faults() -> list:
               lambda: ffn32_case("1xtf32"), "fp32"),
              ("ln_geglu_ffn", "rows=57600 C=320, out GEMM last k-tile",
               lambda: ffn32_case("ktile"), "fp32"),
+             ("short_attention_tmajor", "BT=25 S=2304 HD=320, one TF32 product",
+              lambda: short32_case(True), "fp32"),
+             ("short_attention", "B=2304 L=25 H=5 D=64, one TF32 product",
+              lambda: short32_case(False), "fp32"),
              ("flash_attention", "B=2 L=9216 H=5 D=64, keys 64-127 skipped",
               lambda: flash_case(9216, "tile")),
              ("flash_attention", "B=2 L=1000 H=5 D=64, tail unmasked",
@@ -1149,20 +1200,51 @@ def phase_kernels() -> dict:
                    timed and dn == "bf16", library_fn=lib,
                    work=(4 * 2 * S * H * 25 * 25 * (HD // H), 4 * nbytes(q),
                          "bf16"))
+    # the fp32 route (split TF32 on mma.sync) at the stage-1 training site
+    # (384^2, 25 frames, /8: row 2t), timed beside its plain version and
+    # SDPA's fp32 forward on the [B*S, H, T, D] view (keys end in _fp32;
+    # the bound split TF32's, the CUDA cores' beside it)
+    q, k, v = (randn(25, 2304, 320) for _ in range(3))
+    to4 = lambda x: x.reshape(1, 25, 2304, 5, 64).permute(0, 2, 1, 3, 4).reshape(
+        2304, 25, 5, 64)
+    work = (4 * 2304 * 5 * 25 * 25 * 64, 4 * nbytes(q), "split_tf32")
+    _check(results, "short_attention_tmajor", "fp32", "BT=25 S=2304 HD=320 H=5",
+           lambda: short_attention_tmajor(q, k, v, 25, 5),
+           lambda: short_attention_tmajor(q, k, v, 25, 5), True,
+           library_fn=sdpa(to4(q), to4(k), to4(v)), work=work, suffix="_fp32")
+    fp32_cores_bound(results["short_attention_tmajor"], work, "_fp32")
+    queued_times(results["short_attention_tmajor"], "_fp32",
+                 lambda: short_attention_tmajor(q, k, v, 25, 5), sdpa(to4(q), to4(k), to4(v)))
+    del q, k, v
     # classic short attention: [B*S, T, H, D] at the /8 temporal site of
-    # the classic layout (the only one its gate admits at T=25), and the
-    # 256x384, T=8 composition shapes
-    for B, L, H, timed in ((18432, 25, 5, True), (3072, 8, 5, False),
-                           (768, 8, 10, False), (192, 8, 20, False)):
-        for dn in ("bf16", "fp32"):
-            q, k, v = (randn(B, L, H, 64, dtype=dts[dn]) for _ in range(3))
-            _check(results, "short_attention", dn, f"B={B} L={L} H={H} D=64",
+    # the classic layout (the only one its gate admits at T=25: bf16
+    # timed; fp32 timed as row 5's fp32 shape, keys _fp32), at the classic
+    # stage-1 training site (fp32, keys _fp32_train), at D = 128, and at
+    # the 256x384, T=8 composition shapes
+    for B, L, H, D, timed, dns, sfx in (
+            (18432, 25, 5, 64, True, ("bf16", "fp32"), "_fp32"),
+            (2304, 25, 5, 64, True, ("fp32",), "_fp32_train"),
+            (1111, 25, 3, 128, False, ("bf16", "fp32"), ""),
+            (3072, 8, 5, 64, False, ("bf16", "fp32"), ""),
+            (768, 8, 10, 64, False, ("bf16", "fp32"), ""),
+            (192, 8, 20, 64, False, ("bf16", "fp32"), "")):
+        for dn in dns:
+            q, k, v = (randn(B, L, H, D, dtype=dts[dn]) for _ in range(3))
+            work = (4 * B * H * L * L * D, 4 * nbytes(q),
+                    "bf16" if dn == "bf16" else "split_tf32")
+            _check(results, "short_attention", dn, f"B={B} L={L} H={H} D={D}",
                    lambda: short_attention(q, k, v),
-                   lambda: short_attention(q, k, v), timed and dn == "bf16",
+                   lambda: short_attention(q, k, v), timed,
                    ref32_fn=(lambda: short_attention(*upcast(q, k, v)))
                    if dn == "bf16" else None,
-                   library_fn=sdpa(q, k, v) if timed and dn == "bf16" else None,
-                   work=(4 * B * H * L * L * 64, 4 * nbytes(q), "bf16"))
+                   library_fn=sdpa(q, k, v) if timed else None,
+                   work=work, suffix="" if dn == "bf16" else sfx)
+            if timed and dn == "fp32":
+                fp32_cores_bound(results["short_attention"], work, sfx)
+                queued_times(results["short_attention"], sfx,
+                             lambda: short_attention(q, k, v), sdpa(q, k, v))
+            del q, k, v
+            torch.cuda.empty_cache()
     # ln_geglu_ffn: rows of the /8 (C=320) and /16 (C=640) sites in bf16,
     # and in fp32 the training sites' rows (384^2, 25 frames: 57,600 at
     # C=320, 14,400 at C=640, whose last row tile is ragged), all timed
@@ -1520,6 +1602,12 @@ BWD_FLASH = ((25, 2304, 5, 64), (25, 576, 10, 64))
 BWD_TMAJOR = ((2304, 320, 5), (576, 640, 10), (144, 1280, 20))
 BWD_FFN = ((320, 25 * 2304), (640, 25 * 576))
 BWD_SPLAT = ((48, 48, 320), (24, 24, 320), (12, 12, 640), (6, 6, 1280))
+# the classic layout's site (MOFA_TMAJOR=0): [B*S, T, H, D] at /8; the /8
+# resnet's GroupNorm and 3x3 conv input [T, 48, 48, C], its temporal conv's
+# [B, T, S, C]
+BWD_SHORT = (2304, 25, 5, 64)
+BWD_GN = (25, 48, 48, 320)
+BWD_TCONV = (1, 25, 2304, 320)
 # Bounds on each gradient of a kernel's autograd route (kernel forward,
 # stock backward) against plain autograd through the plain version, as
 # (max_rel, rms_rel) of each gradient tensor: fp32, both sides fp32 math
@@ -1559,16 +1647,17 @@ def _bwd_judge(dtype_name, got, ref) -> tuple:
 
 
 def phase_backward(kres: dict, g, card: str) -> list:
-    """Each training-path kernel's autograd route at the training shapes,
-    fp32 and bf16: the gradients (kernel forward, the stock backward of
-    kernels/*.py) against plain autograd through the plain version, within
-    TOL_BWD; the first shape of each timed (the kernel's forward alone,
+    """Each training-path kernel's autograd route, and classic short
+    attention's, at the training shapes, fp32 and bf16: the gradients
+    (kernel forward, the stock backward of kernels/*.py) against plain
+    autograd through the plain version, within TOL_BWD; the first shape of
+    each timed (the kernel's forward alone,
     `train_fwd_ms_*`, with its bound, `train_fwd_bound_ms_*`, and SDPA's
     forward beside flash's and tmajor's, `train_fwd_library_ms_*`; the
     backward function alone; CUDA events, median of 5; SDPA's backward
     beside flash's and tmajor's), with its bound (`bwd_*` keys of the
     kernel's row). Then one planted fault a kernel, which must miss the
-    bounds. Returns the loose faults."""
+    bounds; then `entry_point_grads`. Returns the loose faults."""
     import torch
     import torch.nn.functional as F
     from mofa_tpu_torch import kernels
@@ -1672,10 +1761,29 @@ def phase_backward(kres: dict, g, card: str) -> list:
                   work=(10 * S * H * 25 * 25 * (HD // H), 7 * nbytes(q), dn),
                   library=sdpa_bwd(to4(q), to4(k), to4(v), to4(cot)) if i == 0 else None,
                   fault=last_frame_unread if i == 0 else None,
-                  fwd_work=(4 * S * H * 25 * 25 * (HD // H), 4 * nbytes(q), dn),
+                  fwd_work=(4 * S * H * 25 * 25 * (HD // H), 4 * nbytes(q), fwd_kind),
                   fwd_library=(lambda a=to4(q), b_=to4(k), c=to4(v):
                                F.scaled_dot_product_attention(a, b_, c)) if i == 0 else None)
             del q, k, v, cot
+        # classic short attention at the classic layout's stage-1 site
+        # ([B*S, T, H, D]: 2304 tokens at /8, 25 frames)
+        q, k, v, cot = (randn(*BWD_SHORT, dt=dt) for _ in range(4))
+
+        def last_key_dropped():
+            dq, dk, dv = sm.short_backward(q, k, v, cot)
+            dk[:, -1], dv[:, -1] = 0, 0
+            return dq, dk, dv
+
+        B, L, H, D = BWD_SHORT
+        t4 = lambda x: x.transpose(1, 2).contiguous()
+        check("short_attention", dn, f"B={B} L={L} H={H} D={D}", sm.short_attention,
+              (q, k, v), cot, True, bwd_fn=lambda: sm.short_backward(q, k, v, cot),
+              work=(10 * B * H * L * L * D, 7 * nbytes(q), dn),
+              library=sdpa_bwd(t4(q), t4(k), t4(v), t4(cot)), fault=last_key_dropped,
+              fwd_work=(4 * B * H * L * L * D, 4 * nbytes(q), fwd_kind),
+              fwd_library=(lambda a=t4(q), b_=t4(k), c=t4(v):
+                           F.scaled_dot_product_attention(a, b_, c)))
+        del q, k, v, cot
         for i, (C, R) in enumerate(BWD_FFN):
             args = ffn_operands(g, C, R, dt)
             cot = randn(R, C, dt=dt)
@@ -1716,7 +1824,115 @@ def phase_backward(kres: dict, g, card: str) -> list:
                   fwd_work=(8 * fr * h * w * c, nbytes(src, flow, cot) + 4 * fr * h * w,
                             "fp32"))
             del src, flow, cot
+    entry_point_grads(check, g)
     return loose
+
+
+def entry_point_grads(check, g) -> None:
+    """The other entry points the JAX package differentiates, one shape
+    each at the stage-1 widths (bf16 where the kernel takes only bf16):
+    `check` (phase_backward's) holds the gradients of the kernel route to
+    plain autograd within TOL_BWD and each one's planted fault outside."""
+    import torch
+    from mofa_tpu_torch.kernels import conv_fused as cm
+    from mofa_tpu_torch.kernels import geglu_ffn as gm
+    from mofa_tpu_torch.kernels import group_norm as gnm
+
+    dev, bf, f32 = g.device, torch.bfloat16, torch.float32
+    rn = lambda *s, dt=f32, scale=1.0, mean=0.0: (
+        torch.randn(*s, generator=g, device=dev) * scale + mean).to(dt)
+    c, rows = BWD_FFN[0]
+    for name, tail in (("geglu_ffn", False), ("ln_geglu_ffn_ilv", False),
+                       ("ln_geglu_ffn_pipe", False), ("ln_geglu_ffn_tanh", True)):
+        args = ffn_operands(g, c, rows, bf, tail=tail)
+        x, ls, lb, w0, b0, w2, b2 = args
+        cot = rn(rows, c, dt=bf)
+        if name == "geglu_ffn":
+            def fault():                # the gate half of db0 dropped
+                grads = list(gm.ffn_backward(x, w0, b0, w2, b2, cot))
+                grads[2][4 * c:] = 0
+                return grads
+            check(name, "bf16", f"rows={rows} C={c}, grads", gm.geglu_ffn,
+                  (x, w0, b0, w2, b2), cot, False, fault=fault)
+            continue
+        variant = name.rsplit("_", 1)[1]
+        grads = gm.ln_ffn_backward(*args, cot, "tanh" if variant == "tanh" else "none")
+        if variant == "ilv":            # dx of rows 64-127 of every 128 from rows 0-63
+            def fault(grads=grads):
+                blocks = grads[0].view(-1, 128, c)
+                blocks[:, 64:] = blocks[:, :64]
+                return grads
+        elif variant == "pipe":         # dW0's rows of gate tiles 0 and 1 swapped
+            def fault(grads=grads):
+                dw0 = grads[3].clone()
+                for half in (0, 4 * c):
+                    dw0[half:half + 64] = grads[3][half + 64:half + 128]
+                    dw0[half + 64:half + 128] = grads[3][half:half + 64]
+                return (*grads[:3], dw0, *grads[4:])
+        else:                           # the JAX rule's erf gradient, at tail gates
+            def fault():
+                return gm.ln_ffn_backward(*args, cot)
+        check(name, "bf16", f"rows={rows} C={c}, grads",
+              lambda *a, v=variant: gm.ln_geglu_ffn(*a, variant=v), args, cot, False,
+              fault=fault)
+        del args, x, w0, w2, cot, grads
+
+    # the channel sums and the fused GroupNorm, fp32, at the /8 resnet's
+    # input (BWD_GN)
+    n, c = BWD_GN[0], BWD_GN[-1]
+    x = rn(*BWD_GN, mean=0.5)
+    x3 = x.view(n, -1, c)
+    g1, g2 = rn(n, c), rn(n, c)
+
+    def sums_fault():                   # d Σx² without its factor 2
+        return (g1[:, None] + x3 * g2[:, None],)
+    check("channel_sums", "fp32", f"{list(x3.shape)}, grads", gnm.channel_sums, (x3,),
+          (g1, g2), False, fault=sums_fault)
+    scale, bias = rn(c, scale=0.2, mean=1.0), rn(c, scale=0.2)
+    cot = rn(*BWD_GN, mean=0.5)
+
+    def stats_held():                   # the statistics held constant
+        _, ds, db = gnm.group_norm_backward(x, scale, bias, cot, 32, 1e-6)
+        a, _ = gnm.gn_affine(x3, scale, bias, 32, 1e-6)
+        return cot * a[:, None, None, :], ds, db
+    check("channel_sums", "fp32", f"fused_group_norm {list(BWD_GN)}, grads",
+          lambda *t: gnm.fused_group_norm(*t, 32, 1e-6), (x, scale, bias), cot,
+          False, fault=stats_held)
+    del x, x3, cot
+
+    # the fused convs, bf16: the 3x3 with temb and the output sums on BWD_GN,
+    # the temporal with temb and a residual on BWD_TCONV
+    for temporal, shape in ((False, BWD_GN), (True, BWD_TCONV)):
+        n, c = shape[0], shape[-1]
+        x = rn(*shape, dt=bf)
+        a, b = rn(n, c, scale=0.3, mean=1.0), rn(n, c, scale=0.2)
+        w = rn(*((3,) if temporal else (3, 3)), c, c, dt=bf,
+               scale=1.7 / ((3 if temporal else 9) * c) ** 0.5)
+        bias = rn(c, scale=0.1)
+        temb = rn(*((n, shape[1], c) if temporal else (n, c)), scale=0.3)
+        res = rn(*shape, dt=bf) if temporal else None
+        plain = cm.tconv3_plain if temporal else cm.conv3x3_plain
+        fn = cm.gn_silu_tconv3 if temporal else cm.gn_silu_conv3x3
+        inputs = (x, a, b, w, bias, temb) + ((res,) if temporal else ())
+        cot = ((rn(*shape, dt=bf),) if temporal else
+               (rn(*shape, dt=bf), rn(n, c), rn(n, c)))
+        if temporal:
+            def fault():                # d temb_bias dropped
+                grads = cm.fused_conv_backward(plain, *inputs, True, False, *cot)
+                return (*grads[:5], torch.zeros_like(temb), grads[6])
+            run = lambda *t: fn(*t)
+        else:
+            def fault():                # the output sums' cotangents dropped
+                grads = cm.fused_conv_backward(
+                    plain, *inputs, None, True, True, cot[0],
+                    torch.zeros_like(cot[1]), torch.zeros_like(cot[2]))
+                return grads[:6]
+            run = lambda *t: fn(*t, emit_sums=True)
+        name = "gn_silu_tconv3" if temporal else "gn_silu_conv3x3"
+        check(name, "bf16", f"{list(shape)} {'temb, residual' if temporal else 'temb, sums'}"
+              ", grads", run, inputs, cot if len(cot) > 1 else cot[0], False,
+              fault=fault)
+        del x, w, res, cot, inputs
 
 
 # ------------------------------------------------ phase 4: composition
@@ -2344,22 +2560,27 @@ RESUME_REL = 2e-5
 TRAIN_PLAIN_REL = (1e-5, 5e-4)
 
 
-def expected_train_launches(steps: int, remat: bool, size: tuple = (384, 384)) -> dict:
+def expected_train_launches(steps: int, remat: bool, size: tuple = (384, 384),
+                            layout: str = "tmajor") -> dict:
     """Launches of `steps` stage-1 training steps at SVD-XT widths (B=1,
-    T=25, one adapter): the forward sites of `expected_launches` for one
-    denoiser call without CFG (flash 7 at each level the gate admits,
-    tmajor 23, the FFN 42, softsplat 4) plus, with block remat, the
-    recompute of the blocks whose outputs need a gradient: all of the
-    trunk's (flash 2 a level, tmajor 7, FFN 12) and the UNet's up blocks
-    (flash 3 a level, tmajor 9, FFN 18: the C=320 and 640 up levels, 3
-    transformers each). The UNet's down and mid blocks read nothing that
-    needs a gradient and are not recomputed; the backward functions launch
-    nothing."""
-    want = expected_launches("tmajor", steps, size=size, warps=steps)
+    T=25, one adapter) in a temporal layout: the forward sites of
+    `expected_launches` for one denoiser call without CFG (flash 7 at each
+    level the gate admits, tmajor 23 or classic short attention 7, the FFN
+    42, softsplat 4) plus, with block remat, the recompute of the blocks
+    whose outputs need a gradient: all of the trunk's (flash 2 a level,
+    tmajor 7 or short 2, FFN 12) and the UNet's up blocks (flash 3 a level,
+    tmajor 9 or short 3, FFN 18: the C=320 and 640 up levels, 3
+    transformers each; short attention only at C=320). The UNet's down and
+    mid blocks read nothing that needs a gradient and are not recomputed;
+    the backward functions launch nothing."""
+    want = expected_launches(layout, steps, size=size, warps=steps)
     if remat:
         levels = flash_levels(*size)
         want["flash_attention"] += (2 + 3) * levels * steps
-        want["short_attention_tmajor"] += (7 + 9) * steps
+        if layout == "tmajor":
+            want["short_attention_tmajor"] += (7 + 9) * steps
+        else:
+            want["short_attention"] += (2 + 3) * steps
         want["ln_geglu_ffn"] += (12 + 18) * steps
     return want
 
@@ -2414,9 +2635,10 @@ def train_without_export(args):
     return trainer
 
 
-def check_train_steps(label: str, records: list, remat: bool) -> None:
+def check_train_steps(label: str, records: list, remat: bool,
+                      layout: str = "tmajor") -> None:
     import math
-    want = expected_train_launches(1, remat)
+    want = expected_train_launches(1, remat, layout=layout)
     want = {k: v for k, v in want.items() if v}
     for r in records:
         if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
@@ -2543,6 +2765,26 @@ def phase_train(dev) -> dict:
         f"{rel_g:.3e} (bounds {TRAIN_PLAIN_REL}); launches {step_launches}")
     if rel_l > TRAIN_PLAIN_REL[0] or rel_g > TRAIN_PLAIN_REL[1]:
         fail("train: the kernel step departs from the plain step")
+    # the same step in the classic temporal layout (MOFA_TMAJOR=0): short
+    # attention under autograd at its sites, against plain_reference()
+    with temporal_layout("classic"):
+        kernels.reset_launch_counts()
+        l_k, g_k = loss_and_grads()
+        step_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        with kernels.plain_reference():
+            l_p, g_p = loss_and_grads()
+    cn.zero_grad(set_to_none=True)
+    rel_l = abs(l_k - l_p) / abs(l_p)
+    rel_g = ((g_k - g_p).norm() / g_p.norm()).item()
+    want = {k: v for k, v in expected_train_launches(1, True, layout="classic").items()
+            if v}
+    log(f"[train] classic layout, one step through the kernels vs plain_reference(): "
+        f"loss {l_k:.6f} vs {l_p:.6f} (rel {rel_l:.3e}), adapter gradient rel rms "
+        f"{rel_g:.3e} (bounds {TRAIN_PLAIN_REL}); launches {step_launches}")
+    if rel_l > TRAIN_PLAIN_REL[0] or rel_g > TRAIN_PLAIN_REL[1]:
+        fail("train: the classic-layout kernel step departs from the plain step")
+    if step_launches != want:
+        fail(f"train: the classic-layout step launched {step_launches}, expected {want}")
     first_losses = {r["step"]: r["loss"] for r in trainer.records}
     del trainer, cn, g_k, g_p, batch, draws
     torch.cuda.empty_cache()
@@ -2602,11 +2844,26 @@ def phase_train(dev) -> dict:
         f"{r['fwd_bwd_s']:.3f} s, peak {r['peak_gib']:.2f} GiB")
     del run_d
     torch.cuda.empty_cache()
+
+    # one step through train_app in the classic temporal layout, with remat
+    with temporal_layout("classic"):
+        run_e = train_without_export(train_args(csv_path, folder, os.path.join(root, "e"),
+                                                1, "--gradient_checkpointing",
+                                                "--checkpointing_steps", "1000"))
+    check_train_steps("classic", run_e.records, remat=True, layout="classic")
+    r = run_e.records[0]
+    classic_launches = r["launches"]
+    log(f"[train] one step in the classic layout (MOFA_TMAJOR=0), remat: loss "
+        f"{r['loss']:.6f}, fwd+bwd {r['fwd_bwd_s']:.3f} s, peak {r['peak_gib']:.2f} "
+        f"GiB, launches {classic_launches}")
+    del run_e
+    torch.cuda.empty_cache()
     # stage 2 (phase 5h) starts from the exported adapter on the same clips
-    for tag in ("b", "c", "d"):
+    for tag in ("b", "c", "d", "e"):
         shutil.rmtree(os.path.join(root, tag), ignore_errors=True)
     shutil.rmtree(os.path.join(out_a, "checkpoints"), ignore_errors=True)
-    return launches, dict(root=root, csv=csv_path, folder=folder, adapter=export)
+    return launches, dict(root=root, csv=csv_path, folder=folder, adapter=export,
+                          classic_launches=classic_launches)
 
 
 # ------------------------------------------------ phase 5h: stage 2
@@ -3126,10 +3383,10 @@ def main() -> None:
     if args.phase == "train":
         # the training slice alone: its kernels' backward, the training run
         dev = torch.device("cuda")
-        kres = {n: {} for n in TRAIN_KERNELS}
-        log("[backward] the training path's kernels under autograd, fp32 and bf16")
+        kres = {n: {} for n in KERNEL_META}
+        log("[backward] the kernels under autograd, fp32 and bf16")
         loose = phase_backward(kres, torch.Generator(device=dev).manual_seed(13), card)
-        bad = [n for n in TRAIN_KERNELS if not kres[n]["bwd_ok"]]
+        bad = [n for n, r in kres.items() if not r.get("bwd_ok", True)]
         if bad or loose:
             fail(f"backward: outside the bounds {bad}; planted faults passing {loose}")
         log("[train] stage-1 training through train_app, SVD-XT widths, fp32")
@@ -3176,11 +3433,11 @@ def main() -> None:
         " bf16, ms")
     ffn_launches = phase_ffn_variants(torch.device("cuda"))
 
-    # 3c. the training path's kernels under autograd
-    log("[backward] the training path's kernels under autograd at the stage-1 "
-        "shapes, fp32 and bf16: gradients vs plain autograd, planted faults")
+    # 3c. the kernels under autograd
+    log("[backward] the kernels under autograd at the stage-1 shapes, fp32 and "
+        "bf16: gradients vs plain autograd, planted faults")
     loose = phase_backward(kres, torch.Generator(device="cuda").manual_seed(13), card)
-    bad = [n for n in TRAIN_KERNELS if not kres[n]["bwd_ok"]]
+    bad = [n for n, r in kres.items() if not r.get("bwd_ok", True)]
     if bad or loose:
         fail(f"backward: outside the bounds {bad}; planted faults passing {loose}")
 
@@ -3266,6 +3523,8 @@ def main() -> None:
         for name in TRAIN_KERNELS:
             kres[name]["train_launches"] = train_launches[name]
             kres[name]["stage2_launches"] = stage2_launches["A"][name]
+        for name, n in kept["classic_launches"].items():
+            kres[name]["classic_train_launches"] = n
         for name in KERNEL_META:        # the 25-step spatial-major video's own
             kres[name]["main_path_launches"] = main_run["launches"][name]
             kres[name]["hybrid_launches"] = hybrid_run["launches"][name]
@@ -3290,10 +3549,12 @@ def main() -> None:
              "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint",
              "ms_keypoint16", "plain_ms_keypoint16", "library_ms_keypoint16",
              "bound_ms_keypoint16", "bound_by_keypoint16", "train_launches",
-             "stage2_launches", "train_fwd_bound_cores_ms_fp32") + tuple(
-                 k + s for s in ("_fp32", "_fp32_c640")
+             "stage2_launches", "classic_train_launches",
+             "train_fwd_bound_cores_ms_fp32") + tuple(
+                 k + s for s in ("_fp32", "_fp32_c640", "_fp32_train")
                  for k in ("ms", "plain_ms", "library_ms", "chain_ms", "bound_ms",
-                           "bound_by", "bound_cores_ms")) + tuple(
+                           "bound_by", "bound_cores_ms", "queued_ms",
+                           "library_queued_ms")) + tuple(
                  f"{k}_{d}" for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by",
                                       "bwd_library_ms", "bwd_max_rel_err",
                                       "train_fwd_ms", "train_fwd_bound_ms",

@@ -38,9 +38,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+// (a compiler barrier too: plain shared-memory reads of the copied rows
+// stay after it)
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four 8x8 bf16 matrices; lane l gives the address of row (l % 8) of matrix (l / 8)
@@ -61,6 +63,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16x8 fp32) += A (16x8 tf32, row) * B (8x8 tf32, col); A: a0 (row g,
+// col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B: b0 (row t,
+// col g), b1 (t + 4, g); g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

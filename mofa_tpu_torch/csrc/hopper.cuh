@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on `wgmma`
 // fed by TMA (flash_attention.cu, ln_geglu_ffn.cu, conv3x3.cu): the warpgroup
 // matrix-multiply instructions (bf16, and tf32 for the fp32 routes' split
-// products), the split into TF32 terms and, on the host, the tensor-map
-// encoders.
+// products), the split into TF32 terms (also taken by short_attention.cu's
+// fp32 route on mma.sync) and, on the host, the tensor-map encoders.
 #pragma once
 #include <cuda.h>
 

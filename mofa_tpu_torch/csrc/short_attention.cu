@@ -11,81 +11,64 @@
 //   ::_short_attn_fwd (C entry mofa_short_attention).
 // The TPU kernels pack many sequences under a block-diagonal mask so that
 // the MXU gets a large tile; on Hopper one (sequence, head) is one warp's
-// 32 x 32 x D problem for `mma.sync.m16n8k16`.
+// 32 x 32 x D problem for `mma.sync`.
 //
 // Bound: device memory (one read of q/k/v, one write of out; the
 // products are 2 L^2 D operations per L D values, far under the card's
-// ridge). What the design does about it:
-// - every warp walks its own (sequence, head) tasks, grid-stride, and
-//   double-buffers them: the 16-byte `cp.async` copies of the next task's
-//   q/k/v rows (D contiguous values per frame) are in flight while the
-//   warp computes this one, and a block of 4 warps keeps 2 x 4 tasks'
-//   rows in shared memory (bf16, padded to 32 rows; the padded rows are
-//   zeroed once and never loaded);
-// - QK^T and PV run on tensor cores from `ldmatrix` fragments (V through
-//   the transposed form), the exact max-subtracted softmax with fp32
-//   logits on the accumulator fragments, the keys past L masked to -inf,
-//   P normalised in fp32 and rounded to bf16 as the A operand of PV;
-// - the output goes back through shared memory as 16-byte row writes.
-// The fp32 path (composition checks, tests; not timed) runs the same body
-// on each operand split into three bf16 terms (hi + mid + lo, 24 bits of
-// mantissa), summing the six products whose terms are not both small:
-// fp32 accuracy from the bf16 tensor-core instruction.
-#include "common.cuh"
+// ridge). What the design does about it, in both dtypes: every warp walks
+// its own (sequence, head) tasks, grid-stride, with the next task's q/k/v
+// rows (D contiguous values per frame) in flight through 16-byte
+// `cp.async` copies while it computes this one; the exact max-subtracted
+// softmax runs in fp32 on S's accumulator fragments, the keys past L
+// masked to -inf; the output goes out as 16-byte row writes.
+// - bf16 (inference): a block of 4 warps keeps 2 x 4 tasks' rows in
+//   shared memory (a double buffer, padded to 32 rows; the padded rows are
+//   zeroed once and never loaded); QK^T and PV run on
+//   `mma.sync.m16n8k16` from `ldmatrix` fragments (V through the
+//   transposed form), P normalised in fp32 and rounded to bf16 as the A
+//   operand of PV; O goes back through shared memory.
+// - fp32 (training): each warp keeps one task's fp32 q, k and v rows in
+//   shared memory (L rows of D + 4 floats, so that the fragment loads hit
+//   32 distinct banks: 20 KB a warp at L = 25, D = 64, a block of 4 warps
+//   and 2 blocks an SM) in a software pipeline: the next task's q and k
+//   are copied in as soon as this task's S = QK^T is taken, while its
+//   softmax and PV run, and its v as soon as PV is taken, while the next
+//   QK^T runs. Fragment rows past L read row L - 1 (finite: masked keys,
+//   zero probabilities, queries never written), so no row past L is
+//   loaded or zeroed. Each operand is split in registers into big =
+//   tf32(x) and small = tf32(x - big) (`split_tf32`) and each product is
+//   taken as small * big + big * small + big * big on
+//   `mma.sync.m16n8k8.tf32`, a k-step's three products in a fresh
+//   accumulator added in fp32 (the tensor cores' own accumulation
+//   truncates): about 22 of fp32's 24 bits. P's accumulator fragment
+//   holds keys 2t, 2t + 1 of each 8 where the tf32 A operand wants t,
+//   t + 4, so PV takes each step's keys in that order (V's B fragment
+//   reads rows 2t and 2t + 1) and P is the A operand as it lies. O goes
+//   out from the fragments, lanes t and t ^ 1 trading halves so that each
+//   holds 4 consecutive values of one row.
+#include "hopper.cuh"
 
 using bf16 = __nv_bfloat16;
 
 namespace {
 
 constexpr int ROWS = 32;                      // frames padded to one tile
-constexpr int BF16_WARPS = 4, F32_WARPS = 2;  // warps per block
+constexpr int BF16_WARPS = 4, F32_WARPS = 4;  // warps per block
 
 template <int D>
 struct ShortCfg {
   static constexpr int PITCH = D + 8;         // bf16; ldmatrix rows hit distinct banks
   static constexpr int TILE = ROWS * PITCH;   // one of q / k / v, elements
   static constexpr int BLOCKS_PER_SM = D == 64 ? 2 : 1;   // bf16, by shared memory
+  static constexpr int F32_PITCH = D + 4;     // fp32; fragment loads hit distinct banks
 };
 
-// O[32 x D] (rows < L meaningful) of one (sequence, head) from tiles in
-// shared memory; q[i] / k[i] / v[i] are the NSPLIT bf16 terms of each
-// operand. o[mi][n][e]: row 16 mi + lane/4 + 8 (e/2), column 8n + 2 (lane%4) + e%2.
-template <int D, int NSPLIT>
-__device__ __forceinline__ void attend(const bf16* const* q, const bf16* const* k,
-                                       const bf16* const* v, int L, float scale_log2,
-                                       int lane, float (&o)[2][D / 8][4]) {
-  constexpr int P = ShortCfg<D>::PITCH;
-  float s[2][4][4];                           // S[32 x 32]: m-tile, 8-key tile
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) s[mi][n][0] = s[mi][n][1] = s[mi][n][2] = s[mi][n][3] = 0.0f;
-#pragma unroll
-  for (int qi = 0; qi < NSPLIT; ++qi)
-#pragma unroll
-    for (int kj = 0; kj + qi < NSPLIT; ++kj)
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[2][4], b[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          mofa::ldsm_x4(a[mi], q[qi] + (16 * mi + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          mofa::ldsm_x4(b[np], k[kj] + (16 * np + ((lane >> 4) << 3) + (lane & 7)) * P +
-                                   kk * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-            mofa::mma_bf16(s[mi][n], a[mi], b[n / 2][(n & 1) * 2], b[n / 2][(n & 1) * 2 + 1]);
-      }
-
-  // exact softmax per row: keys >= L masked, max-subtracted, normalised
-  // in fp32, then each probability split into NSPLIT bf16 terms packed as
-  // the A operand of PV (n-tile n is half n % 2 of k-step n / 2)
+// The exact softmax of S's rows in place: keys >= L masked, max-subtracted,
+// normalised in fp32. s[mi][n][e]: row 16 mi + lane/4 + 8 (e/2), key
+// 8n + 2 (lane%4) + e%2 (an m16n8 accumulator fragment).
+__device__ __forceinline__ void softmax_rows(float (&s)[2][4][4], int L, float scale_log2,
+                                             int lane) {
   const int t = lane & 3;
-  uint32_t pa[NSPLIT][2][2][4];               // split, m-tile, k-step, register
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -117,23 +100,52 @@ __device__ __forceinline__ void attend(const bf16* const* q, const bf16* const* 
     sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
     const float inv0 = 1.0f / sum0, inv1 = 1.0f / sum1;
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      float r[4];
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) r[e] = s[mi][n][e] * (e < 2 ? inv0 : inv1);
-#pragma unroll
-      for (int sp = 0; sp < NSPLIT; ++sp) {
-        float term[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          term[e] = __bfloat162float(__float2bfloat16(r[e]));
-          r[e] -= term[e];
-        }
-        pa[sp][mi][n / 2][(n & 1) * 2] = mofa::pack_bf16(term[0], term[1]);      // row g
-        pa[sp][mi][n / 2][(n & 1) * 2 + 1] = mofa::pack_bf16(term[2], term[3]);  // row g + 8
-      }
-    }
+      for (int e = 0; e < 4; ++e) s[mi][n][e] *= e < 2 ? inv0 : inv1;
   }
+}
+
+// O[32 x D] (rows < L meaningful) of one (sequence, head) from bf16 tiles
+// in shared memory. o[mi][n][e]: row 16 mi + lane/4 + 8 (e/2), column
+// 8n + 2 (lane%4) + e%2.
+template <int D>
+__device__ __forceinline__ void attend(const bf16* q, const bf16* k, const bf16* v, int L,
+                                       float scale_log2, int lane, float (&o)[2][D / 8][4]) {
+  constexpr int P = ShortCfg<D>::PITCH;
+  float s[2][4][4];                           // S[32 x 32]: m-tile, 8-key tile
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) s[mi][n][0] = s[mi][n][1] = s[mi][n][2] = s[mi][n][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[2][4], b[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      mofa::ldsm_x4(a[mi], q + (16 * mi + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np)
+      mofa::ldsm_x4(b[np], k + (16 * np + ((lane >> 4) << 3) + (lane & 7)) * P + kk * 16 +
+                               ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        mofa::mma_bf16(s[mi][n], a[mi], b[n / 2][(n & 1) * 2], b[n / 2][(n & 1) * 2 + 1]);
+  }
+  softmax_rows(s, L, scale_log2, lane);
+
+  // P rounded to bf16 as the A operand of PV (n-tile n is half n % 2 of
+  // k-step n / 2)
+  uint32_t pa[2][2][4];                       // m-tile, k-step, register
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      pa[mi][n / 2][(n & 1) * 2] = mofa::pack_bf16(s[mi][n][0], s[mi][n][1]);      // row g
+      pa[mi][n / 2][(n & 1) * 2 + 1] = mofa::pack_bf16(s[mi][n][2], s[mi][n][3]);  // row g + 8
+    }
 
   // O = P V over 32 keys (two k-steps); V's B fragments via ldmatrix.trans
 #pragma unroll
@@ -141,21 +153,17 @@ __device__ __forceinline__ void attend(const bf16* const* q, const bf16* const* 
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) o[mi][n][0] = o[mi][n][1] = o[mi][n][2] = o[mi][n][3] = 0.0f;
 #pragma unroll
-  for (int sp = 0; sp < NSPLIT; ++sp)
+  for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-    for (int vj = 0; vj + sp < NSPLIT; ++vj)
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t b[4];
+      mofa::ldsm_x4_trans(b, v + (16 * ks + (lane & 15)) * P + np * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
-          uint32_t b[4];
-          mofa::ldsm_x4_trans(b, v[vj] + (16 * ks + (lane & 15)) * P + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mofa::mma_bf16(o[mi][2 * np], pa[sp][mi][ks], b[0], b[1]);
-            mofa::mma_bf16(o[mi][2 * np + 1], pa[sp][mi][ks], b[2], b[3]);
-          }
-        }
+      for (int mi = 0; mi < 2; ++mi) {
+        mofa::mma_bf16(o[mi][2 * np], pa[mi][ks], b[0], b[1]);
+        mofa::mma_bf16(o[mi][2 * np + 1], pa[mi][ks], b[2], b[3]);
+      }
+    }
 }
 
 // element offset of frame 0 of task (b, s, h), h fastest; frames are
@@ -208,11 +216,8 @@ __global__ void __launch_bounds__(BF16_WARPS * 32, ShortCfg<D>::BLOCKS_PER_SM)
     mofa::cp_async_commit();
     mofa::cp_async_wait<1>();
     __syncwarp();
-    const bf16* qs[1] = {buf};
-    const bf16* ks[1] = {buf + TILE};
-    const bf16* vs[1] = {buf + 2 * TILE};
     float o[2][D / 8][4];
-    attend<D, 1>(qs, ks, vs, L, scale_log2, lane, o);
+    attend<D>(buf, buf + TILE, buf + 2 * TILE, L, scale_log2, lane, o);
     // O's rows < L -> the q tile (free now) -> 16-byte row writes
     __syncwarp();
     const int g = lane >> 2, t = lane & 3;
@@ -237,60 +242,181 @@ __global__ void __launch_bounds__(BF16_WARPS * 32, ShortCfg<D>::BLOCKS_PER_SM)
   mofa::cp_async_wait<0>();
 }
 
-// fp32 (not timed): the same walk without the pipeline; each operand is
-// split into three bf16 terms on its way into shared memory
+// one operand's L fp32 rows of a task into shared memory (pitch F32_PITCH)
+template <int D>
+__device__ __forceinline__ void load_f32_rows(float* dst, const float* __restrict__ src,
+                                              long long base, long long row_stride, int L,
+                                              int lane) {
+  constexpr int P = ShortCfg<D>::F32_PITCH, CPR = D / 4;
+  for (int i = lane; i < L * CPR; i += 32) {
+    const int f = i / CPR, c = (i % CPR) * 4;
+    mofa::cp_async16(dst + f * P + c, src + base + f * row_stride + c);
+  }
+}
+
+// fp32: split TF32 on mma.sync (the source note); each warp walks tasks
+// gw, gw + nw, ... through the pipeline of one q / k / v buffer
 template <int D>
 __global__ void __launch_bounds__(F32_WARPS * 32)
     short_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ out,
                           long long ntasks, int L, int S, int H, float scale_log2) {
-  constexpr int P = ShortCfg<D>::PITCH, TILE = ShortCfg<D>::TILE;
+  constexpr int P = ShortCfg<D>::F32_PITCH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  bf16* const mine = reinterpret_cast<bf16*>(smem_raw) + warp * 9 * TILE;  // (q, k, v) x 3 terms
+  const int g = lane >> 2, t = lane & 3;
+  float* const qs = reinterpret_cast<float*>(smem_raw) + warp * 3 * L * P;
+  float* const ks = qs + L * P;
+  float* const vs = ks + L * P;
   const long long row_stride = (long long)S * H * D;
   const long long nw = (long long)gridDim.x * F32_WARPS;
-  for (int i = lane; i < 9 * ROWS * P / 8; i += 32)
-    reinterpret_cast<uint4*>(mine)[i] = make_uint4(0, 0, 0, 0);
-  const float* src[3] = {q, k, v};
-  for (long long task = (long long)blockIdx.x * F32_WARPS + warp; task < ntasks; task += nw) {
-    const long long base = task_base(task, L, S, H, D);
-    __syncwarp();
-    for (int i = lane; i < 3 * L * D / 4; i += 32) {
-      const int which = i / (L * D / 4), r = i % (L * D / 4);
-      const int f = r / (D / 4), c = (r % (D / 4)) * 4;
-      float x[4];
-      *reinterpret_cast<float4*>(x) =
-          *reinterpret_cast<const float4*>(src[which] + base + f * row_stride + c);
+  // shared-memory offsets of this lane's fragment rows, past L read as
+  // row L - 1: query / key g + 8i, and the keys 8i + 2t, 8i + 2t + 1 of
+  // PV's k-step i
+  int rows[4], vrows[4][2];
 #pragma unroll
-      for (int sp = 0; sp < 3; ++sp) {
-        bf16* dst = mine + (which * 3 + sp) * TILE + f * P + c;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dst[e] = __float2bfloat16(x[e]);
-          x[e] -= __bfloat162float(dst[e]);
-        }
-      }
-    }
+  for (int i = 0; i < 4; ++i) {
+    rows[i] = min(g + 8 * i, L - 1) * P;
+    vrows[i][0] = min(8 * i + 2 * t, L - 1) * P;
+    vrows[i][1] = min(8 * i + 2 * t + 1, L - 1) * P;
+  }
+
+  long long task = (long long)blockIdx.x * F32_WARPS + warp;
+  long long base = task < ntasks ? task_base(task, L, S, H, D) : 0;
+  if (task < ntasks) {
+    load_f32_rows<D>(qs, q, base, row_stride, L, lane);
+    load_f32_rows<D>(ks, k, base, row_stride, L, lane);
+  }
+  mofa::cp_async_commit();                    // group: the first task's q, k
+  if (task < ntasks) load_f32_rows<D>(vs, v, base, row_stride, L, lane);
+  mofa::cp_async_commit();                    // group: its v
+  for (; task < ntasks; task += nw) {
+    const long long next = task + nw;
+    const long long next_base = next < ntasks ? task_base(next, L, S, H, D) : 0;
+    mofa::cp_async_wait<1>();                 // this task's q, k (its v may be in flight)
     __syncwarp();
-    const bf16* qs[3] = {mine, mine + TILE, mine + 2 * TILE};
-    const bf16* ks[3] = {mine + 3 * TILE, mine + 4 * TILE, mine + 5 * TILE};
-    const bf16* vs[3] = {mine + 6 * TILE, mine + 7 * TILE, mine + 8 * TILE};
-    float o[2][D / 8][4];
-    attend<D, 3>(qs, ks, vs, L, scale_log2, lane, o);
-    const int g = lane >> 2, t = lane & 3;
+
+    // S = Q K^T, 8 dims a k-step
+    float s[2][4][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < 4; ++n) s[mi][n][0] = s[mi][n][1] = s[mi][n][2] = s[mi][n][3] = 0.0f;
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int f = 16 * mi + g + 8 * hf;
-          if (f < L)
-            *reinterpret_cast<float2*>(out + base + f * row_stride + 8 * n + 2 * t) =
-                make_float2(o[mi][n][2 * hf], o[mi][n][2 * hf + 1]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t qb[2][4], qsm[2][4], kb[4][2], ksm[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)           // a0..a3: rows g, g + 8, g, g + 8; dims t, t, t + 4, t + 4
+          mofa::split_tf32(qs[rows[2 * mi + (r & 1)] + 8 * kk + t + 4 * (r >> 1)], qb[mi][r],
+                           qsm[mi][r]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)           // b0, b1: key 8n + g; dims t, t + 4
+          mofa::split_tf32(ks[rows[n] + 8 * kk + t + 4 * r], kb[n][r], ksm[n][r]);
+      // each product over all 8 tiles before the next: 8 independent
+      // accumulators between dependent instructions
+      float c[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          c[mi][n][0] = c[mi][n][1] = c[mi][n][2] = c[mi][n][3] = 0.0f;
+          mofa::mma_tf32(c[mi][n], qsm[mi], kb[n][0], kb[n][1]);
         }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mofa::mma_tf32(c[mi][n], qb[mi], ksm[n][0], ksm[n][1]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          mofa::mma_tf32(c[mi][n], qb[mi], kb[n][0], kb[n][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mi][n][e] += c[mi][n][e];
+        }
+    }
+    __syncwarp();                             // every lane has read q and k
+    if (next < ntasks) {
+      load_f32_rows<D>(qs, q, next_base, row_stride, L, lane);
+      load_f32_rows<D>(ks, k, next_base, row_stride, L, lane);
+    }
+    mofa::cp_async_commit();
+
+    softmax_rows(s, L, scale_log2, lane);
+    // P as the A operand of PV's k-step n: key 8n + 2t as column t, key
+    // 8n + 2t + 1 as column t + 4
+    uint32_t pb[2][4][4], psm[2][4][4];       // m-tile, k-step, register
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        mofa::split_tf32(s[mi][n][0], pb[mi][n][0], psm[mi][n][0]);   // row g, key 2t
+        mofa::split_tf32(s[mi][n][2], pb[mi][n][1], psm[mi][n][1]);   // row g + 8, key 2t
+        mofa::split_tf32(s[mi][n][1], pb[mi][n][2], psm[mi][n][2]);   // row g, key 2t + 1
+        mofa::split_tf32(s[mi][n][3], pb[mi][n][3], psm[mi][n][3]);   // row g + 8, key 2t + 1
+      }
+    mofa::cp_async_wait<1>();                 // this task's v (the next q, k may be in flight)
+    __syncwarp();
+
+    // O = P V, 8 columns at a time, each written as it is done; a fresh
+    // accumulator for each of the 4 k-steps and 2 m-tiles, each product
+    // over all 8 before the next
+#pragma unroll
+    for (int np = 0; np < D / 8; ++np) {
+      uint32_t vb[4][2], vsm[4][2];           // k-step; b0, b1: keys 8st + 2t, + 1; column g
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          mofa::split_tf32(vs[vrows[st][r] + 8 * np + g], vb[st][r], vsm[st][r]);
+      float c[4][2][4];
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          c[st][mi][0] = c[st][mi][1] = c[st][mi][2] = c[st][mi][3] = 0.0f;
+          mofa::mma_tf32(c[st][mi], psm[mi][st], vb[st][0], vb[st][1]);
+        }
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mofa::mma_tf32(c[st][mi], pb[mi][st], vsm[st][0], vsm[st][1]);
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mofa::mma_tf32(c[st][mi], pb[mi][st], vb[st][0], vb[st][1]);
+      float o[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[mi][e] = ((c[0][mi][e] + c[1][mi][e]) + c[2][mi][e]) + c[3][mi][e];
+      // lanes t and t ^ 1 trade halves: even t holds row g, columns 2t ..
+      // 2t + 3; odd t row g + 8, columns 2t - 2 .. 2t + 1
+      const bool odd = t & 1;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float x0 = __shfl_xor_sync(0xffffffffu, odd ? o[mi][0] : o[mi][2], 1);
+        const float x1 = __shfl_xor_sync(0xffffffffu, odd ? o[mi][1] : o[mi][3], 1);
+        const int f = 16 * mi + g + (odd ? 8 : 0);
+        if (f < L)
+          *reinterpret_cast<float4*>(out + base + f * row_stride + 8 * np + 2 * (t & 2)) =
+              odd ? make_float4(x0, x1, o[mi][2], o[mi][3])
+                  : make_float4(o[mi][0], o[mi][1], x0, x1);
+      }
+    }
+    __syncwarp();                             // every lane has read v
+    if (next < ntasks) load_f32_rows<D>(vs, v, next_base, row_stride, L, lane);
+    mofa::cp_async_commit();
+    base = next_base;
   }
+  mofa::cp_async_wait<0>();
 }
 
 int sm_count() {
@@ -314,14 +440,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, long lon
   return (int)cudaGetLastError();
 }
 
+// fp32: shared memory grows with L (3 L rows a warp), so the grid is as
+// many blocks as the SMs hold at this L
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, long long ntasks,
                int L, int S, int H, cudaStream_t st) {
-  const int smem = F32_WARPS * 9 * ShortCfg<D>::TILE * (int)sizeof(bf16);
+  const int smem = F32_WARPS * 3 * L * ShortCfg<D>::F32_PITCH * (int)sizeof(float);
   cudaFuncSetAttribute(short_attn_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, short_attn_f32_kernel<D>,
+                                                F32_WARPS * 32, smem);
   const long long want = (ntasks + F32_WARPS - 1) / F32_WARPS;
-  const long long cap = (long long)sm_count() * 8;
+  const long long cap = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
   short_attn_f32_kernel<D><<<(unsigned)(want < cap ? want : cap), F32_WARPS * 32, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, ntasks, L, S, H,
       1.4426950408889634f / sqrtf((float)D));

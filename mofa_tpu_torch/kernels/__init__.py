@@ -8,14 +8,16 @@ composition check of `chip_smoke.py` and the tests enter; the main path
 never does.
 
 A kernel's output is written through ctypes and carries no `grad_fn`.
-The four kernels of the training path (`flash_attention`,
-`short_attention_tmajor`, `ln_geglu_ffn` with variant "plain", the
-softsplat splat and its normalising pass) run inside a
-`torch.autograd.Function` when grad is enabled on a CUDA tensor: the
-kernel forward, and a backward in stock PyTorch on the JAX package's
-math. The others have no backward yet (ROADMAP Queue 2): before a launch
-their wrappers call `check_no_grad`, which raises where autograd would
-need one. The plain versions on the CPU keep autograd.
+Every entry point that the JAX package differentiates (a `jax.custom_vjp`
+there) runs its kernel inside a `torch.autograd.Function` when grad is
+enabled on a CUDA tensor that requires it: the kernel forward, and a
+backward in stock PyTorch on the JAX rule's math, the VJP of the plain
+version recomputed (`vjp_plain`; flash and the splat keep backward
+functions of their own). `kernel_route` wraps a launch so. The port's own
+stage entry points (the FFN's and the fused convs' stages), which have no
+JAX counterpart, have no backward: before a launch they call
+`check_no_grad`, which raises where autograd would need one. The plain
+versions on the CPU keep autograd.
 """
 
 from __future__ import annotations
@@ -69,16 +71,64 @@ def math_dtype(dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def check_no_grad(name: str, *tensors) -> None:
-    """Raise RuntimeError if kernel `name` is about to run with grad enabled
-    on an input that requires grad: its output would silently have no
-    gradient. Called by each wrapper on its kernel route only."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    """Raise RuntimeError if stage entry point `name` is about to launch
+    with grad enabled on an input that requires grad: its output would
+    silently have no gradient. Called by the port's stage entry points on
+    their kernel route only."""
+    if _needs_grad(tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 2) "
-            "and an input requires grad; run it under torch.no_grad(), or "
-            "on CPU tensors, whose plain version keeps autograd")
+            f"{name}: a stage entry point of the port, with no counterpart in "
+            "the JAX package, has no backward and an input requires grad; "
+            "run it under torch.no_grad(), call the fused entry point, which "
+            "has one, or use CPU tensors, whose plain version keeps autograd")
+
+
+def vjp_plain(fn, inputs, cotangents) -> tuple:
+    """The gradients of fn(*inputs) at `cotangents` (a tensor, or a tuple
+    for a tuple output), fn a plain version recomputed under autograd: the
+    stock backward of the kernels' autograd routes, as each JAX rule is
+    jax.vjp of its reference. A None input gets None; an input that fn
+    does not reach gets zeros."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_()
+                  for t in inputs]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        cots = cotangents if isinstance(cotangents, tuple) else (cotangents,)
+        grads = iter(torch.autograd.grad(
+            outs, [t for t in leaves if t is not None], cots,
+            materialize_grads=True))
+        return tuple(None if t is None else next(grads) for t in leaves)
+
+
+class _KernelFunction(torch.autograd.Function):
+    """launch(*inputs) forward, backward(*inputs, *output grads) backward."""
+
+    @staticmethod
+    def forward(ctx, launch, backward, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.backward_fn = backward
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.backward_fn(*ctx.saved_tensors, *grads))
+
+
+def kernel_route(launch, backward, *inputs):
+    """A wrapper's kernel route: launch(*inputs), the kernel (tensors or
+    None); with grad enabled and an input that requires it, inside an
+    autograd Function whose backward(*inputs, *output grads) returns a
+    gradient (or None) for each input."""
+    if _needs_grad(inputs):
+        return _KernelFunction.apply(launch, backward, *inputs)
+    return launch(*inputs)
 
 
 def count_launch(name: str, shape: tuple | None = None) -> None:

@@ -35,7 +35,16 @@ are rounded to x's dtype before the fp32 epilogue adds them, and the conv
 accumulates in fp32 over the rounded y and w, with one rounding at the
 end; in fp32 the roundings are no-ops. The kernels take bf16 only (the
 main path's type); fp32 tensors on a card raise. As in the JAX package,
-no model calls these functions. Forward only.
+no model calls these functions.
+
+The fused entry points have the JAX package's gradients: on a CUDA
+tensor with grad enabled the kernel forward runs inside an autograd
+Function whose backward is the VJP of the plain chain, recomputed, with
+the sums' cotangents where `emit_sums` returns them and None for an
+absent temb_bias or residual (`_vjp_bwd` / `_tvjp_bwd`,
+conv_fused.py:440 / :407): `fused_conv_backward`. The stages, the port's
+own entry points, raise under grad on their kernel routes
+(`kernels.check_no_grad`).
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
+from mofa_tpu_torch.kernels import (check_no_grad, count_launch, kernel_route,
+                                    use_kernel, vjp_plain)
 
 MAX_FUSED_CHANNELS = 640
 K_CHUNK, O_TILE = 32, 64          # the gate's channel multiples (C, O)
@@ -159,12 +169,11 @@ def _refuse(name, c, o, x, residual):
                          f"O % {O_TILE} == 0; got C={c}, O={o}, {x.dtype}")
 
 
-def _launch(name, tensors, x, w, bias, temb_bias, residual, emit_sums,
-            ab=(), silu: bool = True):
+def _launch(name, x, w, bias, temb_bias, residual, emit_sums, ab=(),
+            silu: bool = True):
     """C entry `mofa_<name>` on the card. With ab = (a, b), a fused conv:
     the two stages through a y scratch allocated here, one launch counted;
     without, a GEMM stage on an activated x, no count."""
-    check_no_grad(name, *tensors)
     n, o = x.shape[0], w.shape[-1]
     _refuse(name, x.shape[-1], o, x, residual)
     from mofa_tpu_torch.kernels._build import launch
@@ -195,6 +204,24 @@ def _check(name, x, w, taps, temb_bias, temb_shape, residual, ab=()):
                          f"{temb_shape}, residual {x.shape[:3] + (o,)}")
 
 
+def fused_conv_backward(plain, x, a, b, w, bias, temb_bias, residual, silu,
+                        emit_sums, *grads):
+    """The gradients of (x, a, b, w, bias, temb_bias, residual) at `grads`
+    (d out, and d s1, d s2 with emit_sums): the VJP of the plain chain
+    `plain` (`conv3x3_plain` or `tconv3_plain`), recomputed; None for an
+    absent temb_bias or residual."""
+    return vjp_plain(lambda *t: plain(*t, silu=silu, emit_sums=emit_sums),
+                     (x, a, b, w, bias, temb_bias, residual), tuple(grads))
+
+
+def _fused_route(name, plain, x, a, b, w, bias, temb_bias, residual, silu,
+                 emit_sums):
+    return kernel_route(
+        lambda x_, a_, b_, *rest: _launch(name, x_, *rest, emit_sums, (a_, b_), silu),
+        lambda *t: fused_conv_backward(plain, *t[:7], silu, emit_sums, *t[7:]),
+        x, a, b, w, bias, temb_bias, residual)
+
+
 def gn_silu_conv3x3(x, a, b, w, bias, temb_bias=None, residual=None,
                     silu: bool = True, emit_sums: bool = False):
     """out = conv3x3(silu(x*a + b)) + bias [+ temb_bias] [+ residual].
@@ -209,8 +236,8 @@ def gn_silu_conv3x3(x, a, b, w, bias, temb_bias=None, residual=None,
     if not use_kernel(*tensors):
         return conv3x3_plain(x, a, b, w, bias, temb_bias, residual, silu,
                              emit_sums)
-    return _launch("gn_silu_conv3x3", tensors, x, w, bias, temb_bias,
-                   residual, emit_sums, (a, b), silu)
+    return _fused_route("gn_silu_conv3x3", conv3x3_plain, x, a, b, w, bias,
+                        temb_bias, residual, silu, emit_sums)
 
 
 # --------------------------------------------------- the stage entry points
@@ -265,8 +292,8 @@ def conv3x3_gemm(y, w, bias, temb_bias=None, residual=None,
     tensors = [t for t in (y, w, bias, temb_bias, residual) if t is not None]
     if not use_kernel(*tensors):
         return conv3x3_gemm_plain(y, w, bias, temb_bias, residual, emit_sums)
-    return _launch("conv3x3_gemm", tensors, y, w, bias, temb_bias, residual,
-                   emit_sums)
+    check_no_grad("conv3x3_gemm", *tensors)
+    return _launch("conv3x3_gemm", y, w, bias, temb_bias, residual, emit_sums)
 
 
 def tconv3_gemm(y, w, bias, temb_bias=None, residual=None,
@@ -279,8 +306,8 @@ def tconv3_gemm(y, w, bias, temb_bias=None, residual=None,
     tensors = [t for t in (y, w, bias, temb_bias, residual) if t is not None]
     if not use_kernel(*tensors):
         return tconv3_gemm_plain(y, w, bias, temb_bias, residual, emit_sums)
-    return _launch("tconv3_gemm", tensors, y, w, bias, temb_bias, residual,
-                   emit_sums)
+    check_no_grad("tconv3_gemm", *tensors)
+    return _launch("tconv3_gemm", y, w, bias, temb_bias, residual, emit_sums)
 
 
 def gn_silu_tconv3(x, a, b, w, bias, temb_bias=None, residual=None,
@@ -296,5 +323,5 @@ def gn_silu_tconv3(x, a, b, w, bias, temb_bias=None, residual=None,
     if not use_kernel(*tensors):
         return tconv3_plain(x, a, b, w, bias, temb_bias, residual, silu,
                             emit_sums)
-    return _launch("gn_silu_tconv3", tensors, x, w, bias, temb_bias,
-                   residual, emit_sums, (a, b), silu)
+    return _fused_route("gn_silu_tconv3", tconv3_plain, x, a, b, w, bias,
+                        temb_bias, residual, silu, emit_sums)

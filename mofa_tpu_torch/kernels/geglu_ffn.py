@@ -37,12 +37,16 @@ accumulation, about 22 of fp32's 24 bits (`split_tf32_plain` has its
 arithmetic); the others take bf16 only and raise on fp32 tensors on a
 card.
 
-Only the models' kernel, `ln_geglu_ffn` with variant "plain", has a
-gradient: with grad enabled on a CUDA tensor it runs inside
-`_LnFfnFunction`, whose backward, `ln_ffn_backward`, is the JAX package's
-`_ln_bwd_rule` (geglu_ffn.py:427): the VJP of the plain version,
-recomputed. The other variants, `geglu_ffn` and the stages raise under
-grad on their kernel routes (ROADMAP Queue 2).
+`ln_geglu_ffn` (every variant) and `geglu_ffn` have a gradient: with
+grad enabled on a CUDA tensor the kernel forward runs inside an autograd
+Function (`kernels.kernel_route`) whose backward is the VJP of the
+function it computes, recomputed: `ln_ffn_backward`, the JAX package's
+`_ln_bwd_rule` (geglu_ffn.py:427), for "plain", "ilv" and "pipe", and
+with the tanh-form gelu for "tanh" (the JAX rule differentiates the erf
+form whatever the variant, so its "tanh" gradient is not that of its
+forward; the port's is); `ffn_backward`, the JAX `_bwd_rule` (:126), for
+`geglu_ffn`. The stage entry points, the port's own, raise under grad on
+their kernel routes (`kernels.check_no_grad`).
 """
 
 from __future__ import annotations
@@ -50,8 +54,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mofa_tpu_torch.kernels import (check_no_grad, count_launch, math_dtype,
-                                    use_kernel)
+from mofa_tpu_torch.kernels import (check_no_grad, count_launch, kernel_route,
+                                    math_dtype, use_kernel, vjp_plain)
 
 LN_EPS = 1e-5
 MIN_FUSED_ROWS = 4096
@@ -168,29 +172,33 @@ def _launch_ffn(name, x, ln, weights, approximate="none", schedule="plain"):
     return out.reshape(x.shape)
 
 
-def ln_ffn_backward(x, ln_weight, ln_bias, w0, b0, w2, b2, g):
+def ln_ffn_backward(x, ln_weight, ln_bias, w0, b0, w2, b2, g,
+                    approximate: str = "none"):
     """(dx, d ln_weight, d ln_bias, dw0, db0, dw2, db2) at `g` = d out:
-    the VJP of `ln_ffn_plain`, recomputed (the JAX package's
-    `_ln_bwd_rule`); each gradient in its input's dtype."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in
-                  (x, ln_weight, ln_bias, w0, b0, w2, b2)]
-        out = ln_ffn_plain(*leaves)
-        return torch.autograd.grad(out, leaves, g)
+    the VJP of `ln_ffn_plain` (gelu `approximate`), recomputed (with the
+    erf gelu, the JAX package's `_ln_bwd_rule`); each gradient in its
+    input's dtype."""
+    return vjp_plain(lambda *a: ln_ffn_plain(*a, approximate),
+                     (x, ln_weight, ln_bias, w0, b0, w2, b2), g)
 
 
-class _LnFfnFunction(torch.autograd.Function):
-    """The "plain" kernel forward; `ln_ffn_backward` for the gradient."""
+def ffn_backward(x, w0, b0, w2, b2, g):
+    """(dx, dw0, db0, dw2, db2) at `g` = d out: the VJP of `ffn_plain`,
+    recomputed (the JAX package's `_bwd_rule`)."""
+    return vjp_plain(ffn_plain, (x, w0, b0, w2, b2), g)
 
-    @staticmethod
-    def forward(ctx, x, ln_weight, ln_bias, w0, b0, w2, b2):
-        ctx.save_for_backward(x, ln_weight, ln_bias, w0, b0, w2, b2)
-        return _launch_ffn("ln_geglu_ffn", x, (ln_weight, ln_bias),
-                           (w0, b0, w2, b2))
 
-    @staticmethod
-    def backward(ctx, g):
-        return ln_ffn_backward(*ctx.saved_tensors, g)
+def _approximate(variant: str) -> str:
+    return "tanh" if variant == "tanh" else "none"
+
+
+def _launch_ln_ffn(variant, x, ln_weight, ln_bias, w0, b0, w2, b2):
+    """The variant's kernel: the gate GEMM's schedule of its name ("tanh":
+    plain's, with the tanh gelu), counted under its kernel's name."""
+    name = "ln_geglu_ffn" if variant == "plain" else f"ln_geglu_ffn_{variant}"
+    schedule = variant if variant in SCHEDULES else "plain"
+    return _launch_ffn(name, x, (ln_weight, ln_bias), (w0, b0, w2, b2),
+                       _approximate(variant), schedule)
 
 
 def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2,
@@ -203,20 +211,12 @@ def ln_geglu_ffn(x, ln_weight, ln_bias, w0, b0, w2, b2,
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     _check_weights(x.shape[-1], w0, w2)
-    approximate = "tanh" if variant == "tanh" else "none"
+    approximate = _approximate(variant)
     operands = (x, ln_weight, ln_bias, w0, b0, w2, b2)
     if not use_kernel(*operands):
         return ln_ffn_plain(*operands, approximate)
-    if variant == "plain":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-            return _LnFfnFunction.apply(*operands)
-        return _launch_ffn("ln_geglu_ffn", x, (ln_weight, ln_bias),
-                           (w0, b0, w2, b2))
-    name = f"ln_geglu_ffn_{variant}"
-    check_no_grad(name, *operands)
-    schedule = variant if variant in SCHEDULES else "plain"
-    return _launch_ffn(name, x, (ln_weight, ln_bias), (w0, b0, w2, b2),
-                       approximate, schedule)
+    return kernel_route(lambda *a: _launch_ln_ffn(variant, *a),
+                        lambda *a: ln_ffn_backward(*a, approximate), *operands)
 
 
 def geglu_ffn(x, w0, b0, w2, b2) -> torch.Tensor:
@@ -225,8 +225,8 @@ def geglu_ffn(x, w0, b0, w2, b2) -> torch.Tensor:
     _check_weights(x.shape[-1], w0, w2)
     if not use_kernel(x, w0, b0, w2, b2):
         return ffn_plain(x, w0, b0, w2, b2)
-    check_no_grad("geglu_ffn", x, w0, b0, w2, b2)
-    return _launch_ffn("geglu_ffn", x, (), (w0, b0, w2, b2))
+    return kernel_route(lambda a, *w: _launch_ffn("geglu_ffn", a, (), w),
+                        ffn_backward, x, w0, b0, w2, b2)
 
 
 # ------------------------------------------------- the stage entry points

@@ -11,14 +11,21 @@ run to run). It is bound by device memory: one read of x.
 As in the JAX package, the group combine and the `x*a + b` apply stay
 plain tensor ops on the tiny [N, C] statistics, and no model calls these
 functions: the port's resnet blocks run `models/layers.GroupNorm`.
-Forward only.
+
+Both entry points have the JAX package's gradients: on a CUDA tensor
+with grad enabled `channel_sums` runs its kernel inside an autograd
+Function whose backward is `channel_sums_backward` (`_cs_bwd`,
+group_norm.py:116, the sums' cotangents broadcast over S), and
+`fused_group_norm` its whole forward inside one whose backward is the VJP
+of `group_norm_plain` recomputed (`_bwd`, :184).
 """
 
 from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import check_no_grad, count_launch, use_kernel
+from mofa_tpu_torch.kernels import (count_launch, kernel_route, use_kernel,
+                                    vjp_plain)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNKS = 256          # C / (values per 16-byte load): one block's threads
@@ -45,13 +52,13 @@ def channel_sums_plain(x3: torch.Tensor):
     return xf.sum(1), (xf * xf).sum(1)
 
 
-def channel_sums(x3: torch.Tensor):
-    """x3 [N, S, C] -> (s1, s2), each [N, C] fp32, in one pass over x3."""
-    if x3.ndim != 3:
-        raise ValueError(f"channel_sums takes [N, S, C]; got {tuple(x3.shape)}")
-    if not use_kernel(x3):
-        return channel_sums_plain(x3)
-    check_no_grad("channel_sums", x3)
+def channel_sums_backward(x3, g1, g2):
+    """d x3 at the cotangents (g1, g2) [N, C] of (Σx, Σx²): g1 + 2 x g2
+    over S in fp32, cast to x3's dtype (the JAX package's `_cs_bwd`)."""
+    return (g1[:, None] + 2.0 * x3.float() * g2[:, None]).to(x3.dtype)
+
+
+def _launch_sums(x3):
     n, s, c = x3.shape
     if not _kernel_takes(c, x3.dtype):
         raise ValueError(f"channel_sums kernel takes fp32/bf16 with C a multiple "
@@ -66,6 +73,16 @@ def channel_sums(x3: torch.Tensor):
            sums[1].data_ptr(), n, s, c, _DTYPES[x3.dtype])
     count_launch("channel_sums")
     return sums[0], sums[1]
+
+
+def channel_sums(x3: torch.Tensor):
+    """x3 [N, S, C] -> (s1, s2), each [N, C] fp32, in one pass over x3."""
+    if x3.ndim != 3:
+        raise ValueError(f"channel_sums takes [N, S, C]; got {tuple(x3.shape)}")
+    if not use_kernel(x3):
+        return channel_sums_plain(x3)
+    return kernel_route(_launch_sums,
+                        lambda x, g1, g2: (channel_sums_backward(x, g1, g2),), x3)
 
 
 def stats_from_sums(s1, s2, spatial_count: int, num_groups: int, eps: float):
@@ -104,10 +121,25 @@ def group_norm_plain(x, scale, bias, num_groups: int, eps: float):
     return y.reshape(x.shape).to(x.dtype)
 
 
-def fused_group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
-    """GroupNorm of x [N, ..., C] (scale / bias [C]) with one-pass
-    statistics: `channel_sums`, then x*a + b in fp32, cast to x's dtype."""
+def group_norm_backward(x, scale, bias, g, num_groups: int, eps: float):
+    """(dx, d scale, d bias) at `g` = d out: the VJP of `group_norm_plain`,
+    recomputed (the JAX package's `_bwd`, the VJP of `_gn_ref`)."""
+    return vjp_plain(lambda *a: group_norm_plain(*a, num_groups, eps),
+                     (x, scale, bias), g)
+
+
+def _fused_apply(x, scale, bias, num_groups: int, eps: float):
     n0, c = x.shape[0], x.shape[-1]
     a, b = gn_affine(x.reshape(n0, -1, c), scale, bias, num_groups, eps)
     bshape = (n0,) + (1,) * (x.ndim - 2) + (c,)
     return (x.float() * a.reshape(bshape) + b.reshape(bshape)).to(x.dtype)
+
+
+def fused_group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
+    """GroupNorm of x [N, ..., C] (scale / bias [C]) with one-pass
+    statistics: `channel_sums`, then x*a + b in fp32, cast to x's dtype."""
+    if not use_kernel(x, scale, bias):
+        return _fused_apply(x, scale, bias, num_groups, eps)
+    return kernel_route(
+        lambda *a: _fused_apply(*a, num_groups, eps),
+        lambda *a: group_norm_backward(*a, num_groups, eps), x, scale, bias)

@@ -1,13 +1,15 @@
 """Attention over short sequences (L <= 32): the temporal self-attention.
 
 Two kernels of one CUDA body, `csrc/short_attention.cu`: each warp walks
-its own (sequence, head) tasks with the next task's bf16 rows in flight
-(16-byte `cp.async`, double buffer), runs QK^T and PV as a 32 x 32 x D
-problem on tensor cores (`mma.sync`, `ldmatrix` fragments) with an exact
-max-subtracted softmax in fp32 (the TPU default is a clamped fixed-max
-softmax), and writes 16-byte rows. fp32 inputs run the same body on three
-bf16 terms of each operand. Both are bound by device memory (one read of
-q/k/v, one write); see the source note.
+its own (sequence, head) tasks with the next task's rows in flight
+(16-byte `cp.async`), runs QK^T and PV as a 32 x 32 x D problem on
+tensor cores (`mma.sync`) with an exact max-subtracted softmax in fp32
+(the TPU default is a clamped fixed-max softmax), and writes 16-byte
+rows. bf16 takes `ldmatrix` fragments of bf16 tiles; fp32 (training's
+dtype) takes its fragments from fp32 rows, each operand split into two
+TF32 terms in registers and each product taken as three TF32 products
+(`kernels.split_tf32_plain` has the arithmetic). Both are bound by device
+memory (one read of q/k/v, one write); see the source note.
 
 - `short_attention_tmajor`, counterpart of
   mofa_tpu/kernels/short_attention.py::short_attention_tmajor: q/k/v
@@ -20,19 +22,18 @@ q/k/v, one write); see the source note.
   Replaces the TPU's `_short_attn_fwd`, which packs 224 rows under a
   block-diagonal mask only to fill the MXU.
 
-`short_attention_tmajor` has a gradient: on a CUDA tensor with grad
-enabled it runs the kernel forward inside `_TmajorFunction`, whose
-backward, `tmajor_backward`, is the JAX package's `_tmajor_bwd_rule`
-(short_attention.py:306): the VJP of the plain version, recomputed.
-`short_attention` has none yet (ROADMAP Queue 2): its kernel route raises
-under grad.
+Both have a gradient: on a CUDA tensor with grad enabled the kernel
+forward runs inside an autograd Function (`kernels.kernel_route`) whose
+backward is the JAX package's rule, the VJP of the plain version
+recomputed: `tmajor_backward` (`_tmajor_bwd_rule`, short_attention.py:306)
+and `short_backward` (`_bwd_rule`, :346).
 """
 from __future__ import annotations
 
 import torch
 
-from mofa_tpu_torch.kernels import (check_no_grad, count_launch, math_dtype,
-                                    use_kernel)
+from mofa_tpu_torch.kernels import (count_launch, kernel_route, math_dtype,
+                                    use_kernel, vjp_plain)
 from mofa_tpu_torch.kernels.flash_attention import attention_plain
 
 MAX_FRAMES = 32                  # one 32-row tensor-core tile
@@ -109,10 +110,15 @@ def _launch(entry: str, q, k, v, *dims: int) -> torch.Tensor:
 def tmajor_backward(q2, k2, v2, g, num_frames: int, heads: int):
     """(dq2, dk2, dv2) at `g` = d out: the VJP of `tmajor_plain`,
     recomputed (the JAX package's `_tmajor_bwd_rule`)."""
-    with torch.enable_grad():
-        leaves = [x.detach().requires_grad_() for x in (q2, k2, v2)]
-        out = tmajor_plain(*leaves, num_frames, heads)
-        return torch.autograd.grad(out, leaves, g)
+    return vjp_plain(lambda a, b, c: tmajor_plain(a, b, c, num_frames, heads),
+                     (q2, k2, v2), g)
+
+
+def short_backward(q, k, v, g):
+    """(dq, dk, dv) at `g` = d out: the VJP of `attention_plain` on
+    [B, L, H, D], recomputed (the JAX package's `_bwd_rule`, the VJP of
+    `_short_attn_ref`)."""
+    return vjp_plain(attention_plain, (q, k, v), g)
 
 
 def _launch_tmajor(q2, k2, v2, num_frames: int, heads: int) -> torch.Tensor:
@@ -127,18 +133,12 @@ def _launch_tmajor(q2, k2, v2, num_frames: int, heads: int) -> torch.Tensor:
     return out
 
 
-class _TmajorFunction(torch.autograd.Function):
-    """The kernel forward; `tmajor_backward` for the gradient."""
-
-    @staticmethod
-    def forward(ctx, q2, k2, v2, num_frames, heads):
-        ctx.save_for_backward(q2, k2, v2)
-        ctx.dims = (num_frames, heads)
-        return _launch_tmajor(q2, k2, v2, num_frames, heads)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (*tmajor_backward(*ctx.saved_tensors, g, *ctx.dims), None, None)
+def _launch_short(q, k, v) -> torch.Tensor:
+    b, length, h, d = q.shape
+    q, k, v = kernel_operands(q, k, v, length, d)
+    out = _launch("mofa_short_attention", q, k, v, b, length, h, d)
+    count_launch("short_attention")
+    return out
 
 
 def short_attention_tmajor(q2, k2, v2, num_frames: int,
@@ -149,9 +149,10 @@ def short_attention_tmajor(q2, k2, v2, num_frames: int,
         raise ValueError(f"bad tmajor shapes {tuple(q2.shape)}, T={num_frames}")
     if not use_kernel(q2, k2, v2):
         return tmajor_plain(q2, k2, v2, num_frames, heads)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q2, k2, v2)):
-        return _TmajorFunction.apply(q2, k2, v2, num_frames, heads)
-    return _launch_tmajor(q2, k2, v2, num_frames, heads)
+    return kernel_route(
+        lambda a, b, c: _launch_tmajor(a, b, c, num_frames, heads),
+        lambda a, b, c, g: tmajor_backward(a, b, c, g, num_frames, heads),
+        q2, k2, v2)
 
 
 def short_attention(q, k, v) -> torch.Tensor:
@@ -163,9 +164,4 @@ def short_attention(q, k, v) -> torch.Tensor:
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     if not use_kernel(q, k, v):
         return attention_plain(q, k, v)
-    check_no_grad("short_attention", q, k, v)
-    b, length, h, d = q.shape
-    q, k, v = kernel_operands(q, k, v, length, d)
-    out = _launch("mofa_short_attention", q, k, v, b, length, h, d)
-    count_launch("short_attention")
-    return out
+    return kernel_route(_launch_short, short_backward, q, k, v)

@@ -34,7 +34,7 @@ from mofa_tpu_torch.models.svd_unet import (MICRO_UNET_CONFIG,
                                             UNetSpatioTemporalConditionModel)
 from mofa_tpu_torch.models.transformer_blocks import (
     TransformerSpatioTemporalModel, tmajor_enabled)
-from tests.torch_port_util import jax_unet, sd_np, seeded, template
+from tests.torch_port_util import jax_unet, jit_fast, sd_np, seeded, template
 from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
                                    one_torch_thread)  # (both autouse)
 
@@ -120,7 +120,7 @@ def test_transformer_classic_matches_jax(monkeypatch, quirk, bsz, env):
     with torch.no_grad():
         got = m(_t(x.transpose(0, 3, 1, 2)), _t(ehs), _t(ind))
     assert not tmajor and len(short) == (bsz > 1)
-    ref = jax.jit(jm.apply)(params, x, ehs, ind)
+    ref = jit_fast(jm.apply)(params, x, ehs, ind)
     _close(got.permute(0, 2, 3, 1).numpy(), ref)
 
 
@@ -149,7 +149,7 @@ def test_micro_unet_classic_matches_jax_and_tmajor(micro_unet, monkeypatch):
         n_tmajor = len(tmajor)
         cl = run()
     assert len(tmajor) == n_tmajor                  # classic: none at all
-    ref = jax.jit(lambda p, x, e, i: ju.apply(p, x, 15.3, e, i))(
+    ref = jit_fast(lambda p, x, e, i: ju.apply(p, x, 15.3, e, i))(
         ju_p, sample, ehs, ids)
     _close(cl, ref)
     # the two layouts compute one function (other reduction shapes only)

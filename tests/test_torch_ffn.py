@@ -267,26 +267,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
 
 
 def test_grad_guard_refuses_inputs_that_require_grad(monkeypatch):
-    """A kernel without a backward: with grad enabled, an input that
-    requires grad must raise before any launch, naming the kernel; under
-    no_grad, or without such an input, the guard lets the launch through.
-    The plain version on CPU tensors keeps autograd, and the models' FFN
-    variant ("plain") has a backward, so under grad it reaches its launch."""
+    """A stage entry point (the port's own, without a backward): with grad
+    enabled, an input that requires grad must raise before any launch,
+    naming the stage; under no_grad, or without such an input, the guard
+    lets the launch through. The plain version on CPU tensors keeps
+    autograd, and every variant of ln_geglu_ffn and geglu_ffn have a
+    backward, so under grad they reach their launch."""
     x = torch.randn(8, 320, requires_grad=True)
-    with pytest.raises(RuntimeError, match="flash_attention.*no backward"):
-        kernels.check_no_grad("flash_attention", torch.zeros(1), x)
-    kernels.check_no_grad("flash_attention", x.detach(), None)
+    with pytest.raises(RuntimeError, match="ffn_gemm_gate.*no backward"):
+        kernels.check_no_grad("ffn_gemm_gate", torch.zeros(1), x)
+    kernels.check_no_grad("ffn_gemm_gate", x.detach(), None)
     with torch.no_grad():
-        kernels.check_no_grad("flash_attention", x)
+        kernels.check_no_grad("ffn_gemm_gate", x)
 
     args = list(_torch_args(*_operands(320, 16, seed=16)))
     args[3].requires_grad_()                                  # w0
     assert ln_geglu_ffn(*args).grad_fn is not None            # the plain path
     _fake_card(monkeypatch)
-    with pytest.raises(RuntimeError, match="ln_geglu_ffn_tanh.*no backward"):
-        ln_geglu_ffn(*args, variant="tanh")
-    with pytest.raises(RuntimeError, match="geglu_ffn.*no backward"):
-        geglu_ffn(args[0], *args[3:])
+    bf = [t.detach().to(torch.bfloat16) for t in args]
+    bf[3].requires_grad_()
+    with pytest.raises(RuntimeError, match="ffn_gemm_gate.*no backward"):
+        ffn_gemm_gate(bf[0], bf[3], bf[4])
+    for variant in VARIANTS:
+        with pytest.raises(RuntimeError, match="launch"):
+            ln_geglu_ffn(*bf, variant=variant)
+    with pytest.raises(RuntimeError, match="launch"):
+        geglu_ffn(bf[0], *bf[3:])
     with pytest.raises(RuntimeError, match="launch"):
         ln_geglu_ffn(*args)
     with torch.no_grad(), pytest.raises(RuntimeError, match="launch"):

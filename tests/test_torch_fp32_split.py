@@ -1,18 +1,18 @@
-"""The split-TF32 arithmetic of the fp32 routes of flash attention and the
-LN-GEGLU FFN, emulated on the CPU.
+"""The split-TF32 arithmetic of the fp32 routes of flash attention, short
+attention and the LN-GEGLU FFN, emulated on the CPU.
 
-On a card both routes take each fp32 GEMM operand as big = tf32(x) and
+On a card these routes take each fp32 GEMM operand as big = tf32(x) and
 small = tf32(x - big) and each product as small * big + big * small +
 big * big on the tensor cores (csrc/flash_attention.cu,
-csrc/ln_geglu_ffn.cu); they cannot run here. This file emulates that
-arithmetic in PyTorch, rounding to TF32 with the port's bit mask
-(`kernels.tf32_round`), the products summed in float64, at C = 320 (a few
-hundred rows) and at L = 512, D = 64, and holds it to a float64 result with
-the bounds chip_smoke.py holds the kernels to (`TOL_FP32`): the three-term
-split sits inside them, a single TF32 product (the correction terms
-dropped) does not. It also reads the arguments the fp32 wrappers hand
-their C entries (use_kernel forced True, the launch recorded).
-"""
+csrc/short_attention.cu, csrc/ln_geglu_ffn.cu); they cannot run here.
+This file emulates that arithmetic in PyTorch, rounding to TF32 with the
+port's bit mask (`kernels.tf32_round`), the products summed in float64,
+at C = 320 (a few hundred rows), at L = 512, D = 64 and at L = 25, D =
+64, and holds it to a float64 result with the bounds chip_smoke.py holds
+the kernels to (`TOL_FP32`): the three-term split sits inside them, a
+single TF32 product (the correction terms dropped) does not. It also
+reads the arguments the fp32 wrappers hand their C entries (use_kernel
+forced True, the launch recorded)."""
 
 import numpy as np
 import pytest
@@ -103,6 +103,20 @@ def test_flash_split_against_the_fp32_bound(terms):
     err = (_attention_split(q, k, v, terms) - ref).abs().max().item()
     tol = TOL_FP32["flash_attention"]
     assert (err <= tol) == (terms == 3), (terms, err, tol)
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+def test_short_split_against_the_fp32_bound(terms):
+    """Short attention at [64, 25, 5, 64] (classic; tmajor runs the same
+    body): the fp32 route's arithmetic (S = Q K^T and O = P V each on the
+    split, its fragments split in registers) within TOL_FP32 of float64 for
+    both layouts' kernels, one TF32 product (the planted fault) outside
+    them."""
+    q, k, v = _rng_tensors(13, *[(64, 25, 5, 64)] * 3)
+    ref = flash_mod.attention_plain(q.double(), k.double(), v.double())
+    err = (_attention_split(q, k, v, terms) - ref).abs().max().item()
+    for name in ("short_attention", "short_attention_tmajor"):
+        assert (err <= TOL_FP32[name]) == (terms == 3), (name, terms, err)
 
 
 def test_fp32_wrappers_hand_the_entries_their_scratch(monkeypatch):

@@ -151,13 +151,19 @@ def test_short_body_on_card(frames, slots, dt):
     """The tensor-core short-attention body in both layouts: tmajor at S
     slots (5 heads of 64), and classic at an odd count of sequences (2111 x
     3 heads of 128: 6333 tasks, more than the walk's warps and not a
-    multiple of them, so the walks end ragged)."""
+    multiple of them, so the walks end ragged); fp32 (split TF32) held to
+    chip_smoke's TOL_FP32."""
     rn = _card(frames * 1000 + slots)
     q2, k2, v2 = (rn(3 * frames, slots, 5 * 64).to(dt) for _ in range(3))
     qs, ks, vs = (rn(2111, frames, 3, 128).to(dt) for _ in range(3))
     kernels.reset_launch_counts()
-    _assert_like_plain(lambda: short_attention_tmajor(q2, k2, v2, frames, 5), dt)
-    _assert_like_plain(lambda: short_attention(qs, ks, vs), dt)
+    if dt == torch.float32:
+        _assert_fp32_within("short_attention_tmajor",
+                            lambda: short_attention_tmajor(q2, k2, v2, frames, 5))
+        _assert_fp32_within("short_attention", lambda: short_attention(qs, ks, vs))
+    else:
+        _assert_like_plain(lambda: short_attention_tmajor(q2, k2, v2, frames, 5), dt)
+        _assert_like_plain(lambda: short_attention(qs, ks, vs), dt)
     counts = kernels.launch_counts()
     assert counts["short_attention_tmajor"] == counts["short_attention"] == 1
 
@@ -420,41 +426,47 @@ def test_keypoint_window_step_on_card():
 
 @pytest.mark.gpu
 def test_kernels_raise_under_grad():
-    """A kernel without a backward: on a card, its wrapper raises when grad
-    is enabled and an input requires grad, and launches under no_grad. The
-    training path's kernels launch under grad as well."""
+    """A stage entry point of the port (no JAX counterpart, no backward):
+    on a card, its wrapper raises when grad is enabled and an input
+    requires grad, and launches under no_grad. The entry points the JAX
+    package differentiates launch under grad, their outputs in the graph."""
     rn = _card(5)
     bf = torch.bfloat16
-    q = rn(2 * 25, 16, 2, 64).to(bf).requires_grad_()
     x = rn(4096, 320).to(bf).requires_grad_()
     ls, lb = rn(320) + 1, rn(320)
     w0, b0 = (rn(2560, 320) / 18).to(bf), rn(2560).to(bf)
     w2, b2 = (rn(320, 1280) / 36).to(bf), rn(320).to(bf)
     xc, a = rn(2, 8, 8, 64).to(bf).requires_grad_(), rn(2, 64)
     w3, bias = (rn(3, 3, 64, 64) / 24).to(bf), rn(64)
-    calls = {"short_attention": lambda: short_attention(q, q, q),
+    q = rn(2 * 25, 16, 2, 64).to(bf).requires_grad_()
+    stages = {"ffn_gemm_gate": lambda: ffn_gemm_gate(x, w0, b0),
+              "gn_silu_act": lambda: gn_silu_act(xc, a, a),
+              "conv3x3_gemm": lambda: conv3x3_gemm(xc, w3, bias)}
+    for name, call in stages.items():
+        with pytest.raises(RuntimeError, match=f"{name}.*no backward"):
+            call()
+    with torch.no_grad():
+        for call in stages.values():
+            call()
+    fused = {"short_attention": lambda: short_attention(q, q, q),
              "ln_geglu_ffn_tanh": lambda: ln_geglu_ffn(x, ls, lb, w0, b0, w2, b2,
                                                        variant="tanh"),
              "gn_silu_conv3x3": lambda: gn_silu_conv3x3(xc, a, a, w3, bias)}
     kernels.reset_launch_counts()
-    for name, call in calls.items():
-        with pytest.raises(RuntimeError, match=f"{name}.*no backward"):
-            call()
-    assert sum(kernels.launch_counts().values()) == 0
-    with torch.no_grad():
-        for call in calls.values():
-            call()
+    for call in fused.values():
+        assert call().requires_grad
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert all(counts[name] == 1 for name in calls)
+    assert all(counts[name] == 1 for name in fused)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_path_kernels_backward_on_card(dt):
-    """The training path's four kernels under autograd at micro widths:
-    each gradient (kernel forward, stock backward) against plain autograd
-    through the plain version on the same inputs, one launch each."""
+    """The training path's four kernels and classic short attention under
+    autograd at micro widths: each gradient (kernel forward, stock backward)
+    against plain autograd through the plain version on the same inputs,
+    one launch each."""
     rn = _card(6)
     big = dt == torch.float32
     tol = 2e-3 if big else 3e-2
@@ -477,8 +489,10 @@ def test_path_kernels_backward_on_card(dt):
            rn(320, 1280) / 36, rn(320)]
     ffn = ffn[:3] + [t.to(dt) for t in ffn[3:]]
     src, flow = rn(1, 12, 16, 64).to(dt), rn(3, 12, 16, 2) * 3
+    qc, kc, vc = (rn(40, 25, 5, 64).to(dt) for _ in range(3))
     cases = {
         "flash_attention": (flash_attention, (q, k, v), rn(2, 600, 2, 64)),
+        "short_attention": (short_attention, (qc, kc, vc), rn(40, 25, 5, 64)),
         "short_attention_tmajor": (lambda *a: short_attention_tmajor(*a, 7, 2),
                                    (q2, k2, v2), rn(2 * 7, 40, 128)),
         "ln_geglu_ffn": (ln_geglu_ffn, ffn, rn(4096, 320)),

@@ -74,10 +74,10 @@ from mofa_tpu_torch.train.stage import draw, edm_loss, make_train_step
 from mofa_tpu_torch.train.state import STAGE2_FROZEN, TrainState, freeze_mask
 from tests.torch_port_util import (flax_apply_without_shape_recheck,  # noqa: F401
                                    one_torch_thread)  # (both autouse)
-from tests.torch_port_util import (_cached_templates, _tree, jax_clip,
+from tests.torch_port_util import (_cached_templates, _tree, as_card, jax_clip,
                                    jax_flow_controlnet, jax_ldmk_controlnet,
-                                   jax_unet, jax_vae, jit_fast, sd_np, seeded,
-                                   shapes_of, template_key, trace_tree)
+                                   jax_unet, jax_vae, jax_vjp, jit_fast, sd_np,
+                                   seeded, shapes_of, template_key, trace_tree)
 
 CLIP_KW = dict(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
                patch_size=16, image_size=48, projection_dim=32)
@@ -103,21 +103,6 @@ def _grads(fn, inputs, cot):
     return [t.grad for t in leaves]
 
 
-def _jax_vjp(fn, args, cot):
-    """jax.vjp of fn at args applied to cot, as one jit program (eager
-    dispatch of the interpret-mode kernels costs several times more)."""
-    return jit_fast(lambda a, c: jax.vjp(fn, *a)[1](c))(tuple(args), cot)
-
-
-def _as_card(monkeypatch, mod, **launches):
-    """`mod`'s wrappers as on a card (use_kernel True), each named launch
-    function replaced by a plain-version stand-in: the autograd Functions
-    then run on the CPU."""
-    monkeypatch.setattr(mod, "use_kernel", lambda *t: True)
-    for name, fn in launches.items():
-        monkeypatch.setattr(mod, name, fn)
-
-
 # ------------------------------------------------ the kernels' backward
 
 def test_flash_backward_matches_jax_vjp(monkeypatch):
@@ -132,11 +117,11 @@ def test_flash_backward_matches_jax_vjp(monkeypatch):
     plain = _grads(flash_mod.attention_plain, [_t(q), _t(k), _t(v)], _t(g))
     out = flash_mod.attention_plain(_t(q), _t(k), _t(v))
     got = flash_mod.flash_backward(_t(q), _t(k), _t(v), out, _t(g), chunk=64)
-    want = _jax_vjp(lambda a, b, c: j_flash(a, b, c), (q, k, v), g)
+    want = jax_vjp(lambda a, b, c: j_flash(a, b, c), (q, k, v), g)
     for a, b, c in zip(got, plain, want):
         _close(a.numpy(), b.numpy(), 1e-4)
         _close(a.numpy(), c, 1e-4)
-    _as_card(monkeypatch, flash_mod, _launch=flash_mod.attention_plain)
+    as_card(monkeypatch, flash_mod, _launch=flash_mod.attention_plain)
     routed = _grads(flash_mod.flash_attention, [_t(q), _t(k), _t(v)], _t(g))
     for a, b in zip(routed, got):
         _close(a.numpy(), b.numpy(), 1e-6)
@@ -149,10 +134,10 @@ def test_tmajor_backward_matches_jax_vjp(monkeypatch):
     rng = np.random.RandomState(1)
     q, k, v, g = (rng.randn(2 * 7, 12, 128).astype(np.float32) for _ in range(4))
     got = short_mod.tmajor_backward(_t(q), _t(k), _t(v), _t(g), 7, 2)
-    want = _jax_vjp(lambda a, b, c: j_tmajor(a, b, c, 7, 2), (q, k, v), g)
+    want = jax_vjp(lambda a, b, c: j_tmajor(a, b, c, 7, 2), (q, k, v), g)
     for a, c in zip(got, want):
         _close(a.numpy(), c, 1e-4)
-    _as_card(monkeypatch, short_mod,
+    as_card(monkeypatch, short_mod,
              _launch_tmajor=lambda *a: short_mod.tmajor_plain(*a))
     routed = _grads(lambda a, b, c: short_mod.short_attention_tmajor(a, b, c, 7, 2),
                     [_t(q), _t(k), _t(v)], _t(g))
@@ -176,11 +161,11 @@ def test_ln_ffn_backward_matches_jax_vjp(monkeypatch):
     g = rng.randn(rows, c).astype(np.float32)
     ops = [_t(a) for a in (x, ls, lb, w0, b0, w2, b2)]
     got = ffn_mod.ln_ffn_backward(*ops, _t(g))
-    want = _jax_vjp(j_ln_geglu_ffn, (x, ls, lb, w0.T, b0, w2.T, b2), g)
+    want = jax_vjp(j_ln_geglu_ffn, (x, ls, lb, w0.T, b0, w2.T, b2), g)
     for i, (a, w) in enumerate(zip(got, want)):
         a = a.numpy()
         _close(a.T if i in (3, 5) else a, w, 1e-4)
-    _as_card(monkeypatch, ffn_mod,
+    as_card(monkeypatch, ffn_mod,
              _launch_ffn=lambda name, x, ln, ws, *a: ffn_mod.ln_ffn_plain(x, *ln, *ws))
     routed = _grads(ffn_mod.ln_geglu_ffn, ops, _t(g))
     for a, b in zip(routed, got):
@@ -207,7 +192,7 @@ def test_splat_backward_matches_jax_vjp(monkeypatch):
                                                  d_acc, d_norm)
     assert d_m is None
     src3 = np.repeat(src, 3, axis=0)
-    jd_in, jd_flow = _jax_vjp(lambda a, f: j_softsplat(a, f, None, "avg"),
+    jd_in, jd_flow = jax_vjp(lambda a, f: j_softsplat(a, f, None, "avg"),
                               (src3, flow), g)
     _close(d_in.numpy(), np.asarray(jd_in).sum(0, keepdims=True), 1e-4)
     _close(d_flow.numpy(), jd_flow, 1e-4)
@@ -220,7 +205,7 @@ def test_splat_backward_matches_jax_vjp(monkeypatch):
         out = splat_mod.splat_plain(inp, fl, m, fps, with_norm)
         return out if with_norm else (out, None)
 
-    _as_card(monkeypatch, splat_mod, _launch_splat=launch,
+    as_card(monkeypatch, splat_mod, _launch_splat=launch,
              _launch_normalize=splat_mod.normalize_plain)
     routed = _grads(lambda a, f: splat_mod.softsplat(a, f, None, "avg", 3),
                     [_t(src), _t(flow)], _t(g))
@@ -243,7 +228,7 @@ def test_splat_backward_metric_modes(monkeypatch, mode):
         out = splat_mod.splat_plain(inp, fl, m, fps, with_norm)
         return out if with_norm else (out, None)
 
-    _as_card(monkeypatch, splat_mod, _launch_splat=launch,
+    as_card(monkeypatch, splat_mod, _launch_splat=launch,
              _launch_normalize=splat_mod.normalize_plain)
     routed = _grads(fn, inputs, _t(g))
     for a, b in zip(routed, plain):

@@ -207,9 +207,9 @@ def test_drag_tracks_to_video_matches_jax(pair, cmp_pair, with_brush):
 def test_port_imports_neither_jax_nor_mofa_tpu():
     """Every module of the port (walked, not listed; the walk must reach the
     training slices' train/, models/gmflow/ and models/cmp/ modules and the
-    trainer apps) and chip_smoke.py import in a fresh interpreter without
-    jax, flax, optax or mofa_tpu."""
-    code = ("import importlib, pkgutil, sys, mofa_tpu_torch, chip_smoke;"
+    trainer apps), chip_smoke.py and chip_ab.py import in a fresh
+    interpreter without jax, flax, optax or mofa_tpu."""
+    code = ("import importlib, pkgutil, sys, mofa_tpu_torch, chip_smoke, chip_ab;"
             "mods = [m.name for m in pkgutil.walk_packages("
             "mofa_tpu_torch.__path__, 'mofa_tpu_torch.')];"
             "[importlib.import_module(m) for m in mods];"

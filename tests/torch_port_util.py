@@ -125,6 +125,21 @@ def jit_fast(fn):
     return call
 
 
+def jax_vjp(fn, args, cot):
+    """jax.vjp of fn at args applied to cot, as one jit program (eager
+    dispatch of the interpret-mode kernels costs several times more)."""
+    return jit_fast(lambda a, c: jax.vjp(fn, *a)[1](c))(tuple(args), cot)
+
+
+def as_card(monkeypatch, mod, **launches):
+    """`mod`'s wrappers as on a card (use_kernel True), each named launch
+    function replaced by a plain-version stand-in: the autograd Functions
+    then run on the CPU."""
+    monkeypatch.setattr(mod, "use_kernel", lambda *t: True)
+    for name, fn in launches.items():
+        monkeypatch.setattr(mod, name, fn)
+
+
 def seeded(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     return init_random_(module, torch.Generator().manual_seed(seed)).eval()
 
