@@ -4,7 +4,8 @@
     python3 chip_smoke.py --phase kernels  # build + kernel checks only
     python3 chip_smoke.py --phase profile  # torch.profiler table, 2 steps
     python3 chip_smoke.py --phase keypoint # build, the keypoint path's kernel
-                                           # checks, video and the audio front
+                                           # checks, video, the audio front and
+                                           # the face stack (5e, 5f, 5j)
     python3 chip_smoke.py --phase train    # build, the training path's kernel
                                            # backward checks, 5g, 5h, 5i
 
@@ -87,6 +88,19 @@ Phases, each printed as it finishes:
      engine of `audio2ldmk_app` at full widths (wav2vec2-base, Audio2Mesh,
      Audio2Pose) from a seeded 6-second wav and a seeded face to a
      [151, 68, 2] landmark track, finite, no custom kernel launched;
+     5j. the face stack (fp32, full widths, seeded weights written to
+     files under the reference names and read back strict, bit-equal):
+     `face_fit_app.main` (the 4-module FAN and the ResNet-50) on a
+     seeded 256^2 PNG; `audio2ldmk_app.main --engine sadtalker` on a 6 s
+     wav with a synthetic BFM of the front model's size (BFM_VERTICES,
+     BFM_FACES) -> [151, 68, 2], twice; --face3dvis on a 1 s wav (25
+     frames rendered), one frame held against the CPU (masks, colours:
+     FACE's bounds); the video engine on a 150-frame track;
+     `opendomain_app.main --engine sadtalker` at 512^2, bf16, one window
+     of 25 frames, 3 steps, its launches held to the keypoint sites; the
+     face stack itself no custom kernel; then `traj_app.main`,
+     `hybrid_app.main` (a face-mask PNG) and `keypoint_app.main` through
+     their files (cv2 in, mp4 out: no PIL), each mp4 counted;
      5g. stage-1 training through `train_app.run` on seeded 40-frame
      clips at SVD-XT widths (384x384, 25 frames, batch 1, fp32, block
      remat, EMA): 4 steps, a checkpoint at step 2, a validation render at
@@ -2155,7 +2169,8 @@ def elliptical_mask(h: int, w: int, centre, radii):
     return inside.astype(np.float32)
 
 
-_ST_CODES = {"torch.float32": "F32", "torch.float16": "F16", "torch.bfloat16": "BF16"}
+_ST_CODES = {"torch.float32": "F32", "torch.float16": "F16", "torch.bfloat16": "BF16",
+             "torch.int64": "I64"}
 
 
 def write_safetensors(sd: dict, path: str) -> None:
@@ -2174,7 +2189,8 @@ def write_safetensors(sd: dict, path: str) -> None:
     with open(path, "wb") as f:
         f.write(len(text).to_bytes(8, "little") + text)
         for t in sd.values():
-            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+                    .tobytes())
 
 
 def write_adapters(dev, root: str, seed: int) -> dict:
@@ -2539,6 +2555,360 @@ def run_audio_front(dev) -> dict:
     del a2m, a2p
     torch.cuda.empty_cache()
     return dict(seconds=times)
+
+
+# ------------------------------------------------ phase 5j: the face stack
+
+# BFM_model_front.mat's size: the front face's vertices and triangles
+BFM_VERTICES, BFM_FACES = 35709, 70789
+
+
+def write_bfm_mat(path: str, rows: int, cols: int, seed: int, n_vertices=None,
+                  n_faces=None) -> None:
+    """A synthetic BFM .mat in the reference's layout (scipy.io.savemat;
+    1-based tri / keypoints / point_buf): a seeded height field on a
+    rows x cols grid over [-0.9, 0.9]^2 (a bump toward the camera), two
+    triangles a cell, so the face covers most of the 224^2 render. With
+    n_vertices / n_faces, the grid's first n_vertices are kept and the
+    triangles cut or topped up to n_faces with degenerate ones (a vertex
+    twice: zero area, never drawn; overlapping faces would tie in depth,
+    which rounding breaks differently on each device). Small seeded id / exp / tex bases, a mean texture in
+    [0, 255], 68 keypoints inside the face."""
+    import numpy as np
+    from scipy.io import savemat
+    rng = np.random.RandomState(seed)
+    n = n_vertices or rows * cols
+    yy, xx = np.meshgrid(np.linspace(0.9, -0.9, rows), np.linspace(-0.9, 0.9, cols),
+                         indexing="ij")
+    zz = 0.35 * np.exp(-(xx ** 2 + yy ** 2) / 0.5) + 0.01 * rng.randn(rows, cols)
+    verts = np.stack([xx, yy, zz], -1).reshape(-1, 3)[:n]
+    v00 = (np.arange(rows - 1)[:, None] * cols + np.arange(cols - 1)[None]).reshape(-1)
+    tri = np.concatenate([np.stack([v00, v00 + cols, v00 + 1], 1),
+                          np.stack([v00 + 1, v00 + cols, v00 + cols + 1], 1)])
+    tri = tri[(tri < n).all(1)]
+    if n_faces is not None:
+        cells = v00[v00 + cols + 1 < n]
+        extra = cells[rng.randint(0, len(cells), max(0, n_faces - len(tri)))]
+        tri = np.concatenate([tri, np.stack([extra, extra, extra + 1], 1)])
+        tri = tri[:n_faces]
+    f = len(tri)
+    # each vertex's first 8 faces (face ids 1-based; f + 1 is the zero row)
+    point_buf = np.full((n, 8), f + 1)
+    order = np.argsort(tri.reshape(-1), kind="stable")
+    vid = tri.reshape(-1)[order]
+    fid = order // 3
+    first = np.searchsorted(vid, np.arange(n))
+    rank = np.arange(len(vid)) - first[vid]
+    keep = rank < 8
+    point_buf[vid[keep], rank[keep]] = fid[keep] + 1
+    inner = np.nonzero((np.abs(verts[:, 0]) < 0.6) & (np.abs(verts[:, 1]) < 0.6))[0]
+    savemat(path, {
+        "meanshape": verts.reshape(1, -1).astype(np.float32),
+        "idBase": (rng.randn(n * 3, 80) * 0.01).astype(np.float32),
+        "exBase": (rng.randn(n * 3, 64) * 0.01).astype(np.float32),
+        "keypoints": (rng.choice(inner, 68, replace=len(inner) < 68) + 1)[None].astype(
+            np.float64),
+        "texBase": (rng.randn(n * 3, 80) * 5).astype(np.float32),
+        "meantex": rng.uniform(60, 220, (1, n * 3)).astype(np.float32),
+        "tri": (tri + 1).astype(np.float64),
+        "point_buf": point_buf.astype(np.float64),
+    })
+
+
+# the face stack's operating point: SadTalker on a 6 s wav (151 landmark
+# frames, as the audio front), the --face3dvis render on a 1 s wav (25
+# frames of the full BFM mesh at 224^2), the video engine on a 150-frame
+# track, opendomain's sadtalker engine into one 25-frame window at 512^2
+# (KEYPOINT's size) at 3 steps, and the three image CLIs at 256^2-384 and
+# 2 steps (they run for their file handling, which needs no PIL)
+FACE = dict(seed=31, wav_s=6, vis_wav_s=1, drive_frames=150, od_frames=25, od_steps=3,
+            cli_steps=2, raster_chunk_cpu=64, mask_agree=0.999, colour_tol=1e-4)
+
+
+def smooth_png(path: str, h: int, w: int, seed: int) -> None:
+    """A seeded smooth RGB image (low-resolution noise, bicubic upsampled),
+    written with cv2."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    small = (rng.rand(max(h // 32, 2), max(w // 32, 2), 3) * 255).astype(np.uint8)
+    cv2.imwrite(path, cv2.resize(small, (w, h), interpolation=cv2.INTER_CUBIC))
+
+
+def write_face_weights(root: str, seed: int) -> dict:
+    """Seeded random Audio2Exp, Audio2Pose, ReconNet (ResNet-50) and FAN (4
+    modules) state dicts under the reference names, written as the
+    reference ships them: audio2exp / audio2pose .pth ({"model": ...},
+    `module.` prefixes; the pose file with its CVAE encoder and
+    discriminator keys), the ReconNet inside a SadTalker-style combined
+    .safetensors (`face_3drecon.` keys beside another model's; written
+    here, not by the port), the FAN as facexlib's {"state_dict": ...}.
+    Returns name -> (path, the state dict the net must load)."""
+    import torch
+    from mofa_tpu_torch.apps.loaders import init_random_cmp_
+    from mofa_tpu_torch.models.audio.face3d_fit import ReconNet
+    from mofa_tpu_torch.models.audio.sadtalker import Audio2ExpNet, Audio2PoseCVAE
+    from mofa_tpu_torch.models.face_alignment import FAN
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, net in (("exp", Audio2ExpNet()), ("pose", Audio2PoseCVAE()),
+                      ("recon", ReconNet()), ("fan", FAN())):
+        sd = init_random_cmp_(net, g).state_dict()
+        if name in ("exp", "pose"):
+            blob = {f"module.{k}": v for k, v in sd.items()}
+            if name == "pose":
+                blob["module.netG.encoder.MLP.L0.weight"] = torch.randn(128, 262, generator=g)
+                blob["module.netD_motion.seq.0.weight"] = torch.randn(64, 6, 3, generator=g)
+            path = os.path.join(root, f"audio2{name}.pth")
+            torch.save({"model": blob}, path)
+        elif name == "recon":
+            blob = {f"face_3drecon.{k}": v for k, v in sd.items()}
+            blob["audio2exp.mapping1.weight"] = torch.randn(64, 577, generator=g)
+            path = os.path.join(root, "SadTalker_face.safetensors")
+            write_safetensors(blob, path)
+        else:
+            path = os.path.join(root, "alignment_WFLW_4HG.pth")
+            torch.save({"state_dict": sd}, path)
+        out[name] = (path, {k: v for k, v in sd.items()
+                            if not k.endswith("num_batches_tracked")})
+    return out
+
+
+def video_frames(path: str) -> int:
+    import cv2
+    cap = cv2.VideoCapture(path)
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    return n
+
+
+def timed(fn, *args):
+    """(fn's result, seconds), the device synchronised after."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_face_stack(dev, card: str) -> dict:
+    """The face stack at full widths (fp32), through the CLIs a user runs:
+    weight files written under the reference names and read back strict
+    (bit-equal) by the loaders the CLIs' flags reach; `face_fit_app.main`
+    (the full FAN and ResNet-50) on a seeded 256^2 PNG; `audio2ldmk_app`'s
+    sadtalker engine on a 6 s wav with a synthetic BFM at the front model's
+    size (BFM_VERTICES, BFM_FACES), twice; its --face3dvis render on a
+    1 s wav, one frame held against the CPU; the video engine;
+    `opendomain_app --engine sadtalker` into KEYPOINT's size at a reduced
+    depth, its launches held to the keypoint path's sites; then the traj,
+    hybrid and keypoint CLIs once each through their files. The face
+    stack itself launches no custom kernel."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+    from scipy.io import loadmat, savemat
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.apps import (audio2ldmk_app, face_fit_app, hybrid_app,
+                                     keypoint_app, opendomain_app, traj_app)
+    from mofa_tpu_torch.models.audio import face3d_render, sadtalker
+    from mofa_tpu_torch.models.audio.aniportrait import load_wav
+    from mofa_tpu_torch.pipelines.keypoint import window_views
+
+    f, seed = FACE, FACE["seed"]
+    res: dict = {}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        j = lambda name: os.path.join(root, name)
+        t0 = time.perf_counter()
+        smooth_png(j("face.png"), 256, 256, seed)
+        write_bfm_mat(j("bfm.mat"), 189, 189, seed, BFM_VERTICES, BFM_FACES)
+        bfm_mat = loadmat(j("bfm.mat"))
+        # the standard landmarks: the synthetic BFM's own 68 keypoints
+        ms = bfm_mat["meanshape"].reshape(-1, 3)
+        savemat(j("lm3d.mat"), {"lm": (ms - ms.mean(0))[
+            bfm_mat["keypoints"].reshape(-1).astype(int) - 1].astype(np.float64)})
+        rng = np.random.RandomState(seed)
+        write_wav(j("a6.wav"), rng.uniform(-0.5, 0.5, f["wav_s"] * AUDIO_SR), AUDIO_SR)
+        write_wav(j("a1.wav"), rng.uniform(-0.5, 0.5, f["vis_wav_s"] * AUDIO_SR), AUDIO_SR)
+        weights = write_face_weights(root, seed)
+        log(f"  inputs written in {time.perf_counter() - t0:.1f} s: BFM "
+            f"{bfm_mat['meanshape'].size // 3} vertices, {len(bfm_mat['tri'])} triangles "
+            f"({os.path.getsize(j('bfm.mat')) / 2 ** 20:.0f} MiB); weights "
+            + ", ".join(f"{k} {sum(v.numel() for v in sd.values())}"
+                        for k, (_, sd) in weights.items()))
+
+        # the weight files, strict through the CLIs' loaders, bit-equal
+        nets = (audio2ldmk_app.load_sadtalker_nets(weights["exp"][0], weights["pose"][0], dev)
+                + face_fit_app.load_face_nets(weights["recon"][0], weights["fan"][0], dev))
+        n_checked = 0
+        for name, net in zip(("exp", "pose", "recon", "fan"), nets):
+            own, want = net.state_dict(), weights[name][1]
+            bad = [k for k, v in want.items() if not torch.equal(own[k].cpu(), v)]
+            missing = set(own) - set(want) - {k for k in own if k.endswith("num_batches_tracked")}
+            if bad or missing:
+                fail(f"face stack: {name} loaded from its file differs: {bad[:5]} {missing}")
+            n_checked += len(want)
+        exp_net, pose_net = nets[:2]
+        del nets
+        log(f"  {n_checked} tensors of the four files loaded strict, bit-equal")
+
+        kernels.reset_launch_counts()
+        # the face fit, twice
+        fit = ["--image", j("face.png"), "--fan_ckpt", weights["fan"][0], "--ckpt",
+               weights["recon"][0], "--lm3d_mat", j("lm3d.mat"), "--save", j("coeff.npz")]
+        fit_s = [timed(face_fit_app.main, fit)[1] for _ in range(2)]
+        out = np.load(j("coeff.npz"), allow_pickle=True)
+        shapes = {k: tuple(out[k].shape) for k in ("full_3dmm", "coeff_3dmm", "trans_params")}
+        if (shapes != {"full_3dmm": (1, 257), "coeff_3dmm": (1, 76), "trans_params": (8,)}
+                or not all(np.isfinite(out[k].astype(np.float64)).all() for k in shapes)):
+            fail(f"face_fit_app: npz {shapes}, finite "
+                 f"{[bool(np.isfinite(out[k]).all()) for k in shapes]}")
+        log(f"  face_fit_app (FAN 4 modules + ResNet-50, 256^2): {fit_s[0]:.3f} s (first "
+            f"call), {fit_s[1]:.3f} s (second); trans_params {out['trans_params'].tolist()}")
+
+        # the engines read the fit's crop; the random ReconNet's coefficients
+        # are replaced by seeded small ones with a frontal pose, so the
+        # mesh stays in front of the camera
+        coeff = (rng.randn(1, 257) * 0.1).astype(np.float32)
+        coeff[0, 224:227], coeff[0, 254:257] = (0.05, -0.1, 0.02), (0.0, 0.05, 0.0)
+        np.savez(j("coeff_st.npz"), full_3dmm=coeff, trans_params=out["trans_params"],
+                 crop_info=out["crop_info"])
+        common = ["--ref_image_path", j("face.png"), "--coeff_npz", j("coeff_st.npz"),
+                  "--bfm_mat", j("bfm.mat")]
+        st = common + ["--engine", "sadtalker", "--audio_path", j("a6.wav"), "--exp_ckpt",
+                       weights["exp"][0], "--pose_ckpt", weights["pose"][0]]
+        st_s = [timed(audio2ldmk_app.main, st + ["--save_dir", j(f"st{i}")])[1]
+                for i in range(2)]
+        lm = np.load(j("st1/landmarks.npy"))
+        want = (f["wav_s"] * AUDIO_FPS + 1, 68, 2)
+        if lm.shape != want or not np.isfinite(lm).all():
+            fail(f"sadtalker engine: landmarks {lm.shape} (expected {want}), finite "
+                 f"{bool(np.isfinite(lm).all())}")
+        if not np.array_equal(lm, np.load(j("st0/landmarks.npy"))):
+            fail("sadtalker engine: two runs from the same seed differ")
+        # its stages, timed apart (the second pass: warm)
+        bfm = sadtalker.BFMModel.load(j("bfm.mat"), with_render_data=True)
+        wav = load_wav(j("a6.wav"))
+        stage = {}
+        for _ in range(2):
+            mels, stage["mel"] = timed(sadtalker.indiv_mel_windows, wav)
+            coeffs, stage["exp+pose nets"] = timed(
+                sadtalker.generate_coeffs, exp_net, pose_net, wav, np.concatenate(
+                    [coeff[0, 80:144], coeff[0, 224:227], coeff[0, 254:257]]))
+            _, stage["bfm landmarks"] = timed(bfm.landmarks, np.repeat(coeff, len(lm), 0))
+        log(f"  sadtalker engine ({f['wav_s']} s wav -> {lm.shape}): {st_s[0]:.3f} s "
+            f"(first call), {st_s[1]:.3f} s (second), the BFM .mat read included; stages "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in stage.items()))
+
+        # --face3dvis on a 1 s wav: every frame of the track rendered
+        vis = common + ["--engine", "sadtalker", "--audio_path", j("a1.wav"), "--face3dvis",
+                        "--save_dir", j("vis")]
+        _, vis_s = timed(audio2ldmk_app.main, vis)
+        t_vis = f["vis_wav_s"] * AUDIO_FPS
+        got = (video_frames(j("vis/3dface.mp4")), video_frames(j("vis/landmarks_vis.mp4")))
+        if got != (t_vis, t_vis + 1):
+            fail(f"--face3dvis: frames {got}, expected {(t_vis, t_vis + 1)}")
+        # the render of one frame on the card against the same code on the CPU
+        _, all_c = sadtalker.sadtalker_audio_to_landmarks(
+            exp_net, pose_net, bfm, load_wav(j("a1.wav")), coeff, out["trans_params"],
+            out["crop_info"].tolist(), return_coeffs=True)
+        verts, colors = face3d_render.compute_for_render(bfm, all_c[1 + t_vis // 2][None])
+        tri = torch.from_numpy(bfm.face_buf)
+        frame = lambda d, **kw: face3d_render.rasterize_mesh(
+            torch.from_numpy(verts[0]).to(d), tri.to(d), torch.from_numpy(colors[0]).to(d),
+            **kw)
+        frame(dev)
+        (img_d, mask_d), frame_s = timed(frame, dev)
+        (img_c, mask_c), cpu_s = timed(lambda: frame("cpu", face_chunk=f["raster_chunk_cpu"]))
+        img_d, mask_d = img_d.cpu(), mask_d.cpu()
+        agree = float((mask_d == mask_c).float().mean())
+        both = mask_d & mask_c
+        diff = (img_d[both] - img_c[both]).abs().amax(-1)
+        colour_err = float(diff.max()) if both.any() else 0.0
+        off = float((diff > f["colour_tol"]).float().mean()) if both.any() else 0.0
+        log(f"  --face3dvis ({t_vis} frames, {BFM_FACES} triangles at 224^2): "
+            f"{vis_s:.3f} s the call; one frame {frame_s:.4f} s on the card (blocks of 512), "
+            f"{cpu_s:.3f} s on the CPU (blocks of {f['raster_chunk_cpu']}); coverage "
+            f"{float(mask_d.float().mean()):.4f}; masks agree on {agree:.6f} of pixels "
+            f"(bound {f['mask_agree']}), colours max|diff| {colour_err:.3e} where both "
+            f"hit (bound {f['colour_tol']}; {off:.2e} of them beyond it)")
+        if agree < f["mask_agree"] or colour_err > f["colour_tol"] or mask_d.float().mean() < 0.3:
+            fail("the card's render disagrees with the CPU's, or covers under 30% of the frame")
+
+        # the video engine
+        np.savez(j("drive.npz"), coeff_3dmm=(rng.randn(f["drive_frames"], 70) * 0.05)
+                 .astype(np.float32))
+        _, vid_s = timed(audio2ldmk_app.main, common + [
+            "--engine", "video", "--audio_path", j("a1.wav"), "--driving_coeffs_npz",
+            j("drive.npz"), "--save_dir", j("vid")])
+        lm_v = np.load(j("vid/landmarks.npy"))
+        if lm_v.shape != (f["drive_frames"] + 1, 68, 2) or not np.isfinite(lm_v).all():
+            fail(f"video engine: landmarks {lm_v.shape}")
+        log(f"  video engine ({f['drive_frames']} frames -> {lm_v.shape}): {vid_s:.3f} s")
+        face_launches = kernels.launch_counts()
+        if any(face_launches.values()):
+            fail(f"the face stack launched custom kernels: {face_launches}")
+        del exp_net, pose_net
+        torch.cuda.empty_cache()
+
+        # opendomain, sadtalker engine -> the keypoint app, 512^2, bf16
+        h = w = KEYPOINT["h"]
+        smooth_png(j("od.png"), h, w, seed + 1)
+        views = window_views(f["od_frames"], KEYPOINT["window"], KEYPOINT["stride"])
+        kernels.reset_launch_counts()
+        _, od_s = timed(opendomain_app.main, [
+            "--engine", "sadtalker", "--image", j("od.png"), "--audio", j("a6.wav"),
+            "--coeff_npz", j("coeff_st.npz"), "--bfm_mat", j("bfm.mat"), "--work_dir",
+            j("od"), "--output", j("od.mp4"), "--num_frames", str(f["od_frames"]),
+            "--window_size", str(KEYPOINT["window"]), "--stride", str(KEYPOINT["stride"]),
+            "--num_inference_steps", str(f["od_steps"]), "--target_size", str(h), "--bf16"])
+        od_launches = kernels.launch_counts()
+        want_l = expected_launches("tmajor", f["od_steps"], size=(h, w), views=len(views),
+                                   warps=len(set(views)))
+        log(f"  opendomain_app --engine sadtalker ({f['od_frames']} frames, {len(views)} "
+            f"views, {f['od_steps']} steps, {h}^2, bf16): {od_s:.3f} s; launches "
+            f"{od_launches}")
+        if od_launches != want_l:
+            fail(f"opendomain sadtalker launches {od_launches}, expected {want_l}")
+        if video_frames(j("od/video_silent.mp4")) != f["od_frames"]:
+            fail("opendomain: the silent video has the wrong frame count")
+        res.update(face_fit_s=fit_s, sadtalker_s=st_s, stages=stage, face3dvis_s=vis_s,
+                   frame_s=frame_s, mask_agree=agree, colour_err=colour_err,
+                   video_s=vid_s, opendomain_s=od_s, opendomain_launches=od_launches)
+
+        # the image CLIs through their files (cv2 in, mp4 out)
+        smooth_png(j("wide.png"), 256, 384, seed + 2)
+        brush = np.zeros((256, 384), np.uint8)
+        brush[:, :192] = 255
+        cv2.imwrite(j("brush.png"), brush)
+        with open(j("tracks.json"), "w") as fh:
+            json.dump({"tracks": seeded_tracks(256, 384, seed), "motion_brush": j("brush.png")},
+                      fh)
+        lm_cli = seeded_landmarks(256, 256, 8, seed)
+        np.save(j("lm.npy"), lm_cli)
+        mask = (elliptical_mask(256, 256, lm_cli[0].mean(0), (60, 80)) * 255).astype(np.uint8)
+        cv2.imwrite(j("mask.png"), mask)
+        small = ["--num_inference_steps", str(f["cli_steps"]), "--target_size", "256", "--bf16"]
+        runs = (("traj_app", traj_app, ["--image", j("wide.png"), "--tracks", j("tracks.json"),
+                                        "--num_frames", "8"], 8),
+                ("hybrid_app", hybrid_app, ["--image", j("face.png"), "--landmarks",
+                                            j("lm.npy"), "--face_mask", j("mask.png")], 8),
+                ("keypoint_app", keypoint_app, ["--image", j("face.png"), "--landmarks",
+                                                j("lm.npy"), "--num_frames", "8",
+                                                "--window_size", "8", "--stride", "4"], 8))
+        cli_s = {}
+        for name, app, argv, frames in runs:
+            _, cli_s[name] = timed(app.main, argv + small + ["--output", j(f"{name}.mp4")])
+            if video_frames(j(f"{name}.mp4")) != frames:
+                fail(f"{name}.main: {video_frames(j(f'{name}.mp4'))} frames written, "
+                     f"expected {frames}")
+        log("  the image CLIs through their files, 2 steps, bf16: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in cli_s.items()) + f"; card {card}")
+        res["cli_s"] = cli_s
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------ phase 5g: training
@@ -3414,6 +3784,9 @@ def main() -> None:
         log(f"[keypoint] video {kp['total']:.3f} s, median step {kp['median_step']:.3f} s")
         log("[audio] the AniPortrait engine at full widths, fp32")
         run_audio_front(dev)
+        log("[face] the face stack: face_fit_app, the SadTalker and video engines, "
+            "--face3dvis, opendomain --engine sadtalker, the image CLIs' files")
+        run_face_stack(dev, card)
         return
 
     # 3. kernels vs plain versions
@@ -3497,6 +3870,10 @@ def main() -> None:
         # 5f. the audio front: wav -> landmark track
         log("[audio] the AniPortrait engine (audio2ldmk_app) at full widths, fp32")
         run_audio_front(dev)
+        # 5j. the face stack, and the image CLIs through their files
+        log("[face] the face stack: face_fit_app, the SadTalker and video engines, "
+            "--face3dvis, opendomain --engine sadtalker, the image CLIs' files")
+        face_run = run_face_stack(dev, card)
         # 5g. stage-1 training through train_app
         log("[train] stage-1 training through train_app: 384x384, 25 frames, "
             "batch 1, fp32, block remat, EMA, SVD-XT widths")
@@ -3529,6 +3906,7 @@ def main() -> None:
             kres[name]["main_path_launches"] = main_run["launches"][name]
             kres[name]["hybrid_launches"] = hybrid_run["launches"][name]
             kres[name]["keypoint_launches"] = kp_run["launches"][name]
+            kres[name]["opendomain_sadtalker_launches"] = face_run["opendomain_launches"][name]
         # flash's launches at each main-path site, from the same run
         by_site = kres["flash_attention"]["main_path_launches_by_site"] = {}
         for site, *shape in FLASH_MAIN_SHAPES:
@@ -3545,6 +3923,7 @@ def main() -> None:
              "sites", "main_path_launches_by_site", "stage_ms_c320", "stage_ms_c640",
              "avg_call_ms", "stage_ms",
              "main_path_launches", "hybrid_launches", "keypoint_launches",
+             "opendomain_sadtalker_launches",
              "ms_keypoint", "plain_ms_keypoint", "library_ms_keypoint",
              "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint",
              "ms_keypoint16", "plain_ms_keypoint16", "library_ms_keypoint16",

@@ -37,6 +37,7 @@ from mofa_tpu_torch.models.svd_unet import MICRO_UNET_CONFIG
 from mofa_tpu_torch.models.vae import TINY_VAE_CONFIG
 from mofa_tpu_torch.pipelines.hybrid import HybridPipeline
 from mofa_tpu_torch.preprocess.landmark import LandmarkFlowEngine
+from mofa_tpu_torch.preprocess.image import NEAREST, pil_resize, read_image
 from mofa_tpu_torch.preprocess.traj import preprocess_image
 
 MODEL_LENGTH = 25          # the drag adapter's frames: its flow is tiled to T-1
@@ -130,9 +131,7 @@ def run(args):
 
 
 def _run(args, dev, timer):
-    from PIL import Image
-
-    image, (h, w) = preprocess_image(Image.open(args.image), args.target_size)
+    image, (h, w) = preprocess_image(args.image, args.target_size)
     landmarks = np.load(args.landmarks)
     tracks = None
     if args.tracks:
@@ -140,8 +139,7 @@ def _run(args, dev, timer):
             tracks = json.load(f)["tracks"]
     face_mask = None
     if args.face_mask:
-        m = np.asarray(Image.open(args.face_mask).convert("L").resize(
-            (w, h), Image.NEAREST), np.float32)
+        m = pil_resize(read_image(args.face_mask, "L"), (w, h), NEAREST).astype(np.float32)
         face_mask = (m > 127).astype(np.float32)
     cfg_kw, cmp_cfg = {}, CMPConfig()
     if args.tiny:

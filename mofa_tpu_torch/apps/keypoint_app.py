@@ -115,9 +115,7 @@ def run(args):
 
 
 def _run(args, dev, timer):
-    from PIL import Image
-
-    image, (h, w) = preprocess_image(Image.open(args.image), args.target_size)
+    image, (h, w) = preprocess_image(args.image, args.target_size)
     landmarks = np.load(args.landmarks)[: args.num_frames]
     cfg_kw, cmp_cfg = {}, CMPConfig()
     if args.tiny:

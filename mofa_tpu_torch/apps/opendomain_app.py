@@ -2,18 +2,24 @@
 
 Counterpart of mofa_tpu/apps/opendomain_app.py (the reference
 MOFA-Video-Keypoint/inference_opendomain.py, which chains three processes):
-here in one process, `audio2ldmk_app` (the AniPortrait engine) writes
-landmarks.npy into --work_dir, `keypoint_app` renders it, and the audio is
-muxed in with ffmpeg where there is one (else the silent video is copied).
+here in one process, `audio2ldmk_app` (the AniPortrait engine, or with
+--engine sadtalker the SadTalker one) writes landmarks.npy into
+--work_dir, `keypoint_app` renders it, and the audio is muxed in with
+ffmpeg where there is one (else the silent video is copied).
 
     python -m mofa_tpu_torch.apps.opendomain_app --image in.png --audio a.wav \
         --face_npz face.npz --bf16
     python -m mofa_tpu_torch.apps.opendomain_app ... --device cpu --tiny \
         --target_size 64 --num_frames 7 --window_size 4 --stride 2 \
         --num_inference_steps 1
+    python -m mofa_tpu_torch.apps.opendomain_app --engine sadtalker --image in.png \
+        --audio a.wav --coeff_npz coeff.npz --bfm_mat BFM_model_front.mat --bf16
 
-Only the aniportrait engine is ported, so there is no --engine; the JAX
-CLI's --cfg_split (a 16 GB TPU workaround) is dropped.
+The aniportrait engine reads the reference face from --face_npz; the
+sadtalker engine reads face_fit_app's --coeff_npz and the BFM of
+--bfm_mat, with the SadTalker nets' seeded random weights (the JAX CLI
+forwards no checkpoint to it either). The JAX CLI's --cfg_split (a 16 GB
+TPU workaround) is dropped.
 """
 
 from __future__ import annotations
@@ -33,7 +39,14 @@ def build_parser():
     p.add_argument("--audio", required=True)
     p.add_argument("--output", default="output.mp4")
     p.add_argument("--work_dir", default="./opendomain_out")
-    p.add_argument("--face_npz", required=True)
+    p.add_argument("--engine", choices=("aniportrait", "sadtalker"),
+                   default="aniportrait")
+    p.add_argument("--face_npz", default=None,
+                   help="aniportrait engine: lmks, lmks3d, trans_mat")
+    p.add_argument("--coeff_npz", default=None,
+                   help="sadtalker engine: face_fit_app's output")
+    p.add_argument("--bfm_mat", default=None,
+                   help="sadtalker engine: BFM_model_front.mat")
     p.add_argument("--a2m_ckpt", default=None)
     p.add_argument("--a2p_ckpt", default=None)
     p.add_argument("--svd_dir", default=None)
@@ -59,9 +72,11 @@ def run(args):
 
     # stage 1: audio -> landmarks.npy (the reference's contract)
     ldmk_args = ["--ref_image_path", args.image, "--audio_path", args.audio,
-                 "--save_dir", args.work_dir,
-                 "--fps", str(args.fps), "--face_npz", args.face_npz] + common
-    for flag, val in (("--a2m_ckpt", args.a2m_ckpt), ("--a2p_ckpt", args.a2p_ckpt)):
+                 "--save_dir", args.work_dir, "--engine", args.engine,
+                 "--fps", str(args.fps)] + common
+    for flag, val in (("--face_npz", args.face_npz), ("--coeff_npz", args.coeff_npz),
+                      ("--bfm_mat", args.bfm_mat), ("--a2m_ckpt", args.a2m_ckpt),
+                      ("--a2p_ckpt", args.a2p_ckpt)):
         if val:
             ldmk_args += [flag, val]
     audio2ldmk_app.main(ldmk_args)

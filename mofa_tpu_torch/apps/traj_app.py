@@ -15,7 +15,9 @@ Trajectory JSON:
 
 It runs on the CUDA device unless `--device cpu` is given, and raises when
 there is none. `generate` is the generation itself (arrays in, frames out;
-it needs neither PIL nor cv2); `_run` adds the files around it.
+it needs neither PIL nor cv2); `_run` adds the files around it, read
+through cv2 (`preprocess/image.py`: Pillow's decoding and resizing
+reproduced, so the CLI needs no PIL).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from mofa_tpu_torch.models.vae import TINY_VAE_CONFIG
 from mofa_tpu_torch.ops.resize import resize_nhwc
 from mofa_tpu_torch.ops.trajectory import interpolate_trajectory
 from mofa_tpu_torch.pipelines.traj import TrajPipeline
+from mofa_tpu_torch.preprocess.image import nearest_index, read_image
 from mofa_tpu_torch.preprocess.traj import (DragFlowEngine,
                                             divide_points_afterinterpolate,
                                             preprocess_image,
@@ -79,14 +82,8 @@ def resolve_device(name: str) -> torch.device:
 
 
 def nearest_resize(mask: np.ndarray, size: int) -> np.ndarray:
-    """[H, W] -> [size, size] with PIL's NEAREST rule: source index
-    floor((i + 0.5) * in / out), the position summed step by step in double
-    precision as PIL sums it (so 4.5 * 256/384 lands just below 3)."""
-    def idx(n):
-        step = n / size
-        pos = np.add.accumulate(np.r_[0.5 * step, np.full(size - 1, step)])
-        return np.minimum(pos.astype(np.int64), n - 1)
-    return mask[idx(mask.shape[0])][:, idx(mask.shape[1])]
+    """[H, W] -> [size, size] with PIL's NEAREST rule (`nearest_index`)."""
+    return mask[nearest_index(mask.shape[0], size)][:, nearest_index(mask.shape[1], size)]
 
 
 def drag_flow(engine: DragFlowEngine, image01: torch.Tensor, tracks,
@@ -161,14 +158,12 @@ def run(args):
 
 
 def _run(args, dev, timer):
-    from PIL import Image
-
-    image, (h, w) = preprocess_image(Image.open(args.image), args.target_size)
+    image, (h, w) = preprocess_image(args.image, args.target_size)
     with open(args.tracks) as f:
         spec = json.load(f)
     brush = None
     if spec.get("motion_brush"):
-        brush = np.asarray(Image.open(spec["motion_brush"]).convert("L"), np.float32)
+        brush = read_image(spec["motion_brush"], "L").astype(np.float32)
     cfg_kw, cmp_cfg = {}, CMPConfig()
     if args.tiny:
         cfg_kw = dict(unet_cfg=MICRO_UNET_CONFIG, vae_cfg=TINY_VAE_CONFIG,

@@ -136,6 +136,60 @@ def load_torch_checkpoint(path: str) -> dict:
     return unwrap_state_dict(torch.load(path, map_location="cpu",
                                         weights_only=True))
 
+
+def read_state_dict(path: str) -> dict:
+    """A weight file -> its state dict: `.safetensors` through
+    `load_safetensors`, anything else (.pth, .pth.tar, .bin, .pt) through
+    `load_torch_checkpoint`."""
+    return (load_safetensors(path) if path.endswith(".safetensors")
+            else load_torch_checkpoint(path))
+
+
+def _without_counters(sd: dict, drop=lambda k: False) -> dict:
+    """`module.` prefixes stripped; BatchNorm's `num_batches_tracked` and
+    the keys `drop` names removed (a BatchNorm loads strict without its
+    counter)."""
+    out = {}
+    for k, v in sd.items():
+        k = re.sub(r"^(module\.)+", "", k)
+        if not k.endswith("num_batches_tracked") and not drop(k):
+            out[k] = v
+    return out
+
+
+# The face stack's checkpoints -> the state dicts its modules load with
+# strict=True (the keys mofa_tpu's convert_sadtalker_exp,
+# convert_sadtalker_pose, convert_face3d_recon_state_dict and
+# convert_fan_state_dict read).
+
+def sadtalker_exp_state_dict(sd: dict) -> dict:
+    """audio2exp_00300-model.pth (SimpleWrapperV2) -> Audio2ExpNet's."""
+    return _without_counters(sd)
+
+
+def sadtalker_pose_state_dict(sd: dict) -> dict:
+    """audio2pose_00140-model.pth (Audio2Pose) -> Audio2PoseCVAE's: the
+    training-only CVAE encoder (`netG.encoder.*`) and discriminator
+    (`netD*`) dropped."""
+    return _without_counters(sd, lambda k: k.startswith(("netD", "netG.encoder.")))
+
+
+def face3d_recon_state_dict(sd: dict) -> dict:
+    """A Deep3DFaceRecon checkpoint (epoch_20.pth, its net under
+    "net_recon") or SadTalker's combined .safetensors (the net under the
+    `face_3drecon.` prefix, beside other models' keys) -> ReconNet's."""
+    if isinstance(sd.get("net_recon"), dict):
+        sd = sd["net_recon"]
+    prefix = "face_3drecon."
+    if any(k.startswith(prefix) for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return _without_counters(sd)
+
+
+def fan_state_dict(sd: dict) -> dict:
+    """facexlib's alignment_WFLW_4HG.pth -> FAN's."""
+    return _without_counters(sd)
+
 # module / parameter names of this package that contain underscores or
 # digits (single words need no entry: any unknown token stands alone)
 _VOCAB = {

@@ -4,7 +4,8 @@ Counterpart of mofa_tpu/preprocess/traj.py (the reference's Traj gradio
 app, run_gradio.py):
 
 - `preprocess_image`: shortest side -> target, centre-crop to multiples of
-  64 (PIL, imported when called);
+  64 (Pillow's bilinear resize, reproduced without PIL by
+  `preprocess/image.py`);
 - `divide_points_afterinterpolate`: split interpolated tracks by the motion
   brush (mask indexed [row][col] = [y][x]);
 - `prepare_trajectory_flow`: PCHIP-resample the tracks to the video's
@@ -15,6 +16,7 @@ app, run_gradio.py):
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -24,27 +26,33 @@ from mofa_tpu_torch.models.cmp.model import CMP, cmp_preprocess
 from mofa_tpu_torch.ops.flow import merge_flows, rescale_flow
 from mofa_tpu_torch.ops.rasterize import rasterize_trajectories
 from mofa_tpu_torch.ops.trajectory import interpolate_trajectory
+from mofa_tpu_torch.preprocess.image import BILINEAR, pil_resize, read_image
 
 
 def preprocess_image(image, target_size: int = 512):
-    """PIL image or HWC uint8 array -> (np.float32 [H, W, 3] in [0, 1], (H, W)).
+    """Image path or uint8 array ([H, W, 3] RGB, [H, W, 4] RGBA or [H, W]
+    grey) -> (np.float32 [H, W, 3] in [0, 1], (H, W)).
 
-    Shortest side resized to target_size (bilinear), then centre-cropped so
-    both sides are multiples of 64."""
-    from PIL import Image
-    if not hasattr(image, "resize"):
-        image = Image.fromarray(np.asarray(image))
-    raw_w, raw_h = image.size
+    Shortest side resized to target_size (Pillow's bilinear, bit for bit),
+    then centre-cropped so both sides are multiples of 64: the pixels of
+    the PIL pipeline of mofa_tpu's preprocess_image. Alpha is dropped
+    before the resize (that pipeline resized RGBA premultiplied, so a
+    translucent image's pixels may differ; opaque ones do not)."""
+    if isinstance(image, (str, os.PathLike)):
+        image = read_image(os.fspath(image))
+    image = np.asarray(image)
+    if image.ndim == 2:
+        image = np.repeat(image[..., None], 3, axis=-1)
+    image = image[..., :3]
+    raw_h, raw_w = image.shape[:2]
     ratio = target_size / min(raw_w, raw_h)
-    image = image.resize((round(raw_w * ratio), round(raw_h * ratio)),
-                         Image.BILINEAR)
-    new_w, new_h = image.size
+    new_w, new_h = round(raw_w * ratio), round(raw_h * ratio)
+    image = pil_resize(image, (new_w, new_h), BILINEAR)
     crop_w, crop_h = new_w - new_w % 64, new_h - new_h % 64
     left = round((new_w - crop_w) / 2.0)
     top = round((new_h - crop_h) / 2.0)
-    image = image.convert("RGB").crop((left, top, left + crop_w, top + crop_h))
-    arr = np.asarray(image, np.float32) / 255.0
-    return arr, (crop_h, crop_w)
+    image = image[top:top + crop_h, left:left + crop_w]
+    return image.astype(np.float32) / 255.0, (crop_h, crop_w)
 
 
 def divide_points_afterinterpolate(points: np.ndarray,

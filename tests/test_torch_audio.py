@@ -234,8 +234,12 @@ def test_audio2ldmk_cli_on_cpu(face_files):
     assert lm.shape == (math.ceil(1.1 * FPS) + 1, 68, 2) and np.isfinite(lm).all()
     # random weights, zero mesh offsets: the track stays about the face
     assert (lm[1:].min((0, 1)) > -90).all() and (lm[1:].max((0, 1)) < 180).all()
-    for extra in (["--engine", "sadtalker"], ["--engine", "video"], ["--task", "x.task"]):
-        with pytest.raises(SystemExit, match="slice 4"):
+    # the sadtalker and video engines run (tests/test_torch_face3d.py) but
+    # need their own inputs; the landmarker (--task) is ROADMAP item 10's
+    for extra, msg in ((["--engine", "sadtalker"], "needs --coeff_npz, --bfm_mat"),
+                       (["--engine", "video"], "needs --coeff_npz, --bfm_mat"),
+                       (["--task", "x.task"], "item 10")):
+        with pytest.raises(SystemExit, match=msg):
             audio2ldmk_app.main(["--ref_image_path", str(d / "in.png"), "--audio_path",
                                  str(d / "a.wav"), "--face_npz", str(d / "face.npz"),
                                  "--save_dir", str(d / "x"), "--device", "cpu"] + extra)

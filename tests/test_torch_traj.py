@@ -206,8 +206,8 @@ def test_drag_tracks_to_video_matches_jax(pair, cmp_pair, with_brush):
 
 def test_port_imports_neither_jax_nor_mofa_tpu():
     """Every module of the port (walked, not listed; the walk must reach the
-    training slices' train/, models/gmflow/ and models/cmp/ modules and the
-    trainer apps), chip_smoke.py and chip_ab.py import in a fresh
+    training slices' train/, models/gmflow/ and models/cmp/ modules, the
+    trainer apps and the face stack), chip_smoke.py and chip_ab.py import in a fresh
     interpreter without jax, flax, optax or mofa_tpu."""
     code = ("import importlib, pkgutil, sys, mofa_tpu_torch, chip_smoke, chip_ab;"
             "mods = [m.name for m in pkgutil.walk_packages("
@@ -215,7 +215,10 @@ def test_port_imports_neither_jax_nor_mofa_tpu():
             "[importlib.import_module(m) for m in mods];"
             "want = {'mofa_tpu_torch.apps.' + a for a in ('hybrid_app', 'keypoint_app',"
             " 'audio2ldmk_app', 'opendomain_app', 'train_app', 'train_cmp_app',"
-            " 'train_flow_app', 'eval_flow_app')} | {'mofa_tpu_torch.pipelines.keypoint',"
+            " 'train_flow_app', 'eval_flow_app', 'face_fit_app')} | {"
+            "'mofa_tpu_torch.pipelines.keypoint', 'mofa_tpu_torch.preprocess.image',"
+            " 'mofa_tpu_torch.models.face_alignment', 'mofa_tpu_torch.models.audio.sadtalker',"
+            " 'mofa_tpu_torch.models.audio.face3d_fit', 'mofa_tpu_torch.models.audio.face3d_render',"
             " 'mofa_tpu_torch.models.audio.wav2vec2', 'mofa_tpu_torch.models.audio.aniportrait',"
             " 'mofa_tpu_torch.models.gmflow.model', 'mofa_tpu_torch.models.gmflow.train',"
             " 'mofa_tpu_torch.models.cmp.train', 'mofa_tpu_torch.ops.edm'} | {"
