@@ -4,8 +4,9 @@
     python3 chip_smoke.py --phase kernels  # build + kernel checks only
     python3 chip_smoke.py --phase profile  # torch.profiler table, 2 steps
     python3 chip_smoke.py --phase keypoint # build, the keypoint path's kernel
-                                           # checks, video, the audio front and
-                                           # the face stack (5e, 5f, 5j)
+                                           # checks, video, the audio front,
+                                           # the face stack and the face front
+                                           # (5e, 5f, 5j, 5k)
     python3 chip_smoke.py --phase train    # build, the training path's kernel
                                            # backward checks, 5g, 5h, 5i
 
@@ -101,6 +102,19 @@ Phases, each printed as it finishes:
      face stack itself no custom kernel; then `traj_app.main`,
      `hybrid_app.main` (a face-mask PNG) and `keypoint_app.main` through
      their files (cv2 in, mp4 out: no PIL), each mp4 counted;
+     5k. the face front and facerender (fp32, full widths, FRONT): a
+     synthetic face_landmarker .task (tests/torch_ref/tflite_writer.py:
+     BlazeFace, the landmarker, the blendshapes at the published shapes,
+     planted head biases), the facerender checkpoint (spectral-norm
+     triplets folded) and GFPGANv1.4.pth written under the reference
+     names and read back strict, bit-equal; each compiled graph's
+     outputs held to the CPU's (FRONT's bound, cuDNN TF32 allowed);
+     `face_fit_app.main --task`, `audio2ldmk_app.main --task` and
+     `--engine video --driving_video` (a seeded 2 s mp4), then
+     `facerender_app.main` at 256^2 on 50 frames of 5j's coefficient
+     track with `--enhancer gfpgan` and `--paste_back`; each stage timed,
+     one rendered frame held to the CPU, the peak memory; no face found
+     fails the phase;
      5g. stage-1 training through `train_app.run` on seeded 40-frame
      clips at SVD-XT widths (384x384, 25 frames, batch 1, fp32, block
      remat, EMA): 4 steps, a checkpoint at step 2, a validation render at
@@ -2874,6 +2888,8 @@ def run_face_stack(dev, card: str) -> dict:
             fail(f"opendomain sadtalker launches {od_launches}, expected {want_l}")
         if video_frames(j("od/video_silent.mp4")) != f["od_frames"]:
             fail("opendomain: the silent video has the wrong frame count")
+        # the first FRONT["frames"] of the engine's coefficient track drive phase 5k
+        res["track"] = coeffs[:FRONT["frames"]].astype(np.float32)
         res.update(face_fit_s=fit_s, sadtalker_s=st_s, stages=stage, face3dvis_s=vis_s,
                    frame_s=frame_s, mask_agree=agree, colour_err=colour_err,
                    video_s=vid_s, opendomain_s=od_s, opendomain_launches=od_launches)
@@ -2907,6 +2923,330 @@ def run_face_stack(dev, card: str) -> dict:
         log("  the image CLIs through their files, 2 steps, bf16: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in cli_s.items()) + f"; card {card}")
         res["cli_s"] = cli_s
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------ phase 5k: the face front, facerender
+
+# The mediapipe face front and SadTalker's facerender path at full widths,
+# fp32: a synthetic face_landmarker .task (tests/torch_ref/tflite_writer.py:
+# the three graphs at the published shapes, seeded weights, planted head
+# biases so a face is found), the driving video 2 s at 25 fps, facerender
+# at 256^2 on 50 frames of phase 5j's coefficient track, GFPGANv1.4's
+# widths. Card against CPU: cuDNN may run the fp32 convs in TF32 (PyTorch's
+# default, as for phase 5's CMP and phase 5j's face nets) and matmuls stay
+# full fp32, so each compiled graph's outputs and one rendered frame are
+# held to FRONT["tol"] of their largest magnitude (TF32's 10-bit mantissa
+# through tens of layers; a wrong padding, layout or weight moves outputs
+# by their own size).
+FRONT = dict(seed=41, video_s=2, fps=25, frames=50, size=256, full=(384, 320),
+             tol=2e-2, bfm_grid=48)
+
+
+def load_tflite_writer():
+    """tests/torch_ref/tflite_writer.py loaded from its file (a package
+    named `tests` installed on the machine may shadow the repo's)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "tflite_writer", os.path.join(REPO, "tests", "torch_ref", "tflite_writer.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def tflite_bit_equal(module, graph) -> int:
+    """The compiled module's tensors (on the card) against the file's
+    constants as parsed on the host: each float constant bit-equal, conv
+    kernels in the layout the module keeps them (OHWI -> OIHW, depthwise
+    [1, H, W, C*m] -> [C*m, 1, H, W]). Returns the count checked."""
+    import numpy as np
+    import torch
+    layout = {op.inputs[1]: op.name for op in graph.ops
+              if op.name in ("CONV_2D", "DEPTHWISE_CONV_2D")}
+    n = 0
+    for name, buf in module.named_buffers():
+        tid = int(name[1:])
+        want = torch.from_numpy(np.array(graph.constants[tid]))
+        if layout.get(tid) == "CONV_2D":
+            want = want.permute(0, 3, 1, 2)
+        elif layout.get(tid) == "DEPTHWISE_CONV_2D":
+            want = want[0].permute(2, 0, 1)[:, None]
+        if not torch.equal(buf.cpu(), want):
+            fail(f"tflite: tensor {tid} on the card differs from the file")
+        n += 1
+    return n
+
+
+def write_facerender_weights(path: str, seed: int) -> dict:
+    """Seeded full-width facerender nets (the SPADE generator, the keypoint
+    detector, the mapping net, the head-pose estimator) in one .safetensors
+    under the reference's prefixes, the SPADE blocks' convs as spectral-norm
+    triplets (weight_orig = 2.5 W, seeded u, v), BatchNorm counters and the
+    anti-alias kernel as the reference saves them. Returns net -> the state
+    dict each must load (the triplets folded here: W / (u W v))."""
+    import numpy as np
+    import torch
+    from mofa_tpu_torch.apps.loaders import init_random_cmp_
+    from mofa_tpu_torch.models import facerender as fr
+    g = torch.Generator().manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    nets = {"generator": fr.OcclusionAwareSPADEGenerator(), "kp_detector": fr.KPDetector(),
+            "mapping": fr.MappingNet(), "he_estimator": fr.HEEstimator()}
+    blob, want = {}, {}
+    for name, net in nets.items():
+        prefix = fr.FACERENDER_PREFIXES[name]
+        sd = init_random_cmp_(net, g).state_dict()
+        want[name] = {}
+        for k, v in sd.items():
+            if k.endswith("num_batches_tracked"):
+                blob[prefix + k] = v
+                continue
+            if name == "generator" and k.endswith((".conv_0.weight", ".conv_1.weight",
+                                                   ".conv_s.weight")):
+                base = prefix + k[:-len(".weight")]
+                w = (v * 2.5).numpy()
+                u = rng.randn(w.shape[0]).astype(np.float32)
+                vv = rng.randn(w[0].size).astype(np.float32)
+                blob.update({base + ".weight_orig": torch.from_numpy(w),
+                             base + ".weight_u": torch.from_numpy(u),
+                             base + ".weight_v": torch.from_numpy(vv)})
+                want[name][k] = torch.from_numpy(w / float(u @ w.reshape(w.shape[0], -1) @ vv))
+            else:
+                blob[prefix + k] = v
+                want[name][k] = v
+    blob["kp_extractor.down.weight"] = torch.ones(3, 1, 13, 13)
+    write_safetensors(blob, path)
+    return want
+
+
+def run_face_front(dev, card: str, track) -> dict:
+    """Phase 5k: the synthetic .task's graphs on the card held to the CPU;
+    `face_fit_app --task` (BlazeFace's box, the full FAN and ResNet-50);
+    `audio2ldmk_app --task` (the FaceLandmarker on the reference image, the
+    AniPortrait engine at full widths); `audio2ldmk_app --engine video
+    --driving_video` (a seeded 2 s mp4 fitted frame by frame);
+    `facerender_app` at 256^2 on phase 5j's track with `--enhancer gfpgan`
+    and `--paste_back` (face_fit_app's crop info). Weight files written
+    under the reference's names and read back strict, bit-equal; each stage
+    timed; one rendered frame held to the CPU. No custom kernel launches."""
+    import tempfile
+    import zipfile
+
+    import cv2
+    import numpy as np
+    import torch
+    from scipy.io import loadmat, savemat
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.apps import audio2ldmk_app, face_fit_app, facerender_app
+    from mofa_tpu_torch.interop.tflite import TFLiteGraph, compile_tflite
+    from mofa_tpu_torch.models import facerender as fr
+    from mofa_tpu_torch.models import gfpgan, mp_face
+    from mofa_tpu_torch.models.audio.face3d_fit import load_lm3d
+    from mofa_tpu_torch.preprocess import enhance, video_fit
+    from mofa_tpu_torch.preprocess.image import BICUBIC, pil_resize, read_image
+    tflite_writer = load_tflite_writer()
+
+    f, seed = FRONT, FRONT["seed"]
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    res: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        j = lambda name: os.path.join(root, name)
+        t0 = time.perf_counter()
+        task = j("face_landmarker_v2_with_blendshapes.task")
+        members = tflite_writer.write_task(task, seed)
+        fh, fw = f["full"]
+        smooth_png(j("full.png"), fh, fw, seed)
+        weights = write_face_weights(root, seed)
+        fr_want = write_facerender_weights(j("SadTalker_V0.0.2_256.safetensors"), seed)
+        gf = gfpgan.init_gfpgan_(gfpgan.GFPGANv1Clean(), torch.Generator().manual_seed(seed))
+        gf_sd = gf.state_dict()
+        torch.save({"params_ema": gf_sd}, j("GFPGANv1.4.pth"))
+        del gf
+        write_bfm_mat(j("bfm.mat"), f["bfm_grid"], f["bfm_grid"], seed)
+        bfm_mat = loadmat(j("bfm.mat"))
+        ms = bfm_mat["meanshape"].reshape(-1, 3)
+        savemat(j("lm3d.mat"), {"lm": (ms - ms.mean(0))[
+            bfm_mat["keypoints"].reshape(-1).astype(int) - 1].astype(np.float64)})
+        rng = np.random.RandomState(seed)
+        write_wav(j("a.wav"), rng.uniform(-0.5, 0.5, f["video_s"] * AUDIO_SR), AUDIO_SR)
+        # the driving video: the full image drifting a few pixels a frame
+        base = cv2.imread(j("full.png"))
+        vw = cv2.VideoWriter(j("drive.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), f["fps"], (fw, fh))
+        for i in range(f["video_s"] * f["fps"]):
+            vw.write(np.roll(base, (i % 7) - 3, axis=1))
+        vw.release()
+        log(f"  inputs written in {time.perf_counter() - t0:.1f} s: .task "
+            + ", ".join(f"{k} {len(v) / 2 ** 20:.2f} MiB" for k, v in members.items())
+            + f"; facerender {sum(v.numel() for sd in fr_want.values() for v in sd.values())} "
+            f"parameters, GFPGAN {sum(v.numel() for v in gf_sd.values())}")
+
+        # the weight files, strict, bit-equal on the card
+        nets = facerender_app.load_facerender(j("SadTalker_V0.0.2_256.safetensors"), dev,
+                                              with_he=True)
+        n_checked = 0
+        for name, net in nets.items():
+            own = {k: v for k, v in net.state_dict().items()
+                   if not k.endswith("num_batches_tracked")}
+            bad = [k for k, v in fr_want[name].items() if not torch.equal(own[k].cpu(), v)]
+            if bad or own.keys() != fr_want[name].keys():
+                fail(f"facerender: {name} loaded from its file differs: {bad[:5]}")
+            n_checked += len(own)
+        del nets
+        gmodel = gfpgan.load_gfpgan(j("GFPGANv1.4.pth"), dev)
+        if any(not torch.equal(v.cpu(), gf_sd[k]) for k, v in gmodel.state_dict().items()):
+            fail("GFPGAN loaded from GFPGANv1.4.pth differs")
+        n_checked += len(gf_sd)
+        lm_card = mp_face.load_face_landmarker(task, dev)
+        with zipfile.ZipFile(task) as z:
+            graphs = [TFLiteGraph.from_bytes(z.read(m)) for m in tflite_writer.TASK_MEMBERS[:3]]
+        mods = (lm_card.detector, lm_card.landmarks, lm_card.blendshapes)
+        for mod, graph in zip(mods, graphs):
+            n_checked += tflite_bit_equal(mod, graph)
+        log(f"  {n_checked} tensors of the facerender, GFPGAN and .task files loaded "
+            "strict, bit-equal")
+
+        # each compiled graph on the card against the CPU, and its time
+        kernels.reset_launch_counts()
+        g = torch.Generator().manual_seed(seed)
+        feeds = (torch.rand(1, 128, 128, 3, generator=g) * 2 - 1,
+                 torch.rand(1, 256, 256, 3, generator=g),
+                 torch.rand(1, 146, 2, generator=g) * 256)
+        graph_ms, graph_err = {}, {}
+        for name, mod, graph, x in zip(("blazeface", "landmarks", "blendshapes"), mods,
+                                       graphs, feeds):
+            xd = x.to(dev)
+            got = [o.cpu() for o in mod(xd)]
+            want = compile_tflite(graph, "cpu")(x)
+            err = max(float((a - b).abs().max() / max(float(b.abs().max()), 1e-6))
+                      for a, b in zip(got, want))
+            graph_err[name] = err
+            graph_ms[name] = time_ms(lambda: mod(xd))
+            if err > f["tol"] or not all(torch.isfinite(o).all() for o in got):
+                fail(f"tflite {name}: the card's outputs are {err:.3e} of their size from "
+                     f"the CPU's (bound {f['tol']})")
+        img = cv2.imread(j("full.png"))[..., ::-1].copy()
+        det = mp_face.detect_face(lm_card.detector, img.astype(np.float32) / 255.0)
+        out = lm_card(img)
+        if det is None or out is None:
+            fail("the landmarker found no face in the seeded image (planted biases)")
+        _, solve_s = timed(lm_card._solve_pose, out["lmks"], fw / fh)
+        _, landmarker_s = timed(lm_card, img)
+        log("  tflite graphs on the card (ms, median of 5): " + ", ".join(
+            f"{k} {v:.3f} (card vs CPU {graph_err[k]:.2e} of max)" for k, v in graph_ms.items())
+            + f"; the whole landmarker {landmarker_s:.3f} s, the Procrustes solve "
+            f"{solve_s * 1e3:.3f} ms; box {np.round(det[0], 3).tolist()}, score {det[2]:.3f}")
+
+        # face_fit_app --task: BlazeFace's box, the full FAN and ResNet-50
+        fit = ["--image", j("full.png"), "--task", task, "--fan_ckpt", weights["fan"][0],
+               "--ckpt", weights["recon"][0], "--lm3d_mat", j("lm3d.mat"), "--save",
+               j("coeff.npz")]
+        _, fit_s = timed(face_fit_app.main, fit)
+        fit_out = np.load(j("coeff.npz"), allow_pickle=True)
+        if fit_out["full_3dmm"].shape != (1, 257) or not np.isfinite(fit_out["full_3dmm"]).all():
+            fail("face_fit_app --task: bad full_3dmm")
+
+        # audio2ldmk_app --task: the FaceLandmarker on the reference image
+        _, ap_s = timed(audio2ldmk_app.main, [
+            "--ref_image_path", j("full.png"), "--audio_path", j("a.wav"), "--task", task,
+            "--save_dir", j("ap")])
+        lm_ap = np.load(j("ap/landmarks.npy"))
+        if lm_ap.shape != (f["video_s"] * f["fps"] + 1, 68, 2) or not np.isfinite(lm_ap).all():
+            fail(f"audio2ldmk_app --task: landmarks {lm_ap.shape}")
+
+        # audio2ldmk_app --engine video --driving_video: the raw-video fit
+        coeff = (rng.randn(1, 257) * 0.1).astype(np.float32)
+        coeff[0, 224:227], coeff[0, 254:257] = (0.05, -0.1, 0.02), (0.0, 0.05, 0.0)
+        np.savez(j("coeff_st.npz"), full_3dmm=coeff, trans_params=fit_out["trans_params"],
+                 crop_info=fit_out["crop_info"])
+        _, vid_s = timed(audio2ldmk_app.main, [
+            "--ref_image_path", j("full.png"), "--audio_path", j("a.wav"), "--engine", "video",
+            "--coeff_npz", j("coeff_st.npz"), "--bfm_mat", j("bfm.mat"), "--driving_video",
+            j("drive.mp4"), "--task", task, "--fan_ckpt", weights["fan"][0], "--recon_ckpt",
+            weights["recon"][0], "--lm3d_mat", j("lm3d.mat"), "--save_dir", j("vid")])
+        n_video = f["video_s"] * f["fps"]
+        lm_v = np.load(j("vid/landmarks.npy"))
+        if lm_v.shape != (n_video + 1, 68, 2) or not np.isfinite(lm_v).all():
+            fail(f"--driving_video: landmarks {lm_v.shape}")
+        recon, fan = face_fit_app.load_face_nets(weights["recon"][0], weights["fan"][0], dev)
+        (track_v, _), fitv_s = timed(video_fit.fit_driving_video, j("drive.mp4"),
+                                     lm_card.detector, fan, recon, load_lm3d(j("lm3d.mat")))
+        del recon, fan
+        log(f"  face_fit_app --task {fit_s:.3f} s; audio2ldmk_app --task ({f['video_s']} s wav) "
+            f"{ap_s:.3f} s; --engine video --driving_video ({n_video} frames at {fw}x{fh}) "
+            f"{vid_s:.3f} s, its fit alone {fitv_s:.3f} s = {fitv_s / n_video * 1e3:.2f} ms a "
+            f"frame (track {track_v.shape})")
+
+        # facerender_app on phase 5j's track, GFPGAN, paste back
+        np.savez(j("track.npz"), coeff_3dmm=np.asarray(track, np.float32))
+        ci = fit_out["crop_info"].tolist()
+        np.savez(j("crop.npz"), crop_info=np.asarray([v for part in ci for v in part], np.int64))
+        pic = f["size"]
+        cv2.imwrite(j("face.png"), cv2.resize(base, (pic, pic), interpolation=cv2.INTER_AREA))
+        fr_args = ["--image", j("face.png"), "--coeff_npz", j("coeff.npz"),
+                   "--driving_coeffs_npz", j("track.npz"), "--ckpt",
+                   j("SadTalker_V0.0.2_256.safetensors"), "--size", str(pic), "--output",
+                   j("render.mp4"), "--enhancer", "gfpgan", "--gfpgan_ckpt",
+                   j("GFPGANv1.4.pth"), "--paste_back", "--full_image", j("full.png"),
+                   "--crop_info_npz", j("crop.npz")]
+        frames8, fr_s = timed(facerender_app.main, fr_args)
+        if frames8.shape != (len(track), fh, fw, 3) or video_frames(j("render.mp4")) != len(track):
+            fail(f"facerender_app: frames {frames8.shape}, mp4 {video_frames(j('render.mp4'))}")
+        # its stages apart (warm), and one frame against the CPU
+        nets = facerender_app.load_facerender(j("SadTalker_V0.0.2_256.safetensors"), dev)
+        src = pil_resize(read_image(j("face.png")), (pic, pic), BICUBIC)
+        source = torch.from_numpy(src.astype(np.float32) / 255.0).permute(2, 0, 1)[None].to(dev)
+        src_sem, tgt_sem = fr.build_semantics(
+            facerender_app.source_coeff70(fit_out["full_3dmm"]), np.asarray(track))
+        src_sem, tgt_sem = torch.from_numpy(src_sem).to(dev), torch.from_numpy(tgt_sem).to(dev)
+        stage = {}
+        with torch.no_grad():
+            for _ in range(2):
+                _, stage["keypoints"] = timed(nets["kp_detector"], source)
+                _, stage["mapping"] = timed(nets["mapping"], src_sem)
+            frames, anim_s = timed(fr.make_animation, source, src_sem, tgt_sem,
+                                   nets["generator"], nets["kp_detector"], nets["mapping"])
+        k = len(track) // 2
+        cpu_nets = facerender_app.load_facerender(j("SadTalker_V0.0.2_256.safetensors"),
+                                                  "cpu")
+        (want,), cpu_s = timed(lambda: fr.make_animation(
+            source.cpu(), src_sem.cpu(), tgt_sem[:, k:k + 1].cpu(), cpu_nets["generator"],
+            cpu_nets["kp_detector"], cpu_nets["mapping"])[0])
+        del cpu_nets
+        frame_err = float((frames[0, k].cpu() - want).abs().max())
+        if frame_err > f["tol"] or not torch.isfinite(frames).all():
+            fail(f"facerender: frame {k} on the card is {frame_err:.3e} from the CPU's "
+                 f"(bound {f['tol']})")
+        frames8_raw = (frames[0].permute(0, 2, 3, 1).clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        enh, gf_s = timed(lambda: gfpgan.enhance_aligned(gmodel, frames8_raw.astype(np.float32)
+                                                         / 255.0))
+        full = cv2.imread(j("full.png"))[..., ::-1].copy()
+        crop_info = (tuple(ci[0]), tuple(ci[1]), tuple(ci[2]))
+        _, paste_s = timed(enhance.paste_back_frames, (enh * 255).astype(np.uint8), full,
+                           crop_info)
+        launches = kernels.launch_counts()
+        if any(launches.values()):
+            fail(f"the face front launched custom kernels: {launches}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = len(track)
+        log(f"  facerender_app ({n} frames at {pic}^2, SPADE generator, --enhancer gfpgan at "
+            f"GFPGANv1.4's widths, --paste_back into {fw}x{fh}): {fr_s:.3f} s the call; "
+            f"stages: keypoints {stage['keypoints'] * 1e3:.2f} ms, mapping "
+            f"{stage['mapping'] * 1e3:.2f} ms, render {anim_s / n * 1e3:.2f} ms a frame, "
+            f"GFPGAN {gf_s / n * 1e3:.2f} ms a frame, paste-back {paste_s / n * 1e3:.2f} ms a "
+            f"frame; frame {k} card vs CPU max|diff| {frame_err:.3e} (bound {f['tol']}; the "
+            f"CPU {cpu_s:.2f} s); peak {peak:.2f} GiB; card {card}")
+        res.update(graph_ms=graph_ms, graph_err=graph_err, solve_s=solve_s,
+                   landmarker_s=landmarker_s, face_fit_s=fit_s, aniportrait_task_s=ap_s,
+                   video_engine_s=vid_s, video_fit_frame_s=fitv_s / n_video,
+                   facerender_s=fr_s, stages=stage, render_frame_s=anim_s / n,
+                   gfpgan_frame_s=gf_s / n, paste_frame_s=paste_s / n, frame_err=frame_err,
+                   peak_gib=peak)
+        del nets, gmodel, lm_card
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.cuda.empty_cache()
     return res
 
@@ -3786,7 +4126,11 @@ def main() -> None:
         run_audio_front(dev)
         log("[face] the face stack: face_fit_app, the SadTalker and video engines, "
             "--face3dvis, opendomain --engine sadtalker, the image CLIs' files")
-        run_face_stack(dev, card)
+        face_run = run_face_stack(dev, card)
+        log("[front] the face front and facerender: the .task's graphs, face_fit_app "
+            "--task, audio2ldmk_app --task / --driving_video, facerender_app with GFPGAN "
+            "and paste-back, fp32, full widths")
+        run_face_front(dev, card, face_run["track"])
         return
 
     # 3. kernels vs plain versions
@@ -3874,6 +4218,11 @@ def main() -> None:
         log("[face] the face stack: face_fit_app, the SadTalker and video engines, "
             "--face3dvis, opendomain --engine sadtalker, the image CLIs' files")
         face_run = run_face_stack(dev, card)
+        # 5k. the face front (mediapipe .task) and the facerender path
+        log("[front] the face front and facerender: the .task's graphs, face_fit_app "
+            "--task, audio2ldmk_app --task / --driving_video, facerender_app with GFPGAN "
+            "and paste-back, fp32, full widths")
+        run_face_front(dev, card, face_run["track"])
         # 5g. stage-1 training through train_app
         log("[train] stage-1 training through train_app: 384x384, 25 frames, "
             "batch 1, fp32, block remat, EMA, SVD-XT widths")

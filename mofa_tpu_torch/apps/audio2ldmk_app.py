@@ -22,9 +22,13 @@ landmarks.npy, the [T, 68, 2] track `keypoint_app` and `hybrid_app` read:
   every frame to 3dface.mp4 (224^2, the z-buffer of
   models/audio/face3d_render.py on the device) and the landmark dots to
   landmarks_vis.mp4;
-- video: a driving video's per-frame [T, 70] track (--driving_coeffs_npz,
-  key coeff_3dmm) retargets the --coeff_npz identity, pose relative to the
-  driving track's first frame.
+- video: a driving video's per-frame [T, 70] track retargets the
+  --coeff_npz identity, pose relative to the driving track's first frame.
+  The track is --driving_coeffs_npz (key coeff_3dmm), or is fitted from
+  the raw --driving_video (preprocess/video_fit.py): BlazeFace from --task,
+  the AWing FAN (--fan_ckpt, --fan_tiny or seeded random), ReconNet
+  (--recon_ckpt, --recon_tiny or seeded random) and --lm3d_mat, each
+  frame resized to 256^2.
 
     python -m mofa_tpu_torch.apps.audio2ldmk_app --ref_image_path in.png \
         --audio_path a.wav --face_npz face.npz --save_dir out
@@ -33,11 +37,10 @@ landmarks.npy, the [T, 68, 2] track `keypoint_app` and `hybrid_app` read:
         --bfm_mat BFM_model_front.mat --save_dir out --face3dvis
     python -m mofa_tpu_torch.apps.audio2ldmk_app ... --device cpu --tiny
 
-The in-framework landmarker (--task) and the raw-video fit
-(--driving_video) are not ported yet (ROADMAP.md Queue 1, item 10, which
-they need: BlazeFace and the FaceLandmarker): they exit with a message and
-run nothing else. It runs on the CUDA device unless `--device cpu` is
-given; images are read through cv2.
+The aniportrait engine's reference face is --face_npz, or the mediapipe
+FaceLandmarker run on --ref_image_path from a face_landmarker .task bundle
+(--task; models/mp_face.py). It runs on the CUDA device unless `--device
+cpu` is given; images are read through cv2.
 """
 
 from __future__ import annotations
@@ -63,10 +66,6 @@ from mofa_tpu_torch.models.weights import (load_torch_checkpoint, read_state_dic
 from mofa_tpu_torch.pipelines.common import init_random_
 from mofa_tpu_torch.preprocess.image import read_image
 
-NOT_PORTED = ("is not ported yet: it belongs to ROADMAP.md Queue 1, item 10 "
-              "(BlazeFace and the mediapipe FaceLandmarker)")
-
-
 def build_parser():
     p = argparse.ArgumentParser(description="MOFA audio -> landmarks (PyTorch)")
     p.add_argument("--ref_image_path", required=True)
@@ -74,8 +73,9 @@ def build_parser():
     p.add_argument("--face_npz", default=None,
                    help="mediapipe landmarker output: lmks, lmks3d, trans_mat")
     p.add_argument("--task", default=None,
-                   help="mediapipe .task bundle (the in-framework landmarker; "
-                        "not ported yet)")
+                   help="mediapipe face_landmarker .task bundle: the FaceLandmarker "
+                        "on --ref_image_path (instead of --face_npz); BlazeFace for "
+                        "--driving_video")
     p.add_argument("--save_dir", required=True)
     p.add_argument("--a2m_ckpt", default=None, help="audio2mesh.pt")
     p.add_argument("--a2p_ckpt", default=None, help="audio2pose.pt")
@@ -87,8 +87,19 @@ def build_parser():
                    help="video engine: the driving video's per-frame [T, 70] "
                         "exp + pose track (key coeff_3dmm)")
     p.add_argument("--driving_video", default=None,
-                   help="video engine: a raw driving video (the in-framework fit; "
-                        "not ported yet)")
+                   help="video engine: a raw driving video, fitted frame by frame "
+                        "(BlazeFace via --task, the FAN, ReconNet, --lm3d_mat)")
+    p.add_argument("--fan_ckpt", default=None,
+                   help="facexlib alignment_WFLW_4HG.pth for --driving_video")
+    p.add_argument("--fan_tiny", action="store_true",
+                   help="a 1-module FAN of random weights (smoke runs)")
+    p.add_argument("--recon_ckpt", default=None,
+                   help="Deep3DFaceRecon net_recon checkpoint for --driving_video")
+    p.add_argument("--recon_tiny", action="store_true",
+                   help="a tiny ReconNet of random weights (smoke runs)")
+    p.add_argument("--lm3d_mat", default=None,
+                   help="similarity_Lm3D_all.mat for --driving_video")
+    p.add_argument("--max_frames", type=int, default=None)
     # the sadtalker and video engines' inputs
     p.add_argument("--bfm_mat", default=None, help="BFM_model_front.mat")
     p.add_argument("--coeff_npz", default=None,
@@ -137,6 +148,23 @@ def reference_face(face: dict, width: int, height: int) -> tuple:
     lmks[:, 1] *= height
     return (lmks, np.asarray(face["lmks3d"], np.float32),
             np.asarray(face["trans_mat"], np.float32))
+
+
+def extract_face(args, img: np.ndarray, dev) -> dict:
+    """The reference face (lmks normalised [478, 3], lmks3d [468, 3],
+    trans_mat [4, 4]): the FaceLandmarker on the image when --task is
+    given (the reference's mp_utils.LMKExtractor, audio2ldmk.py:207-218),
+    else the --face_npz contract."""
+    if args.task:
+        from mofa_tpu_torch.models.mp_face import load_face_landmarker
+        out = load_face_landmarker(args.task, dev)(img)
+        if out is None:
+            raise SystemExit("No face detected.")  # audio2ldmk.py:218
+        return out
+    if not args.face_npz:
+        raise SystemExit("need --task (the FaceLandmarker) or --face_npz "
+                         "(lmks, lmks3d, trans_mat)")
+    return dict(np.load(args.face_npz))
 
 
 def load_sadtalker_nets(exp_ckpt, pose_ckpt, device, seed: int = 0):
@@ -215,14 +243,38 @@ def write_face3dvis(args, bfm, landmarks, all_coeffs, dev):
     print(f"wrote {os.path.join(args.save_dir, '3dface.mp4')}")
 
 
+def fit_driving(args) -> np.ndarray:
+    """A raw driving video -> its [T, 70] track (preprocess/video_fit.py):
+    the reference's automatic per-frame chain
+    (sadtalker_video2pose/inference.py:79-92)."""
+    from mofa_tpu_torch.apps.face_fit_app import load_face_nets
+    from mofa_tpu_torch.models.audio.face3d_fit import load_lm3d
+    from mofa_tpu_torch.models.mp_face import load_face_detector
+    from mofa_tpu_torch.preprocess.video_fit import fit_driving_video
+    if not args.task:
+        raise SystemExit("--driving_video needs --task (BlazeFace)")
+    if not args.lm3d_mat:
+        raise SystemExit("--driving_video needs --lm3d_mat")
+    dev = resolve_device(args.device)
+    recon, fan = load_face_nets(args.recon_ckpt, args.fan_ckpt, dev,
+                                tiny=args.recon_tiny, fan_tiny=args.fan_tiny)
+    coeff70, _ = fit_driving_video(args.driving_video, load_face_detector(args.task, dev),
+                                   fan, recon, load_lm3d(args.lm3d_mat),
+                                   max_frames=args.max_frames)
+    return coeff70
+
+
 def run_video(args):
-    """A driving video's coefficient track -> landmarks.npy."""
+    """A driving video's coefficient track (fitted from --driving_video, or
+    --driving_coeffs_npz) -> landmarks.npy."""
+    _need(args, "coeff_npz", "bfm_mat")
     if args.driving_video:
-        raise SystemExit(f"--driving_video (the raw-video fit) {NOT_PORTED}; "
-                         "pass its track as --driving_coeffs_npz")
-    _need(args, "coeff_npz", "bfm_mat", "driving_coeffs_npz")
+        driving = fit_driving(args)
+    elif args.driving_coeffs_npz:
+        driving = np.load(args.driving_coeffs_npz)["coeff_3dmm"]
+    else:
+        raise SystemExit("--engine video needs --driving_video or --driving_coeffs_npz")
     coeff257, trans_params, crop_info = read_coeff_npz(args.coeff_npz)
-    driving = np.load(args.driving_coeffs_npz)["coeff_3dmm"]
     landmarks = sadtalker_video_to_landmarks(BFMModel.load(args.bfm_mat), coeff257,
                                              driving, trans_params, crop_info)
     _save(args, landmarks)
@@ -234,13 +286,9 @@ def run(args):
     dev = resolve_device(args.device)
     if args.engine == "sadtalker":
         return run_sadtalker(args, dev)
-    if args.task:
-        raise SystemExit(f"--task (the mediapipe landmarker) {NOT_PORTED}; "
-                         "pass the reference face as --face_npz")
-    if not args.face_npz:
-        raise SystemExit("need --face_npz (lmks, lmks3d, trans_mat)")
-    height, width = read_image(args.ref_image_path).shape[:2]
-    lmks, lmks3d, trans_mat = reference_face(np.load(args.face_npz), width, height)
+    img = read_image(args.ref_image_path)
+    height, width = img.shape[:2]
+    lmks, lmks3d, trans_mat = reference_face(extract_face(args, img, dev), width, height)
     a2m, a2p = load_audio_models(args.a2m_ckpt, args.a2p_ckpt, dev, args.tiny)
     landmarks = audio_to_landmarks(a2m, a2p, args.audio_path, lmks, lmks3d,
                                    trans_mat, [height, width], fps=args.fps,

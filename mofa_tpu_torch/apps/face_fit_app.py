@@ -17,8 +17,9 @@ The image is read through cv2 and resized to --pic_size square (Pillow's
 bilinear, reproduced without PIL). The keypoints come from --kp ([68, 2],
 .npy or whitespace text) or from the AWing FAN (models/face_alignment.py:
 --fan_ckpt, or --fan_tiny, one module of random weights) on the --bbox
-crop or the whole image. BlazeFace's box (--task) is not ported yet
-(ROADMAP.md Queue 1, item 10): it exits with a message. --ckpt is a
+crop, on BlazeFace's box (--task, a mediapipe .task bundle; the box
+padded as the video fit pads it, models/mp_face.py) or on the whole
+image. --ckpt is a
 net_recon checkpoint (.pth / .pth.tar, or SadTalker's combined
 .safetensors, whose `face_3drecon.` keys are taken), loaded strict;
 without one the net has seeded random weights. It runs on the CUDA device
@@ -52,10 +53,11 @@ def build_parser():
                         "detect them with the FAN (--fan_ckpt / --fan_tiny)")
     p.add_argument("--fan_ckpt", default=None, help="facexlib alignment_WFLW_4HG.pth")
     p.add_argument("--bbox", default=None,
-                   help="face box 'x1,y1,x2,y2' for the FAN crop (default: the "
-                        "whole image)")
+                   help="face box 'x1,y1,x2,y2' for the FAN crop (default: "
+                        "BlazeFace's with --task, else the whole image)")
     p.add_argument("--task", default=None,
-                   help="mediapipe .task bundle (BlazeFace's box; not ported yet)")
+                   help="mediapipe .task bundle: the face box from BlazeFace "
+                        "(instead of --bbox)")
     p.add_argument("--fan_tiny", action="store_true",
                    help="a 1-module FAN of random weights (smoke runs)")
     p.add_argument("--lm3d_mat", required=True,
@@ -107,9 +109,6 @@ def detect_kp(fan: FAN, img_rgb: np.ndarray, bbox=None) -> np.ndarray:
 
 
 def run(args):
-    if args.task:
-        raise SystemExit("--task (BlazeFace's face box) is not ported yet: it belongs "
-                         "to ROADMAP.md Queue 1, item 10; pass --bbox or --kp")
     if not (args.kp or args.fan_ckpt or args.fan_tiny):
         raise SystemExit("need --kp or --fan_ckpt / --fan_tiny")
     dev = resolve_device(args.device)
@@ -120,7 +119,14 @@ def run(args):
         kp = (np.load(args.kp) if args.kp.endswith(".npy")
               else np.loadtxt(args.kp)).reshape(-1, 2).astype(np.float32)
     else:
-        bbox = [int(v) for v in args.bbox.split(",")] if args.bbox else None
+        bbox = None
+        if args.bbox:
+            bbox = [int(v) for v in args.bbox.split(",")]
+        elif args.task:   # BlazeFace's box (mofa_tpu/apps/face_fit_app.py:67-71)
+            from mofa_tpu_torch.models.mp_face import load_face_detector
+            from mofa_tpu_torch.preprocess.video_fit import detect_video_boxes
+            box = detect_video_boxes(img[None], load_face_detector(args.task, dev))[0]
+            bbox = [int(v) for v in box]
         kp = detect_kp(fan, img, bbox)
     full, coeff, tp = fit_image(recon, img, kp, load_lm3d(args.lm3d_mat))
     h = w = args.pic_size

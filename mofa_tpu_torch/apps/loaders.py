@@ -36,11 +36,12 @@ _WEIGHT_FILES = ("diffusion_pytorch_model.safetensors", "model.safetensors",
 
 def init_random_cmp_(cmp: CMP, generator: torch.Generator) -> CMP:
     """Seeded random parameters (`init_random_`) and BatchNorm statistics
-    (mean ~ N(0, 0.1^2), var ~ U(0.5, 1.5)), so every BatchNorm does work."""
+    (mean ~ N(0, 0.1^2), var ~ U(0.5, 1.5)), so every BatchNorm (2-D or
+    3-D) does work."""
     init_random_(cmp, generator)
     with torch.no_grad():
         for m in cmp.modules():
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.running_mean.normal_(0.0, 0.1, generator=generator)
                 m.running_var.uniform_(0.5, 1.5, generator=generator)
     return cmp

@@ -235,11 +235,13 @@ def test_audio2ldmk_cli_on_cpu(face_files):
     # random weights, zero mesh offsets: the track stays about the face
     assert (lm[1:].min((0, 1)) > -90).all() and (lm[1:].max((0, 1)) < 180).all()
     # the sadtalker and video engines run (tests/test_torch_face3d.py) but
-    # need their own inputs; the landmarker (--task) is ROADMAP item 10's
-    for extra, msg in ((["--engine", "sadtalker"], "needs --coeff_npz, --bfm_mat"),
+    # need their own inputs; --task reads its .task before --face_npz
+    # (the landmarker itself: tests/test_torch_video_fit.py)
+    for extra, err in ((["--engine", "sadtalker"], "needs --coeff_npz, --bfm_mat"),
                        (["--engine", "video"], "needs --coeff_npz, --bfm_mat"),
-                       (["--task", "x.task"], "item 10")):
-        with pytest.raises(SystemExit, match=msg):
+                       (["--task", str(d / "no.task")], FileNotFoundError)):
+        with pytest.raises(*((SystemExit,) if isinstance(err, str) else (err,)),
+                           **({"match": err} if isinstance(err, str) else {})):
             audio2ldmk_app.main(["--ref_image_path", str(d / "in.png"), "--audio_path",
                                  str(d / "a.wav"), "--face_npz", str(d / "face.npz"),
                                  "--save_dir", str(d / "x"), "--device", "cpu"] + extra)

@@ -330,7 +330,8 @@ def test_face_fit_then_sadtalker_clis_on_cpu(tmp_path, bfm_files):
     """face_fit_app (the one-module FAN on a box, the tiny ReconNet) writes
     the npz contract; audio2ldmk_app's sadtalker engine reads it with the
     grid BFM and renders --face3dvis; the video engine retargets a driving
-    track; --task and --driving_video exit naming ROADMAP item 10."""
+    track; --task and --driving_video refuse to run without their inputs
+    (their runs: tests/test_torch_video_fit.py)."""
     from scipy.io import savemat
     d = tmp_path
     Image.fromarray(_face_image(90, 100, 17)).save(d / "in.png")
@@ -343,7 +344,7 @@ def test_face_fit_then_sadtalker_clis_on_cpu(tmp_path, bfm_files):
     assert out["trans_params"].shape == (8,) and np.isfinite(out["full_3dmm"]).all()
     assert out["trans_params"][:2].tolist() == [256, 256]
     assert out["crop_info"].tolist()[0] == (256, 256)
-    with pytest.raises(SystemExit, match="item 10"):
+    with pytest.raises(SystemExit, match="need --kp or --fan_ckpt"):
         face_fit_app.main(fit + ["--task", "x.task"])
 
     # a fitted face's pose (small angles, the BFM in front of the camera)
@@ -368,9 +369,11 @@ def test_face_fit_then_sadtalker_clis_on_cpu(tmp_path, bfm_files):
                                   str(d / "drive.npz"), "--save_dir", str(d / "vid")])
     lm = np.load(d / "vid" / "landmarks.npy")
     assert lm.shape == (10, 68, 2) and np.isfinite(lm).all()
-    for extra in (["--engine", "video", "--driving_video", "x.mp4"],
-                  ["--face_npz", "f.npz", "--task", "x.task"]):
-        with pytest.raises(SystemExit, match="item 10"):
+    for extra, msg in ((["--engine", "video", "--driving_video", "x.mp4"], "needs --task"),
+                       (["--engine", "video", "--driving_video", "x.mp4", "--task", "x.task"],
+                        "needs --lm3d_mat"),
+                       (["--engine", "video"], "needs --driving_video or")):
+        with pytest.raises(SystemExit, match=msg):
             audio2ldmk_app.main(common + extra + ["--save_dir", str(d / "x")])
     with pytest.raises(SystemExit, match="needs --bfm_mat"):
         audio2ldmk_app.main(common[:6] + ["--engine", "sadtalker", "--device", "cpu",

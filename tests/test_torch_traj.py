@@ -207,15 +207,22 @@ def test_drag_tracks_to_video_matches_jax(pair, cmp_pair, with_brush):
 def test_port_imports_neither_jax_nor_mofa_tpu():
     """Every module of the port (walked, not listed; the walk must reach the
     training slices' train/, models/gmflow/ and models/cmp/ modules, the
-    trainer apps and the face stack), chip_smoke.py and chip_ab.py import in a fresh
-    interpreter without jax, flax, optax or mofa_tpu."""
+    trainer apps, the face stack, the tflite compiler, the landmarker and
+    facerender), chip_smoke.py, chip_ab.py and the tflite writer
+    (tests/torch_ref/tflite_writer.py, which chip_smoke.py imports) import
+    in a fresh interpreter without jax, flax, optax, mofa_tpu, tensorflow,
+    flatbuffers or PIL."""
     code = ("import importlib, pkgutil, sys, mofa_tpu_torch, chip_smoke, chip_ab;"
+            "import tests.torch_ref.tflite_writer;"
             "mods = [m.name for m in pkgutil.walk_packages("
             "mofa_tpu_torch.__path__, 'mofa_tpu_torch.')];"
             "[importlib.import_module(m) for m in mods];"
             "want = {'mofa_tpu_torch.apps.' + a for a in ('hybrid_app', 'keypoint_app',"
             " 'audio2ldmk_app', 'opendomain_app', 'train_app', 'train_cmp_app',"
-            " 'train_flow_app', 'eval_flow_app', 'face_fit_app')} | {"
+            " 'train_flow_app', 'eval_flow_app', 'face_fit_app', 'facerender_app')} | {"
+            "'mofa_tpu_torch.interop.tflite', 'mofa_tpu_torch.models.mp_face',"
+            " 'mofa_tpu_torch.models.gfpgan', 'mofa_tpu_torch.models.facerender',"
+            " 'mofa_tpu_torch.preprocess.video_fit', 'mofa_tpu_torch.preprocess.enhance'} | {"
             "'mofa_tpu_torch.pipelines.keypoint', 'mofa_tpu_torch.preprocess.image',"
             " 'mofa_tpu_torch.models.face_alignment', 'mofa_tpu_torch.models.audio.sadtalker',"
             " 'mofa_tpu_torch.models.audio.face3d_fit', 'mofa_tpu_torch.models.audio.face3d_render',"
@@ -227,7 +234,8 @@ def test_port_imports_neither_jax_nor_mofa_tpu():
             "assert len(mods) > 40 and want <= set(mods), (want - set(mods), mods);"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'mofa_tpu' or m.startswith('mofa_tpu.') or m == 'flax'"
-            " or m.startswith('flax.') or m == 'optax' or m.startswith('optax.')];"
+            " or m.startswith('flax.') or m == 'optax' or m.startswith('optax.')"
+            " or m.split('.')[0] in ('tensorflow', 'flatbuffers', 'PIL')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
