@@ -9,6 +9,8 @@
                                            # (5e, 5f, 5j, 5k)
     python3 chip_smoke.py --phase train    # build, the training path's kernel
                                            # backward checks, 5g, 5h, 5i
+    python3 chip_smoke.py --phase ui       # build, the native library, PIRender,
+                                           # FILM and the UI server (5l)
 
 Phases, each printed as it finishes:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -115,6 +117,22 @@ Phases, each printed as it finishes:
      track with `--enhancer gfpgan` and `--paste_back`; each stage timed,
      one rendered frame held to the CPU, the peak memory; no face found
      fails the phase;
+     5l. the native host library (`mofa_tpu_torch/native.py`, built with
+     g++ here; a failed build fails the run), its four entry points held
+     bit-equal to their numpy versions at the main path's sizes and timed
+     beside them; PIRender at PIRenderConfig() (fp32, seeded weights
+     written as the reference's checkpoint and read back strict), 50
+     frames of 27-frame semantics windows on a 256^2 source, a frame held
+     to the CPU (UI's tol); FILM at FilmConfig() (fp32), `interpolate_frames`
+     over 4 frames of 512^2 with inter_frames 1 and 3, a prediction held to
+     the CPU; the UI server (`apps/ui_server.py`) in a thread on
+     127.0.0.1, --device cuda --bf16, seeded random weights: the page,
+     /preprocess and /preview on a 576x1024 image, /run at MAIN's size,
+     frames and steps (launches held to `expected_launches("tmajor", 25)`,
+     the mp4 of /video decoded), its frames against `traj_app.generate`
+     called directly (bit-equal, or PSNR_BF16_DB), a bad request's 500 and
+     a good request after it, /run_landmarks in hybrid mode (576x1024) and
+     keypoint mode (512^2, a 25-frame track), 5 steps each, launches held;
      5g. stage-1 training through `train_app.run` on seeded 40-frame
      clips at SVD-XT widths (384x384, 25 frames, batch 1, fp32, block
      remat, EMA): 4 steps, a checkpoint at step 2, a validation render at
@@ -1057,6 +1075,20 @@ KP_FFN = ((320, 50 * 4096), (640, 50 * 1024))
 KP_SPLAT = ((64, 64, 320), (32, 32, 320), (16, 16, 640), (8, 8, 1280))
 
 
+def flash_plain_chunks(q, k, v, logit_bytes: float = 8e9):
+    """Flash's plain version over batch chunks whose fp32 logits take at
+    most `logit_bytes` (at B*T = 50, L = 9216 they would take 85 GB); it is
+    row-independent, so the chunks compute the same function."""
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.kernels.flash_attention import flash_attention
+    b, L, h, _ = q.shape
+    step = max(1, int(logit_bytes // (h * L * L * 4)))
+    with kernels.plain_reference():
+        return torch.cat([flash_attention(q[j:j + step], k[j:j + step], v[j:j + step])
+                          for j in range(0, b, step)])
+
+
 def keypoint_kernel_checks(results, g) -> None:
     """The four kernels of the keypoint path against their plain versions
     at that path's shapes, bf16, with the bf16 bounds; the first shape of
@@ -1183,16 +1215,17 @@ def phase_kernels() -> dict:
     del q, k, v
     torch.cuda.empty_cache()
     # flash at the main path's own /8 shape, B*T = 50 (7 of its 21 launches
-    # a step): the kernel and SDPA, no plain version
+    # a step): the kernel, SDPA and the plain version in batch chunks
     q, k, v = (randn(50, 9216, 5, 64, dtype=torch.bfloat16) for _ in range(3))
     r = results["flash_attention"]
     with torch.no_grad():
         r["ms_b50"] = time_ms(lambda: flash_attention(q, k, v))
         r["library_ms_b50"] = time_ms(sdpa(q, k, v))
+        r["plain_ms_b50"] = time_ms(lambda: flash_plain_chunks(q, k, v))
     r["bound_ms_b50"] = bound(4 * 50 * 5 * 9216 ** 2 * 64, 4 * nbytes(q), "bf16")[0]
     log(f"  {'flash_attention':24s} bf16 {'B=50 L=9216 H=5 D=64 (timing only)':38s} "
-        f"ms {r['ms_b50']:.3f}  library_ms {r['library_ms_b50']:.3f}  bound "
-        f"{r['bound_ms_b50']:.3f} ms (operations)")
+        f"ms {r['ms_b50']:.3f}  library_ms {r['library_ms_b50']:.3f}  plain_ms "
+        f"{r['plain_ms_b50']:.3f}  bound {r['bound_ms_b50']:.3f} ms (operations)")
     # and beside SDPA at the main path's other sites (FLASH_SITES, stored as
     # the row's `sites`) and at D = 128 with a long L (short rows against
     # two consumer warpgroups)
@@ -1201,13 +1234,14 @@ def phase_kernels() -> dict:
         q, k, v = (randn(B, L, H, D, dtype=torch.bfloat16) for _ in range(3))
         with torch.no_grad():
             ms, lib_ms = time_ms(lambda: flash_attention(q, k, v)), time_ms(sdpa(q, k, v))
+            plain_ms = time_ms(lambda: flash_plain_chunks(q, k, v))
         b_ms = bound(4 * B * H * L * L * D, 4 * nbytes(q), "bf16")[0]
         if site.startswith("/"):
             r["sites"][site] = dict(shape=[B, L, H, D], ms=ms, library_ms=lib_ms,
-                                    bound_ms=b_ms)
+                                    plain_ms=plain_ms, bound_ms=b_ms)
         label = f"B={B} L={L} H={H} D={D} (timing only)"
         log(f"  {'flash_attention':24s} bf16 {label:38s} ms {ms:.3f}  library_ms "
-            f"{lib_ms:.3f}  bound {b_ms:.3f} ms ({site})")
+            f"{lib_ms:.3f}  plain_ms {plain_ms:.3f}  bound {b_ms:.3f} ms ({site})")
         del q, k, v
         torch.cuda.empty_cache()
     # tmajor: T=25, CFG batch 2 -> B*T=50 rows of [S, H*D]
@@ -1680,7 +1714,8 @@ def phase_backward(kres: dict, g, card: str) -> list:
     (kernel forward, the stock backward of kernels/*.py) against plain
     autograd through the plain version, within TOL_BWD; the first shape of
     each timed (the kernel's forward alone,
-    `train_fwd_ms_*`, with its bound, `train_fwd_bound_ms_*`, and SDPA's
+    `train_fwd_ms_*`, with its bound, `train_fwd_bound_ms_*`, its plain
+    version's, `train_fwd_plain_ms_*`, and SDPA's
     forward beside flash's and tmajor's, `train_fwd_library_ms_*`; the
     backward function alone; CUDA events, median of 5; SDPA's backward
     beside flash's and tmajor's), with its bound (`bwd_*` keys of the
@@ -1717,6 +1752,8 @@ def phase_backward(kres: dict, g, card: str) -> list:
                 r["train_fwd_ms_" + dn] = time_ms(lambda: fn(*inputs))
                 r["train_fwd_library_ms_" + dn] = (None if fwd_library is None
                                                    else time_ms(fwd_library))
+                with kernels.plain_reference():
+                    r["train_fwd_plain_ms_" + dn] = time_ms(lambda: fn(*inputs))
             f_ms, f_by = bound(*fwd_work)
             r["train_fwd_bound_ms_" + dn], r["train_fwd_bound_by_" + dn] = f_ms, f_by
             line += f"  fwd {r['train_fwd_ms_' + dn]:.3f} ms (bound {f_ms:.3f}, {f_by}"
@@ -1725,7 +1762,8 @@ def phase_backward(kres: dict, g, card: str) -> list:
                                                             "fp32")[0]
                 line += f"; CUDA cores {r['train_fwd_bound_cores_ms_' + dn]:.3f}"
             line += ("" if fwd_library is None else
-                     f"; SDPA fwd {r['train_fwd_library_ms_' + dn]:.3f}") + ")"
+                     f"; SDPA fwd {r['train_fwd_library_ms_' + dn]:.3f}")
+            line += f"; plain fwd {r['train_fwd_plain_ms_' + dn]:.3f})"
             r["bwd_ms_" + dn] = time_ms(bwd_fn)
             line += f"  bwd {r['bwd_ms_' + dn]:.3f} ms"
             b_ms, b_by = bound(*work)
@@ -3251,6 +3289,418 @@ def run_face_front(dev, card: str, track) -> dict:
     return res
 
 
+# ------------------------------------ phase 5l: native, PIRender, FILM, UI
+
+# The native host library at the main path's sizes; PIRender at
+# PIRenderConfig() on a 256^2 source, 50 frames; FILM at FilmConfig() on
+# 4 frames of 512^2; the UI server on the card (its /run the 25-frame,
+# 25-step main path at 576x1024, bf16; /run_landmarks at 5 steps). Card
+# against CPU: `tol` of max(1, max |CPU|), cuDNN TF32 allowed as in 5k.
+UI = dict(seed=51, pirender_frames=50, pirender_size=256, film_size=512, film_frames=4,
+          landmark_steps=5, keypoint_size=512, tol=2e-2, timeout=900)
+
+
+def host_ms(fn, *args, iters: int = 5):
+    """(fn's result, median host ms of `iters` calls)."""
+    times, out = [], None
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(times)[len(times) // 2]
+
+
+def run_native(card: str) -> dict:
+    """The native library built with g++ on this machine (a failed build
+    fails the run), its four entry points held bit-equal to their numpy
+    versions at the main path's sizes: 6 PCHIP tracks over 24 steps
+    rasterised at 576x1024, the NMS of a 384^2 score map (15 x 15), the
+    neighbour elimination of 256 of its peaks, the PCHIP slopes of each
+    track."""
+    import numpy as np
+    from mofa_tpu_torch import native
+    from mofa_tpu_torch.ops.rasterize import rasterize_trajectories
+    from mofa_tpu_torch.ops.trajectory import _pchip_derivatives, interpolate_trajectory
+    from mofa_tpu_torch.train.flow_sampler import square_nms as square_nms_numpy
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"native: the host library did not build: {native.build_error()}")
+    log(f"  native: {os.path.relpath(native.library_path(), REPO)} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    h, w, t = MAIN["h"], MAIN["w"], MAIN["t"]
+    rng = np.random.RandomState(UI["seed"])
+    clicks = seeded_tracks(h, w, UI["seed"])
+    tracks = np.stack([np.asarray(interpolate_trajectory(tr, t)) for tr in clicks])
+    score = rng.rand(384, 384).astype(np.float32)
+    knots = [(np.linspace(0, 1, len(tr)), np.asarray(tr, np.float64)[:, 0]) for tr in clicks]
+    peaks = [p[:256].astype(np.int64) for p in np.where(native.square_nms(score, 15) > 0)]
+    coins = rng.rand(len(peaks[0]) ** 2).astype(np.float32)
+
+    def elim_numpy(rows, cols, d, c):
+        keep = native.neighbor_elim_numpy(rows, cols, d, c)
+        return rows[keep], cols[keep]
+
+    # name: (the native entry point, its numpy version, their arguments)
+    calls = {
+        "rasterize_tracks": (native.rasterize_tracks, rasterize_trajectories,
+                             (tracks, t - 1, h, w)),
+        "square_nms": (native.square_nms, square_nms_numpy, (score, 15)),
+        "pchip_derivatives": (
+            lambda: [native.pchip_derivatives(x, y) for x, y in knots],
+            lambda: [_pchip_derivatives(x, y) for x, y in knots], ()),
+        "neighbor_elim": (native.neighbor_elim, elim_numpy,
+                          (peaks[0], peaks[1], 7.0, coins))}
+    res = {}
+    for name, (fn, numpy_fn, args) in calls.items():
+        got, ms = host_ms(fn, *args)
+        want, np_ms = host_ms(numpy_fn, *args)
+        got = got if isinstance(got, (tuple, list)) else [got]
+        want = want if isinstance(want, (tuple, list)) else [want]
+        if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"native: {name} differs from its numpy version")
+        res[name] = dict(ms=ms, numpy_ms=np_ms)
+        log(f"  native {name}: {ms:.3f} ms, numpy {np_ms:.3f} ms (median of 5, host), "
+            f"bit-equal; card {card}")
+    if float(native.rasterize_tracks(tracks, t - 1, h, w)[1].sum()) != 6 * (t - 1):
+        fail("native: the rasteriser painted the wrong number of points")
+    return res
+
+
+def semantics_windows(frames: int, seed: int, radius: int = 13):
+    """A seeded smooth [frames, 73] coefficient track in edge-clamped
+    windows of 2 * radius + 1 frames -> [1, frames, 73, 2r + 1] (the
+    reference's pirender semantics)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    track = np.cumsum(rng.randn(frames, 73) * 0.05, axis=0) + rng.randn(73) * 0.3
+    idx = np.clip(np.arange(frames)[:, None] + np.arange(-radius, radius + 1)[None],
+                  0, frames - 1)
+    return track[idx].transpose(0, 2, 1)[None].astype(np.float32)
+
+
+def run_pirender(dev, card: str, root: str) -> dict:
+    """PIRender at PIRenderConfig(), fp32: seeded weights written as the
+    reference's checkpoint ({"net_G_ema": ...}, `module.` prefixed) and read
+    back strict and bit-equal; 50 frames of 27-frame windows through
+    `pirender_animation` on a 256^2 source; one frame held to the CPU."""
+    import torch
+    from mofa_tpu_torch.models import pirender as pr
+    from mofa_tpu_torch.models.weights import load_torch_checkpoint, pirender_state_dict
+    from mofa_tpu_torch.pipelines.common import init_random_
+
+    u, s = UI, UI["pirender_size"]
+    sd = init_random_(pr.FaceGenerator(), torch.Generator().manual_seed(u["seed"])).state_dict()
+    path = os.path.join(root, "pirender_checkpoint.pt")
+    torch.save({"net_G_ema": {"module." + k: v for k, v in sd.items()}}, path)
+    read = pirender_state_dict(load_torch_checkpoint(path))
+    with torch.device(dev):
+        net = pr.FaceGenerator()
+    net.load_state_dict(read, strict=True)
+    net.eval()
+    bad = [k for k, v in net.state_dict().items() if not torch.equal(v.cpu(), sd[k])]
+    if bad:
+        fail(f"pirender: tensors changed on the way to the card: {bad[:5]}")
+    img, _ = smooth_inputs(1, 2, s, s, dev, seed=u["seed"])
+    source = img.permute(0, 3, 1, 2).contiguous()
+    sem = torch.from_numpy(semantics_windows(u["pirender_frames"], u["seed"])).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    timed(pr.pirender_animation, source, sem[:, :1], net)          # warm-up
+    frames, secs = timed(pr.pirender_animation, source, sem, net)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = sem.shape[1]
+    if tuple(frames.shape) != (1, n, 3, s, s) or not bool(torch.isfinite(frames).all()):
+        fail(f"pirender: frames {tuple(frames.shape)} or non-finite")
+    cpu = pr.FaceGenerator().eval()
+    cpu.load_state_dict(read, strict=True)
+    k = n // 2
+    with torch.no_grad():
+        want, cpu_s = timed(lambda: cpu(source.cpu(), sem[:, k].cpu())["fake_image"])
+    err = float((frames[:, k].cpu() - want).abs().max())
+    bound = u["tol"] * max(1.0, float(want.abs().max()))
+    if err > bound:
+        fail(f"pirender: frame {k} on the card is {err:.3e} from the CPU's (bound {bound})")
+    # LayerNorm2d at its largest site (down0, before the pool) beside the
+    # stock F.layer_norm over the same (C, H, W)
+    norm = net.editing_net.encoder.down0.model[1]
+    x = torch.randn(1, norm.weight.shape[0], s, s, device=dev)
+    shape = x.shape[1:]
+    with torch.no_grad():
+        ln_ms = time_ms(lambda: norm(x))
+        stock_ms = time_ms(lambda: torch.nn.functional.layer_norm(
+            x, shape, norm.weight.expand(shape), norm.bias.expand(shape)))
+    log(f"  pirender LayerNorm2d on {tuple(x.shape)}: {ln_ms:.3f} ms (var_mean), "
+        f"F.layer_norm {stock_ms:.3f} ms (CUDA events, median of 5); card {card}")
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"  pirender ({n_params} parameters, {len(sd)} tensors read back strict): {n} frames "
+        f"at {s}^2 in {secs:.3f} s = {secs / n * 1e3:.2f} ms a frame; frame {k} card vs CPU "
+        f"max|diff| {err:.3e} (bound {bound:.3e}; the CPU {cpu_s:.2f} s); peak {peak:.2f} GiB; "
+        f"card {card}")
+    return dict(frame_ms=secs / n * 1e3, err=err, peak_gib=peak, layer_norm_ms=ln_ms,
+                stock_layer_norm_ms=stock_ms)
+
+
+def run_film(dev, card: str) -> dict:
+    """FILM at FilmConfig(), fp32, seeded weights: `interpolate_frames`
+    over 4 frames of 512^2 (a smooth image moving 8 px a frame) with
+    inter_frames 1 and 3, each prediction on the card; one prediction held
+    to the CPU."""
+    import numpy as np
+    import torch
+    from mofa_tpu_torch.models import film
+    from mofa_tpu_torch.pipelines.common import init_random_
+
+    u, s = UI, UI["film_size"]
+    cpu = init_random_(film.FilmNet(), torch.Generator().manual_seed(u["seed"])).eval()
+    with torch.device(dev):
+        net = film.FilmNet()
+    net.load_state_dict(cpu.state_dict(), strict=True)
+    net.eval()
+    img, _ = smooth_inputs(1, 2, s, s, dev, seed=u["seed"] + 1)
+    frames = np.stack([torch.roll(img[0], 8 * i, dims=1).cpu().numpy()
+                       for i in range(u["film_frames"])])
+    times = []
+
+    @torch.no_grad()
+    def predict(x0, x1, dt):
+        t0 = time.perf_counter()
+        a = torch.from_numpy(np.ascontiguousarray(x0)).to(dev).permute(2, 0, 1)[None]
+        b = torch.from_numpy(np.ascontiguousarray(x1)).to(dev).permute(2, 0, 1)[None]
+        out = net(a, b, dt)[0].permute(1, 2, 0).cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    predict(frames[0], frames[1], 0.5)                              # warm-up
+    res = {}
+    for inter in (1, 3):
+        times.clear()
+        out, secs = timed(film.interpolate_frames, frames, inter, predict)
+        want = (len(frames) + (len(frames) - 1) * inter, s, s, 3)
+        if out.shape != want or not np.isfinite(out).all():
+            fail(f"film: inter_frames {inter} gave {out.shape}, want {want}, or non-finite")
+        res[inter] = sorted(times)[len(times) // 2] * 1e3
+        log(f"  film inter_frames {inter}: {len(times)} predictions at {s}^2 in {secs:.3f} s, "
+            f"median {res[inter]:.2f} ms a prediction (host clock, synchronised by the copy "
+            f"back); card {card}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = predict(frames[0], frames[1], 0.5)
+    with torch.no_grad():
+        want, cpu_s = timed(lambda: cpu(torch.from_numpy(frames[:1]).permute(0, 3, 1, 2),
+                                        torch.from_numpy(frames[1:2]).permute(0, 3, 1, 2),
+                                        0.5)[0].permute(1, 2, 0).numpy())
+    err = float(np.abs(got - want).max())
+    bound = u["tol"] * max(1.0, float(np.abs(want).max()))
+    if err > bound:
+        fail(f"film: a prediction on the card is {err:.3e} from the CPU's (bound {bound})")
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"  film ({n_params} parameters): a prediction card vs CPU max|diff| {err:.3e} (bound "
+        f"{bound:.3e}; the CPU {cpu_s:.2f} s); peak {peak:.2f} GiB; card {card}")
+    return dict(prediction_ms=res[3], err=err, peak_gib=peak)
+
+
+def _http(url: str, body=None, timeout: int = UI["timeout"]):
+    """GET (body None) or POST JSON -> the response's bytes."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.read()
+
+
+def _png_data_url(path: str) -> str:
+    import base64
+    with open(path, "rb") as f:
+        return "data:image/png;base64," + base64.b64encode(f.read()).decode()
+
+
+def _npy_b64(arr) -> str:
+    import base64
+    import io
+
+    import numpy as np
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+@contextlib.contextmanager
+def ui_server_thread(argv: list):
+    """The port's UI server on 127.0.0.1 (a free port) in a thread; yields
+    (base URL, backend); shut down, closed and joined after."""
+    import threading
+    from mofa_tpu_torch.apps import ui_server
+    server = ui_server.make_server(ui_server.build_parser().parse_args(
+        argv + ["--host", "127.0.0.1", "--port", "0"]))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}", server.backend
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            fail("ui: the server thread did not stop")
+
+
+def run_ui(dev, card: str, root: str) -> dict:
+    """The UI server on the card, --device cuda --bf16, seeded random
+    weights: the page, /preprocess and /preview on a 576x1024 image, /run
+    (25 frames, 25 steps) with the launches held to the traj video's sites
+    and its mp4 decoded; the frames held against `traj_app.generate` called
+    directly (same image, tracks, seed; bit-equal, or PSNR_BF16_DB: the
+    splat's atomics sum in a run-dependent order); a bad request's 500 and
+    a good request after it; /run_landmarks in hybrid mode (576x1024) and
+    keypoint mode (512^2, a 25-frame track), 5 steps each, launches held."""
+    import urllib.error
+
+    import numpy as np
+    import torch
+    from mofa_tpu_torch import kernels
+    from mofa_tpu_torch.apps import traj_app, ui_server
+    from mofa_tpu_torch.apps.loaders import load_bundle, load_cmp
+    from mofa_tpu_torch.pipelines.keypoint import window_views
+    from mofa_tpu_torch.utils.profiling import PhaseTimer
+
+    u, h, w, t, steps = UI, MAIN["h"], MAIN["w"], MAIN["t"], MAIN["steps"]
+    j = lambda name: os.path.join(root, name)
+    smooth_png(j("image.png"), h, w, u["seed"])
+    tracks = seeded_tracks(h, w, u["seed"])
+    base_argv = ["--device", "cuda", "--bf16", "--num_frames", str(t),
+                 "--decode_chunk_size", str(MAIN["decode_chunk_size"])]
+    seen = []
+
+    def spy(*a, **kw):
+        out = traj_app.generate(*a, **kw)
+        seen.append(out[0])
+        return out
+
+    res: dict = {}
+    ui_server.generate = spy
+    try:
+        with ui_server_thread(base_argv + ["--num_inference_steps", str(steps),
+                                           "--target_size", str(h)]) as (base, backend):
+            page = _http(base + "/").decode()
+            if "canvas" not in page:
+                fail("ui: GET / did not serve the page")
+            pre, pre_s = timed(lambda: json.loads(_http(
+                base + "/preprocess", {"image": _png_data_url(j("image.png")),
+                                       "target_size": h})))
+            if (pre["height"], pre["width"]) != (h, w):
+                fail(f"ui: /preprocess gave {pre['height']}x{pre['width']}")
+            prev, prev_s = timed(lambda: json.loads(_http(
+                base + "/preview", {"image": pre["image"], "tracks": tracks})))
+            for key in ("flow", "hint"):
+                if ui_server.data_url_to_array(prev[key]).shape != (h, w, 3):
+                    fail(f"ui: /preview {key} has the wrong shape")
+            kernels.reset_launch_counts()
+            _, run_s = timed(_http, base + "/run", {"image": pre["image"], "tracks": tracks})
+            launches = kernels.launch_counts()
+            with open(j("run.mp4"), "wb") as f:
+                f.write(_http(base + "/video"))
+            if launches != expected_launches("tmajor", steps):
+                fail(f"ui: /run launches {launches}, expected "
+                     f"{expected_launches('tmajor', steps)}")
+            if video_frames(j("run.mp4")) != t or len(seen) != 1:
+                fail(f"ui: /video holds {video_frames(j('run.mp4'))} frames, want {t}")
+            try:
+                _http(base + "/run", {"image": pre["image"], "tracks": []})
+                fail("ui: a /run without tracks did not fail")
+            except urllib.error.HTTPError as e:
+                msg = e.read().decode()
+                if e.code != 500 or "trajectory" not in msg:
+                    fail(f"ui: a bad request gave {e.code} {msg!r}")
+            again = json.loads(_http(base + "/preprocess",
+                                     {"image": _png_data_url(j("image.png")),
+                                      "target_size": h}))
+            if again["image"] != pre["image"]:
+                fail("ui: the request after the 500 differs")
+            image01 = ui_server.data_url_to_array(pre["image"]).astype(np.float32) / 255.0
+            backend._bundle = backend._cmp = None
+            torch.cuda.empty_cache()
+    finally:
+        ui_server.generate = traj_app.generate
+    ui_frames = seen[0]
+    direct, direct_s = timed(lambda: traj_app.generate(
+        image01, [[tuple(p) for p in tr] for tr in tracks],
+        lambda: load_cmp(None, dev), lambda: load_bundle(None, None, dev, torch.bfloat16),
+        timer=PhaseTimer(dev), num_frames=t, num_inference_steps=steps, seed=42)[0])
+    same = bool(torch.equal(ui_frames, direct))
+    db = psnr(ui_frames, direct)
+    if not same and db < PSNR_BF16_DB:
+        fail(f"ui: /run's frames are {db:.2f} dB from traj_app.generate's "
+             f"(bar {PSNR_BF16_DB} dB)")
+    log(f"  ui /preprocess {pre_s:.3f} s, /preview {prev_s:.3f} s, /run ({t} frames, {steps} "
+        f"steps, {h}x{w}, bf16) {run_s:.3f} s (traj_app.generate directly {direct_s:.3f} s); "
+        f"/run's frames vs the direct call: bit-equal {same}, PSNR {db:.2f} dB (bar "
+        f"{PSNR_BF16_DB}); launches {launches}; the 500 and the request after it; card {card}")
+    res.update(launches=launches, run_s=run_s, direct_s=direct_s, bit_equal=same, psnr=db)
+    del direct, ui_frames
+    seen.clear()
+    torch.cuda.empty_cache()
+
+    # /run_landmarks: hybrid at 576x1024, keypoint at 512^2, 5 steps each
+    lm_steps, ks = u["landmark_steps"], u["keypoint_size"]
+    smooth_png(j("face.png"), ks, ks, u["seed"] + 2)
+    lm = seeded_landmarks(h, w, t, u["seed"])
+    mask = elliptical_mask(h, w, lm[0].mean(0), (0.16 * w, 0.26 * h))
+    mask_url = ui_server.array_to_data_url(np.repeat(mask[..., None] * 255, 3, -1))
+    kp_views = window_views(t, 25, 12)
+    jobs = {"hybrid": dict(body={"image": pre["image"], "landmarks": _npy_b64(lm),
+                                 "mode": "hybrid", "tracks": tracks, "brush": mask_url,
+                                 "target_size": h},
+                           want=expected_launches("tmajor", lm_steps, adapters=2)),
+            "keypoint": dict(body={"image": _png_data_url(j("face.png")),
+                                   "landmarks": _npy_b64(seeded_landmarks(ks, ks, t,
+                                                                          u["seed"] + 3)),
+                                   "mode": "keypoint", "target_size": ks},
+                             # the reference's view list repeats the last window:
+                             # 2 views, 1 distinct warp at 25 frames
+                             want=expected_launches("tmajor", lm_steps, size=(ks, ks),
+                                                    views=len(kp_views),
+                                                    warps=len(set(kp_views))))}
+    with ui_server_thread(base_argv + ["--num_inference_steps", str(lm_steps)]) as (base, _):
+        for mode, job in jobs.items():
+            kernels.reset_launch_counts()
+            _, secs = timed(_http, base + "/run_landmarks", job["body"])
+            launches = kernels.launch_counts()
+            with open(j(f"{mode}.mp4"), "wb") as f:
+                f.write(_http(base + "/video"))
+            n = video_frames(j(f"{mode}.mp4"))
+            if launches != job["want"] or n != t:
+                fail(f"ui: /run_landmarks {mode}: launches {launches} (want {job['want']}), "
+                     f"{n} frames (want {t})")
+            log(f"  ui /run_landmarks {mode} ({lm_steps} steps, {t} frames): {secs:.3f} s "
+                f"through {mode}_app.run --device cuda; launches {launches}; card {card}")
+            res[f"{mode}_s"] = secs
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_slice_ui(dev, card: str) -> dict:
+    """Phase 5l: the native host library, PIRender, FILM and the UI server."""
+    import tempfile
+
+    import torch
+    from mofa_tpu_torch import kernels
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    res = {"native": run_native(card)}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        kernels.reset_launch_counts()
+        res["pirender"] = run_pirender(dev, card, root)
+        res["film"] = run_film(dev, card)
+        if any(kernels.launch_counts().values()):
+            fail(f"pirender / film launched custom kernels: {kernels.launch_counts()}")
+        torch.cuda.empty_cache()
+        res["ui"] = run_ui(dev, card, root)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return res
+
+
 # ------------------------------------------------ phase 5g: training
 
 # Stage-1 training through train_app at SVD-XT widths: the train_stage1.sh
@@ -4054,7 +4504,7 @@ def disk_writes() -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "profile", "keypoint",
-                                        "train"), default="all")
+                                        "train", "ui"), default="all")
     args = ap.parse_args()
 
     try:
@@ -4106,6 +4556,12 @@ def main() -> None:
         phase_stage2(dev, kept)
         log("[flow_trainers] train_cmp_app, train_flow_app, eval_flow_app at full widths")
         phase_flow_trainers(dev)
+        return
+
+    if args.phase == "ui":
+        # the native library, PIRender, FILM and the UI server alone (5l)
+        log("[ui] the native host library, PIRender, FILM and the UI server on the card")
+        run_slice_ui(torch.device("cuda"), card)
         return
 
     if args.phase == "keypoint":
@@ -4223,6 +4679,10 @@ def main() -> None:
             "--task, audio2ldmk_app --task / --driving_video, facerender_app with GFPGAN "
             "and paste-back, fp32, full widths")
         run_face_front(dev, card, face_run["track"])
+        # 5l. the native library, PIRender, FILM and the UI server
+        log("[ui] the native host library, PIRender, FILM and the UI server (/run at "
+            f"{MAIN['h']}x{MAIN['w']}, {MAIN['t']} frames, {MAIN['steps']} steps, bf16)")
+        ui_run = run_slice_ui(dev, card)["ui"]
         # 5g. stage-1 training through train_app
         log("[train] stage-1 training through train_app: 384x384, 25 frames, "
             "batch 1, fp32, block remat, EMA, SVD-XT widths")
@@ -4256,6 +4716,7 @@ def main() -> None:
             kres[name]["hybrid_launches"] = hybrid_run["launches"][name]
             kres[name]["keypoint_launches"] = kp_run["launches"][name]
             kres[name]["opendomain_sadtalker_launches"] = face_run["opendomain_launches"][name]
+            kres[name]["ui_launches"] = ui_run["launches"][name]
         # flash's launches at each main-path site, from the same run
         by_site = kres["flash_attention"]["main_path_launches_by_site"] = {}
         for site, *shape in FLASH_MAIN_SHAPES:
@@ -4267,12 +4728,13 @@ def main() -> None:
     log(f"[disk] {disk_writes()}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("chain_ms", "ms_b50", "library_ms_b50", "bound_ms_b50", "ms_c640",
+    extra = ("chain_ms", "ms_b50", "library_ms_b50", "plain_ms_b50", "bound_ms_b50",
+             "ms_c640",
              "plain_ms_c640", "chain_ms_c640", "bound_ms_c640", "bound_by_c640",
              "sites", "main_path_launches_by_site", "stage_ms_c320", "stage_ms_c640",
              "avg_call_ms", "stage_ms",
              "main_path_launches", "hybrid_launches", "keypoint_launches",
-             "opendomain_sadtalker_launches",
+             "opendomain_sadtalker_launches", "ui_launches",
              "ms_keypoint", "plain_ms_keypoint", "library_ms_keypoint",
              "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint",
              "ms_keypoint16", "plain_ms_keypoint16", "library_ms_keypoint16",
@@ -4286,7 +4748,8 @@ def main() -> None:
                  f"{k}_{d}" for k in ("bwd_ms", "bwd_bound_ms", "bwd_bound_by",
                                       "bwd_library_ms", "bwd_max_rel_err",
                                       "train_fwd_ms", "train_fwd_bound_ms",
-                                      "train_fwd_bound_by", "train_fwd_library_ms")
+                                      "train_fwd_bound_by", "train_fwd_library_ms",
+                                      "train_fwd_plain_ms")
                  for d in ("fp32", "bf16"))
     table = {"kernels": [
         dict(name=n, route="cuda", **KERNEL_META[n], launches=launches[n],

@@ -23,6 +23,10 @@ import os
 import numpy as np
 import torch
 
+from mofa_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("eval_flow")
+
 
 def build_parser():
     p = argparse.ArgumentParser(description="GMFlow evaluation (EPE), PyTorch")
@@ -54,7 +58,7 @@ def run(args) -> dict:
     if args.gmflow_ckpt:
         load_gmflow(model, load_torch_checkpoint(args.gmflow_ckpt))
     else:
-        print("[eval_flow] no --gmflow_ckpt: evaluating random weights")
+        logger.warning("no --gmflow_ckpt: evaluating random weights")
         init_random_(model, torch.Generator(device=dev).manual_seed(0))
     model.eval()
     ih, iw = args.inference_height, args.inference_width
@@ -73,7 +77,7 @@ def run(args) -> dict:
         m = flow_epe(flow[0].cpu().numpy(), gt, valid)
         for k in totals:
             totals[k].append(m[k])
-        print(f"[eval_flow] {os.path.basename(sample.img1_path)}: epe {m['epe']:.3f}")
+        logger.info(f"{os.path.basename(sample.img1_path)}: epe {m['epe']:.3f}")
     means = {k: float(np.mean(v)) for k, v in totals.items()}
     print({"num_pairs": len(samples), **means})
     return means

@@ -29,7 +29,9 @@ card PyTorch's defaults hold: float32 matmuls in full fp32
 (`allow_tf32` False), cuDNN convolutions in TF32. The mesh options exit
 naming the ROADMAP item that holds them. With `--tiny` stage 2 runs the
 tiny CMP (the JAX app keeps the full one). `run(args)` returns the
-`Trainer` after training, with one record per step.
+`Trainer` after training, with one record per step; each step's loss,
+grad norm, sigma mean and wall time are also appended to
+`<output_dir>/metrics.jsonl` (`utils/logging.py::MetricsWriter`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ from mofa_tpu_torch import kernels
 from mofa_tpu_torch.apps.loaders import load_bundle, write_video
 from mofa_tpu_torch.apps.traj_app import resolve_device
 from mofa_tpu_torch.models.weights import init_adapter_from_unet, load_torch_checkpoint
+from mofa_tpu_torch.utils.logging import MetricsWriter, get_logger
+
+logger = get_logger("train")
 
 # options the JAX CLI has and this one does not take yet: flag -> ROADMAP item
 NOT_PORTED = {
@@ -146,7 +151,7 @@ def setup_gmflow(args, dev):
     if args.gmflow_ckpt:
         load_gmflow(gmflow, load_torch_checkpoint(args.gmflow_ckpt))
     else:
-        print("[train] no --gmflow_ckpt: the teacher runs with random weights")
+        logger.warning("no --gmflow_ckpt: the teacher runs with random weights")
         init_random_(gmflow, torch.Generator(device=dev).manual_seed(0))
     dtype = torch.bfloat16 if args.teacher_bf16 else torch.float32
     return gmflow.to(dtype).eval().requires_grad_(False), size
@@ -256,7 +261,7 @@ class Trainer:
                 if "rng" in extra:           # stage-1 checkpoints before the mask draws
                     set_rng_state(self.rng, extra["rng"])
                 self.start_step = self.state.step
-                print(f"[train] resumed from step {self.start_step}")
+                logger.info(f"resumed from step {self.start_step}")
         ds = WebVidDataset(args.csv_path, args.video_folder,
                            sample_size=args.sample_size,
                            sample_stride=args.sample_stride,
@@ -289,12 +294,16 @@ class Trainer:
         return batch
 
     def train(self) -> list:
+        """Run the steps; each step's scalars are also appended to
+        <output_dir>/metrics.jsonl (the reference's scalar reporting,
+        train_stage1.py:1174)."""
         try:
-            if self.pipeline is not None:
-                self._train_overlapped()
-            else:
-                for step_no in range(self.start_step, self.args.num_train_steps):
-                    self.records.append(self._one_step(step_no))
+            with MetricsWriter(self.args.output_dir) as self.metrics:
+                if self.pipeline is not None:
+                    self._train_overlapped()
+                else:
+                    for step_no in range(self.start_step, self.args.num_train_steps):
+                        self.records.append(self._one_step(step_no))
         finally:
             self.loader.close()
         return self.records
@@ -380,10 +389,12 @@ class Trainer:
                          ("batch_s", "teacher_s", "mask_s", "cmp_s", "fwd_bwd_s",
                           "optimizer_s", "wall_s") if rec.get(k) is not None)
         peak = rec["peak_gib"]
-        print(f"[train] step {rec['step']} loss {rec['loss']:.6f} grad_norm "
-              f"{rec['grad_norm']:.6f} {parts} peak "
-              f"{peak if peak is None else round(peak, 2)} GiB launches "
-              f"{rec['launches']}", flush=True)
+        self.metrics.write(rec["step"], loss=rec["loss"], grad_norm=rec["grad_norm"],
+                           sigma_mean=rec["sigma_mean"], wall_s=wall)
+        logger.info(f"step {rec['step']} loss {rec['loss']:.6f} grad_norm "
+                    f"{rec['grad_norm']:.6f} {parts} peak "
+                    f"{peak if peak is None else round(peak, 2)} GiB launches "
+                    f"{rec['launches']}")
         self.ckpt.save(step_no + 1, self.state,
                        extra={"generator": self.generator.get_state(),
                               "rng": rng_state(self.rng)})
@@ -404,14 +415,14 @@ class Trainer:
                 generator=torch.Generator(device=self.dev).manual_seed(42))
         path = os.path.join(self.args.output_dir, f"val_{step_no}.mp4")
         write_video(frames[0], path, fps=7)
-        print(f"[train] validation render -> {path}")
+        logger.info(f"validation render -> {path}")
         return path
 
     def export(self) -> str:
         from mofa_tpu_torch.train.checkpoint import export_adapter
         path = export_adapter(self.state, os.path.join(self.args.output_dir,
                                                        "adapter_final"))
-        print(f"[train] adapter -> {path}")
+        logger.info(f"adapter -> {path}")
         return path
 
 
@@ -436,8 +447,8 @@ def precompute_flows(args) -> int:
             continue
         teacher(torch.from_numpy(b["pixel_values01"]).to(dev), keys)
         done += len(keys)
-    print(f"[train] precompute: {done} clips written, {len(teacher.cache)} in "
-          f"{args.flow_cache}")
+    logger.info(f"precompute: {done} clips written, {len(teacher.cache)} in "
+                f"{args.flow_cache}")
     return done
 
 

@@ -32,6 +32,10 @@ import time
 import numpy as np
 import torch
 
+from mofa_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("train_cmp")
+
 DATA_MEAN = (123.675, 116.28, 103.53)  # config.yaml:27 (RGB, 0-255)
 DATA_DIV = (58.395, 57.12, 57.375)     # config.yaml:28
 
@@ -142,11 +146,11 @@ def run(args) -> Result:
             pairs.append((img1, flow))
     if not pairs:
         raise SystemExit(f"train_cmp_app: no (image, flow) samples in {args.data_dir}")
-    print(f"[train_cmp] {len(pairs)} training samples from {args.data_dir}")
+    logger.info(f"{len(pairs)} training samples from {args.data_dir}")
 
     if args.resume:
         model = load_cmp(args.resume, dev, cfg=cfg)
-        print(f"[train_cmp] resumed from {args.resume}")
+        logger.info(f"resumed from {args.resume}")
     else:
         with torch.device(dev):
             model = CMP(cfg)
@@ -176,13 +180,13 @@ def run(args) -> Result:
                             if dev.type == "cuda" else None)}
         result.records.append(rec)
         if step % args.log_every == 0 or step == args.num_steps:
-            print(f"[train_cmp] step {step}: loss {loss:.4f} batch {rec['batch_s']:.3f} s "
-                  f"step {rec['step_s']:.3f} s ({t2 - t_start:.1f} s)", flush=True)
+            logger.info(f"step {step}: loss {loss:.4f} batch {rec['batch_s']:.3f} s "
+                        f"step {rec['step_s']:.3f} s ({t2 - t_start:.1f} s)")
         if step % args.save_every == 0 or step == args.num_steps:
             path = os.path.join(args.output_dir, f"cmp_{step:07d}.pth.tar")
             save_checkpoint(model, step, path)
             result.checkpoints.append(path)
-            print(f"[train_cmp] saved {path}")
+            logger.info(f"saved {path}")
     return result
 
 

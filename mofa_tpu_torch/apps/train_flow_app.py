@@ -29,6 +29,10 @@ import time
 import numpy as np
 import torch
 
+from mofa_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("train_flow")
+
 
 def build_parser():
     p = argparse.ArgumentParser(description="GMFlow training (PyTorch)")
@@ -111,13 +115,13 @@ def run(args) -> Result:
         model = GMFlow(TINY_GMFLOW_CONFIG if args.tiny else GMFlowConfig())
     if args.resume:
         load_gmflow(model, load_torch_checkpoint(args.resume))
-        print(f"[train_flow] resumed from {args.resume}")
+        logger.info(f"resumed from {args.resume}")
     else:
         init_random_(model, torch.Generator(device=dev).manual_seed(args.seed))
     model.train().requires_grad_(True)
     ih, iw = args.image_height, args.image_width
     pairs = load_pairs(args.data_dir, args.layout)
-    print(f"[train_flow] {len(pairs)} training pairs from {args.data_dir}")
+    logger.info(f"{len(pairs)} training pairs from {args.data_dir}")
     opt = make_flow_optimizer(model.parameters(), args.lr, args.weight_decay,
                               total_steps=args.num_steps)
     step_fn = make_flow_train_step(model, opt, gamma=args.gamma)
@@ -139,9 +143,9 @@ def run(args) -> Result:
                             if dev.type == "cuda" else None)}
         result.records.append(rec)
         if step % args.log_every == 0 or step == args.num_steps:
-            print(f"[train_flow] step {step}: loss {m['loss']:.4f} epe {m['epe']:.3f} "
-                  f"batch {rec['batch_s']:.3f} s step {rec['step_s']:.3f} s "
-                  f"({t2 - t_start:.1f} s)", flush=True)
+            logger.info(f"step {step}: loss {m['loss']:.4f} epe {m['epe']:.3f} "
+                        f"batch {rec['batch_s']:.3f} s step {rec['step_s']:.3f} s "
+                        f"({t2 - t_start:.1f} s)")
         if step % args.save_every == 0 or step == args.num_steps:
             path = os.path.join(args.output_dir, f"gmflow_{step:07d}.pth")
             tmp = path + ".tmp"
@@ -150,7 +154,7 @@ def run(args) -> Result:
                         "step": step}, tmp)
             os.replace(tmp, path)
             result.checkpoints.append(path)
-            print(f"[train_flow] saved {path}")
+            logger.info(f"saved {path}")
     return result
 
 

@@ -190,6 +190,22 @@ def fan_state_dict(sd: dict) -> dict:
     """facexlib's alignment_WFLW_4HG.pth -> FAN's."""
     return _without_counters(sd)
 
+
+def pirender_state_dict(sd: dict, prefix: str = "") -> dict:
+    """A PIRenderer checkpoint -> FaceGenerator's (models/pirender.py): the
+    generator under "net_G_ema" (SadTalker's facerender_pirender file), or
+    under "net_G", or the state dict itself; `module.` prefixes stripped,
+    then only the keys under `prefix` kept, without it (what mofa_tpu's
+    convert_pirender_state_dict accepts), BatchNorm counters dropped."""
+    for key in ("net_G_ema", "net_G"):
+        if isinstance(sd.get(key), dict):
+            sd = sd[key]
+            break
+    sd = _without_counters(sd)
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return sd
+
 # module / parameter names of this package that contain underscores or
 # digits (single words need no entry: any unknown token stands alone)
 _VOCAB = {

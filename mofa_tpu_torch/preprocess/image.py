@@ -11,7 +11,9 @@ no PIL:
   cv2's own grey conversion. PNG decodes to the same pixels in both
   libraries; JPEG decoders (libjpeg builds, IDCT and upsampling choices)
   may differ by a few LSB, which is outside this module's control.
-  Alpha is dropped, as `convert("RGB")` drops it.
+  Alpha is dropped, as `convert("RGB")` drops it. `decode_image(data,
+  mode)` does the same for an encoded image in memory (the browser UI's
+  data URLs).
 - `pil_resize(img, (w, h), filter)`: `Image.resize` for uint8 RGB or L
   images, bit for bit: NEAREST as Pillow's affine nearest (the source
   index floor of a position summed step by step in double precision),
@@ -39,6 +41,21 @@ def read_image(path: str, mode: str = "RGB") -> np.ndarray:
     bgr = cv2.imread(path, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
     if bgr is None:
         raise FileNotFoundError(f"cannot read an image from {path!r}")
+    return _from_bgr(bgr, mode)
+
+
+def decode_image(data: bytes, mode: str = "RGB") -> np.ndarray:
+    """An encoded image (PNG, JPEG, ... bytes) -> uint8 [H, W, 3] ("RGB")
+    or [H, W] ("L"), decoded as `read_image` decodes a file."""
+    import cv2
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8),
+                       cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+    if bgr is None:
+        raise ValueError(f"cannot decode an image from {len(data)} bytes")
+    return _from_bgr(bgr, mode)
+
+
+def _from_bgr(bgr: np.ndarray, mode: str) -> np.ndarray:
     rgb = np.ascontiguousarray(bgr[..., ::-1])
     if mode == "RGB":
         return rgb

@@ -11,7 +11,9 @@ app, run_gradio.py):
 - `prepare_trajectory_flow`: PCHIP-resample the tracks to the video's
   length and rasterise sparse flow on the CMP canvas (384^2);
 - `DragFlowEngine`: CMP completion on the canvas, nearest resize with
-  per-axis scaling to the video's size, and the in/out-brush merge.
+  per-axis scaling to the video's size, and the in/out-brush merge;
+- `visualize_drag`: the browser UI's drag preview (arrowed polylines
+  drawn with cv2 over the image).
 """
 
 from __future__ import annotations
@@ -130,3 +132,28 @@ class DragFlowEngine:
         f_out = self.get_flow(first_frame01, s_flow_out, mask_out, height, width,
                               brush_mask=1.0 - brush_mask)
         return merge_flows(f_in, f_out)
+
+
+def visualize_drag(background01: np.ndarray, tracks, width: int = 4) -> np.ndarray:
+    """Draw drag trajectories as arrowed polylines on a copy of the image
+    (the reference's visualize_drag_v2, run_gradio.py:180-212).
+    background01 [H, W, 3] in [0, 1]; tracks: list of [N, 2] (x, y).
+    Returns the uint8 [H, W, 3] hint image."""
+    import cv2
+    h, w = background01.shape[:2]
+    canvas = np.zeros((h, w, 4), np.uint8)
+    for tr in tracks:
+        tr = np.asarray(tr)
+        if len(tr) < 2:
+            continue
+        for a, b in zip(tr[:-1], tr[1:]):
+            cv2.line(canvas, (int(a[0]), int(a[1])), (int(b[0]), int(b[1])),
+                     (255, 0, 0, 255), width)
+        end, prev = tr[-1], tr[-2]
+        cv2.arrowedLine(canvas, (int(prev[0]), int(prev[1])),
+                        (int(end[0]), int(end[1])), (255, 0, 0, 255), width,
+                        tipLength=0.5)
+    alpha = canvas[..., 3:4].astype(np.float32) / 255.0
+    rgb = (background01 * 255).astype(np.float32)
+    out = rgb * (1 - alpha) + canvas[..., :3].astype(np.float32) * alpha
+    return out.astype(np.uint8)

@@ -20,6 +20,7 @@ The JAX side runs forward functions and kernel-sized VJPs only (no
 `value_and_grad` of a bundle).
 """
 
+import json
 import os
 
 import jax
@@ -673,6 +674,21 @@ def test_train_app_tiny_writes_checkpoints_and_adapter(trained):
     ema0 = dict(zip(first.state.names, first.state.ema))
     assert any(not torch.equal(p, ema0[n]) for n, p in
                zip(first.state.names, first.state.params))
+
+
+def test_train_app_appends_each_step_to_metrics_jsonl(trained):
+    """Each step's scalars go to <output_dir>/metrics.jsonl through
+    MetricsWriter, appended across the resumed run: steps 1, 2, then 2
+    again, each line equal to its record."""
+    tmp, _, _, first, resumed = trained
+    with open(os.path.join(tmp, "a", "metrics.jsonl")) as fh:
+        lines = [json.loads(line) for line in fh]
+    recs = first.records + resumed.records
+    assert [m["step"] for m in lines] == [1, 2, 2]
+    for m, r in zip(lines, recs):
+        assert set(m) == {"step", "time", "loss", "grad_norm", "sigma_mean", "wall_s"}
+        assert (m["loss"], m["grad_norm"], m["sigma_mean"], m["wall_s"]) == (
+            r["loss"], r["grad_norm"], r["sigma_mean"], r["wall_s"])
 
 
 def test_checkpoint_restore_and_resume_are_bit_exact(trained):

@@ -207,8 +207,9 @@ def test_drag_tracks_to_video_matches_jax(pair, cmp_pair, with_brush):
 def test_port_imports_neither_jax_nor_mofa_tpu():
     """Every module of the port (walked, not listed; the walk must reach the
     training slices' train/, models/gmflow/ and models/cmp/ modules, the
-    trainer apps, the face stack, the tflite compiler, the landmarker and
-    facerender), chip_smoke.py, chip_ab.py and the tflite writer
+    trainer apps, the face stack, the tflite compiler, the landmarker,
+    facerender, PIRender, FILM, the UI server, the native binding and the
+    logger), chip_smoke.py, chip_ab.py and the tflite writer
     (tests/torch_ref/tflite_writer.py, which chip_smoke.py imports) import
     in a fresh interpreter without jax, flax, optax, mofa_tpu, tensorflow,
     flatbuffers or PIL."""
@@ -219,7 +220,9 @@ def test_port_imports_neither_jax_nor_mofa_tpu():
             "[importlib.import_module(m) for m in mods];"
             "want = {'mofa_tpu_torch.apps.' + a for a in ('hybrid_app', 'keypoint_app',"
             " 'audio2ldmk_app', 'opendomain_app', 'train_app', 'train_cmp_app',"
-            " 'train_flow_app', 'eval_flow_app', 'face_fit_app', 'facerender_app')} | {"
+            " 'train_flow_app', 'eval_flow_app', 'face_fit_app', 'facerender_app',"
+            " 'ui_server')} | {'mofa_tpu_torch.models.pirender', 'mofa_tpu_torch.models.film',"
+            " 'mofa_tpu_torch.native', 'mofa_tpu_torch.utils.logging'} | {"
             "'mofa_tpu_torch.interop.tflite', 'mofa_tpu_torch.models.mp_face',"
             " 'mofa_tpu_torch.models.gfpgan', 'mofa_tpu_torch.models.facerender',"
             " 'mofa_tpu_torch.preprocess.video_fit', 'mofa_tpu_torch.preprocess.enhance'} | {"
