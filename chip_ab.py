@@ -2,6 +2,7 @@
 
     python3 chip_ab.py --other build/parent               # both parts
     python3 chip_ab.py --other build/parent --part train  # one part
+    python3 chip_ab.py --other build/parent --phase mesh  # the frame-parallel traj video
 
 `--other` is a directory holding another tree of the repository (unpack a
 commit there with `git archive <commit> | tar -x -C build/parent`; `build/`
@@ -18,7 +19,12 @@ and builds that tree's kernels. Parts:
 - "train": the fp32 short-attention forward at the stage-1 training site
   in both layouts ([25, 2304, 320] and [2304, 25, 5, 64]), then five
   stage-1 training steps through `train_app` (chip_smoke's clips and
-  arguments, remat), each step's forward + backward seconds.
+  arguments, remat), each step's forward + backward seconds;
+- "mesh" (also `--phase mesh`): the traj video at MAIN's size and steps
+  directly in the classic temporal layout and, in a tree that has the
+  frame-parallel layer, through `traj_app.generate` with the NCCL mesh of
+  one rank (the layout that mesh implies): host seconds and the median
+  denoise step of each.
 
 Prints one line "AB {json}" a run, then one "AB_SUMMARY {json}" line with
 each number's values by tree. Exits non-zero, printing no result, when
@@ -61,6 +67,8 @@ def measure(root: str, part: str) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
+    if part == "mesh":
+        return measure_mesh(cs, dev)
     if part == "videos":
         bf = torch.bfloat16
         q, k, v = (torch.randn(50, 9216, 320, generator=g, device=dev).to(bf)
@@ -105,10 +113,37 @@ def measure(root: str, part: str) -> dict:
     return out
 
 
+def measure_mesh(cs, dev) -> dict:
+    """The traj video directly in the classic layout, then (where the tree
+    has `core/mesh.py`) with the frame-parallel mesh of one rank."""
+    import time
+
+    import torch
+    torch.backends.cudnn.allow_tf32 = True
+    bundle = cs.random_bundle(dev, 0, torch.bfloat16)
+    out = {}
+    t0 = time.perf_counter()
+    r = cs.run_video(bundle, dev, "classic", cs.MAIN["steps"])
+    out["traj_classic_s"] = [time.perf_counter() - t0, r["median_step"]]
+    if os.path.isfile(os.path.join(os.getcwd(), "mofa_tpu_torch", "core", "mesh.py")):
+        from mofa_tpu_torch.apps.loaders import start_frame_parallel
+        _, mesh = start_frame_parallel(dev)
+        phases: dict = {}
+        t0 = time.perf_counter()
+        cs.drag_video(bundle, dev, cs.MAIN["h"], cs.MAIN["w"], cs.MAIN["t"],
+                      cs.MAIN["steps"], seed=4, phase_times=phases, mesh=mesh)
+        torch.cuda.synchronize()
+        steps = sorted(phases["denoise_step"])
+        out["traj_mesh_s"] = [time.perf_counter() - t0, steps[len(steps) // 2]]
+        torch.distributed.destroy_process_group()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", help="the other tree's directory")
-    ap.add_argument("--part", choices=("videos", "train", "all"), default="all")
+    ap.add_argument("--part", "--phase", dest="part",
+                    choices=("videos", "train", "mesh", "all"), default="all")
     ap.add_argument("--run", nargs=3, metavar=("ROOT", "LABEL", "PART"),
                     help=argparse.SUPPRESS)   # one measurement, in this process
     args = ap.parse_args()

@@ -11,6 +11,7 @@
                                            # backward checks, 5g, 5h, 5i
     python3 chip_smoke.py --phase ui       # build, the native library, PIRender,
                                            # FILM and the UI server (5l)
+    python3 chip_smoke.py --phase mesh     # build, frame-parallel inference (5m)
 
 Phases, each printed as it finishes:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -133,6 +134,16 @@ Phases, each printed as it finishes:
      called directly (bit-equal, or PSNR_BF16_DB), a bad request's 500 and
      a good request after it, /run_landmarks in hybrid mode (576x1024) and
      keypoint mode (512^2, a 25-frame track), 5 steps each, launches held;
+     5m. frame-parallel inference (`--frame_parallel`): `init_distributed`
+     with no launcher (NCCL, a world of one) and the (1, 1, 1, 1)
+     DeviceMesh; the traj video at MAIN's size and steps, the hybrid video
+     (576x1024, 5 steps) and the keypoint video (512^2, 49 frames, 5 steps)
+     through their apps' `generate` with the mesh and directly in the
+     classic temporal layout, each mesh run's launches held to the classic
+     layout's sites (no tmajor launch) and its frames within MESH's PSNR
+     of the direct run's, both timed; the classic short kernel at the
+     frame-parallel /8 site [18432/n, 25, 5, 64], n = 1, 2, 4, against its
+     plain version and timed beside SDPA;
      5g. stage-1 training through `train_app.run` on seeded 40-frame
      clips at SVD-XT widths (384x384, 25 frames, batch 1, fp32, block
      remat, EMA): 4 steps, a checkpoint at step 2, a validation render at
@@ -2099,11 +2110,12 @@ def seeded_tracks(h: int, w: int, seed: int, n: int = 6) -> list:
 
 
 def drag_video(bundle, dev, h: int, w: int, t: int, steps: int, seed: int,
-               brush=None, phase_times=None):
+               brush=None, phase_times=None, mesh=None):
     """The traj app's generation: a seeded smooth image and seeded tracks
     -> PCHIP -> sparse flow at 384^2 -> CMP (full CMPConfig, seeded random
-    weights, fp32) -> flow at (h, w) -> TrajPipeline with `bundle`. Returns
-    (frames [T, H, W, 3], flow [1, T-1, H, W, 2], PhaseTimer)."""
+    weights, fp32) -> flow at (h, w) -> TrajPipeline with `bundle` (frame
+    parallel over `mesh` when one is given). Returns (frames
+    [T, H, W, 3], flow [1, T-1, H, W, 2], PhaseTimer)."""
     from mofa_tpu_torch.apps.loaders import load_cmp
     from mofa_tpu_torch.apps.traj_app import generate
     from mofa_tpu_torch.utils.profiling import PhaseTimer
@@ -2113,7 +2125,7 @@ def drag_video(bundle, dev, h: int, w: int, t: int, steps: int, seed: int,
         img[0], seeded_tracks(h, w, seed), lambda: load_cmp(None, dev, seed=seed),
         lambda: bundle, timer=timer, brush=brush, num_frames=t,
         num_inference_steps=steps, decode_chunk_size=MAIN["decode_chunk_size"],
-        seed=seed + 1, phase_times=phase_times)
+        seed=seed + 1, phase_times=phase_times, mesh=mesh)
     return frames, flow, timer
 
 
@@ -3701,6 +3713,170 @@ def run_slice_ui(dev, card: str) -> dict:
     return res
 
 
+# ------------------------------------- phase 5m: frame-parallel inference
+
+# The frame-parallel layer on the card (core/mesh.py, parallel/activation.py,
+# the apps' --frame_parallel): one card, so NCCL at world size 1, where the
+# all-to-alls, gathers and reductions are local copies. Each video runs
+# once with the mesh and once directly in the classic temporal layout (the
+# layout the frames policy implies), from the same seeds: the launches
+# held to `expected_launches("classic", ...)` (no tmajor launch inside the
+# context), the frames to PSNR_DB of the direct call's. The keypoint video
+# is cut to 49 frames (4 views, 3 distinct) to keep the script's time.
+MESH = dict(steps=25, landmark_steps=5, keypoint_t=49, keypoint_size=512,
+            psnr_db=40.0, seed=61)
+# the classic short kernel at the frame-parallel /8 site: B = 2 x 9216
+# tokens over n ranks
+MESH_SHORT_WORLDS = (1, 2, 4)
+
+
+def frame_parallel_pair(label: str, run, want: dict, card: str) -> dict:
+    """run(mesh, phase_times) -> frames, once directly in the classic
+    layout and once with the mesh; the mesh run's launches counted and held
+    to `want`, its frames against the direct run's."""
+    import torch
+    from mofa_tpu_torch import kernels
+    out = {}
+    for name, mesh in (("direct", None), ("frame_parallel", MESH["mesh"])):
+        phases: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        with temporal_layout("classic" if mesh is None else "tmajor"):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            frames = run(mesh, phases)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        step_s = phases["denoise_step"]
+        out[name] = dict(frames=frames, s=secs, launches=launches,
+                         median_step=sorted(step_s)[len(step_s) // 2],
+                         denoise=sum(step_s), decode=phases["decode"][0],
+                         peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+    fp, direct = out["frame_parallel"], out["direct"]
+    if fp["launches"] != want:
+        fail(f"mesh {label}: launches {fp['launches']}, expected {want}")
+    if not bool(torch.isfinite(fp["frames"]).all()):
+        fail(f"mesh {label}: non-finite frames")
+    same = bool(torch.equal(fp["frames"], direct["frames"]))
+    db = psnr(fp["frames"], direct["frames"])
+    if not same and db < MESH["psnr_db"]:
+        fail(f"mesh {label}: frames {db:.2f} dB from the direct call's "
+             f"(bar {MESH['psnr_db']} dB)")
+    log(f"  mesh {label}: frame-parallel {fp['s']:.3f} s (median step "
+        f"{fp['median_step']:.3f}, denoise {fp['denoise']:.3f}, decode "
+        f"{fp['decode']:.3f}, peak {fp['peak']:.2f} GiB) vs direct classic "
+        f"{direct['s']:.3f} s (median step {direct['median_step']:.3f}, denoise "
+        f"{direct['denoise']:.3f}, decode {direct['decode']:.3f}, peak "
+        f"{direct['peak']:.2f} GiB); overhead {100 * (fp['s'] / direct['s'] - 1):+.2f}%"
+        f" (steps {100 * (fp['median_step'] / direct['median_step'] - 1):+.2f}%); "
+        f"frames bit-equal {same}, PSNR {db:.2f} dB (bar {MESH['psnr_db']}); "
+        f"launches {fp['launches']}; card {card}")
+    res = {k: {kk: vv for kk, vv in v.items() if kk != "frames"} for k, v in out.items()}
+    res.update(psnr=db, bit_equal=same)
+    return res
+
+
+def mesh_short_checks(kres: dict) -> None:
+    """The classic short kernel at the frame-parallel /8 site [18432/n, 25,
+    5, 64], bf16, for n in MESH_SHORT_WORLDS: against its plain version
+    (row 5's TOL_BF16) and timed beside SDPA (keys *_mesh<n> of its row)."""
+    import torch
+    import torch.nn.functional as F
+    from mofa_tpu_torch.kernels.short_attention import (short_attention,
+                                                        short_attention_applicable)
+    g = torch.Generator(device="cuda").manual_seed(MESH["seed"])
+    for n in MESH_SHORT_WORLDS:
+        b = 18432 // n
+        if not short_attention_applicable(b, 25, 25, 5, 64):
+            fail(f"mesh: the short gate refuses the /8 share at n = {n}")
+        q, k, v = (torch.randn(b, 25, 5, 64, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        _check(kres, "short_attention", "bf16", f"B={b} L=25 H=5 D=64 (n={n})",
+               lambda: short_attention(q, k, v), lambda: short_attention(q, k, v),
+               True, ref32_fn=lambda: short_attention(*upcast(q, k, v)),
+               library_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+               work=(4 * b * 5 * 25 * 25 * 64, 4 * nbytes(q), "bf16"),
+               suffix=f"_mesh{n}")
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+
+
+def run_mesh(dev, card: str, kres: dict) -> dict:
+    """Phase 5m: init_distributed on the card with no launcher (NCCL, a
+    world of one), the (1, 1, 1, 1) DeviceMesh; the traj video (MAIN),
+    the hybrid video (MAIN's size, 5 steps) and the keypoint video (512^2,
+    49 frames, 5 steps), each through its app's `generate` with the mesh
+    and directly (`frame_parallel_pair`); the classic short kernel at the
+    frame-parallel shapes (`mesh_short_checks`)."""
+    import torch
+    import torch.distributed as dist
+    from mofa_tpu_torch.apps import hybrid_app, keypoint_app
+    from mofa_tpu_torch.apps.loaders import load_bundle, load_cmp, start_frame_parallel
+    from mofa_tpu_torch.pipelines.keypoint import window_views
+    from mofa_tpu_torch.utils.profiling import PhaseTimer
+
+    dev, mesh = start_frame_parallel(dev)
+    MESH["mesh"] = mesh
+    log(f"  process group: backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, rank {dist.get_rank()}, device {dev}; {mesh}")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail("mesh: expected NCCL at world size 1 with no launcher")
+    res: dict = {}
+    try:
+        h, w, t, seed = MAIN["h"], MAIN["w"], MAIN["t"], MESH["seed"]
+        bundle = random_bundle(dev, seed, torch.bfloat16)
+        res["traj"] = frame_parallel_pair(
+            "traj", lambda m, pt: drag_video(bundle, dev, h, w, t, MESH["steps"], seed,
+                                             phase_times=pt, mesh=m)[0],
+            expected_launches("classic", MESH["steps"]), card)
+        del bundle
+        torch.cuda.empty_cache()
+
+        steps = MESH["landmark_steps"]
+        img, _ = smooth_inputs(1, 2, h, w, dev, seed=seed)
+        lm = seeded_landmarks(h, w, t, seed)
+        mask = elliptical_mask(h, w, lm[0].mean(0), (0.16 * w, 0.26 * h))
+        hb = load_bundle(None, None, dev, torch.bfloat16, seed=seed,
+                         controlnet2_dir="", ldmk=True)
+        res["hybrid"] = frame_parallel_pair(
+            "hybrid", lambda m, pt: hybrid_app.generate(
+                img[0], lm, seeded_tracks(h, w, seed), mask,
+                lambda: load_cmp(None, dev, seed=seed), lambda: hb,
+                timer=PhaseTimer(dev), num_inference_steps=steps,
+                decode_chunk_size=MAIN["decode_chunk_size"], seed=seed + 1,
+                phase_times=pt, mesh=m)[0],
+            expected_launches("classic", steps, adapters=2), card)
+        del hb
+        torch.cuda.empty_cache()
+
+        ks, kt = MESH["keypoint_size"], MESH["keypoint_t"]
+        kimg, _ = smooth_inputs(1, 2, ks, ks, dev, seed=seed + 2)
+        klm = seeded_landmarks(ks, ks, kt, seed + 2)
+        views = window_views(kt, KEYPOINT["window"], KEYPOINT["stride"])
+        kb = load_bundle(None, None, dev, torch.bfloat16, seed=seed, ldmk=True)
+        res["keypoint"] = frame_parallel_pair(
+            "keypoint", lambda m, pt: keypoint_app.generate(
+                kimg[0], klm, lambda: load_cmp(None, dev, seed=seed), lambda: kb,
+                timer=PhaseTimer(dev), window_size=KEYPOINT["window"],
+                stride=KEYPOINT["stride"], num_inference_steps=steps,
+                decode_chunk_size=KEYPOINT["decode_chunk_size"], seed=seed + 3,
+                phase_times=pt, mesh=m)[0],
+            expected_launches("classic", steps, size=(ks, ks), views=len(views),
+                              warps=len(set(views))), card)
+        del kb
+        torch.cuda.empty_cache()
+        log("  the classic short kernel at the frame-parallel /8 site, bf16")
+        mesh_short_checks(kres)
+        if not kres["short_attention"]["ok"]:
+            fail("mesh: the classic short kernel misses its bound at a "
+                 "frame-parallel shape")
+    finally:
+        MESH.pop("mesh", None)
+        dist.destroy_process_group()
+    return res
+
+
 # ------------------------------------------------ phase 5g: training
 
 # Stage-1 training through train_app at SVD-XT widths: the train_stage1.sh
@@ -4504,7 +4680,7 @@ def disk_writes() -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "profile", "keypoint",
-                                        "train", "ui"), default="all")
+                                        "train", "ui", "mesh"), default="all")
     args = ap.parse_args()
 
     try:
@@ -4562,6 +4738,13 @@ def main() -> None:
         # the native library, PIRender, FILM and the UI server alone (5l)
         log("[ui] the native host library, PIRender, FILM and the UI server on the card")
         run_slice_ui(torch.device("cuda"), card)
+        return
+
+    if args.phase == "mesh":
+        # the frame-parallel layer alone (5m)
+        log("[mesh] frame-parallel inference on the card: NCCL at world 1, the traj, "
+            "hybrid and keypoint videos with --frame_parallel's mesh")
+        run_mesh(torch.device("cuda"), card, {})
         return
 
     if args.phase == "keypoint":
@@ -4683,6 +4866,11 @@ def main() -> None:
         log("[ui] the native host library, PIRender, FILM and the UI server (/run at "
             f"{MAIN['h']}x{MAIN['w']}, {MAIN['t']} frames, {MAIN['steps']} steps, bf16)")
         ui_run = run_slice_ui(dev, card)["ui"]
+        # 5m. frame-parallel inference (NCCL, world 1)
+        log("[mesh] frame-parallel inference: NCCL at world 1, the traj "
+            f"({MAIN['steps']} steps), hybrid and keypoint ({MESH['landmark_steps']} "
+            "steps) videos with the mesh and directly in the classic layout")
+        mesh_run = run_mesh(dev, card, kres)
         # 5g. stage-1 training through train_app
         log("[train] stage-1 training through train_app: 384x384, 25 frames, "
             "batch 1, fp32, block remat, EMA, SVD-XT widths")
@@ -4717,6 +4905,8 @@ def main() -> None:
             kres[name]["keypoint_launches"] = kp_run["launches"][name]
             kres[name]["opendomain_sadtalker_launches"] = face_run["opendomain_launches"][name]
             kres[name]["ui_launches"] = ui_run["launches"][name]
+            kres[name]["mesh_launches"] = {
+                k: v["frame_parallel"]["launches"][name] for k, v in mesh_run.items()}
         # flash's launches at each main-path site, from the same run
         by_site = kres["flash_attention"]["main_path_launches_by_site"] = {}
         for site, *shape in FLASH_MAIN_SHAPES:
@@ -4734,13 +4924,15 @@ def main() -> None:
              "sites", "main_path_launches_by_site", "stage_ms_c320", "stage_ms_c640",
              "avg_call_ms", "stage_ms",
              "main_path_launches", "hybrid_launches", "keypoint_launches",
-             "opendomain_sadtalker_launches", "ui_launches",
+             "opendomain_sadtalker_launches", "ui_launches", "mesh_launches",
              "ms_keypoint", "plain_ms_keypoint", "library_ms_keypoint",
              "chain_ms_keypoint", "bound_ms_keypoint", "bound_by_keypoint",
              "ms_keypoint16", "plain_ms_keypoint16", "library_ms_keypoint16",
              "bound_ms_keypoint16", "bound_by_keypoint16", "train_launches",
              "stage2_launches", "classic_train_launches",
              "train_fwd_bound_cores_ms_fp32") + tuple(
+                 f"{k}_mesh{n}" for n in MESH_SHORT_WORLDS
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")) + tuple(
                  k + s for s in ("_fp32", "_fp32_c640", "_fp32_train")
                  for k in ("ms", "plain_ms", "library_ms", "chain_ms", "bound_ms",
                            "bound_by", "bound_cores_ms", "queued_ms",

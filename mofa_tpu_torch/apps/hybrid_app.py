@@ -13,7 +13,8 @@ mp4 / gif.
         --device cpu --tiny --target_size 64 --num_inference_steps 1 --output out.gif
 
 It runs on the CUDA device unless `--device cpu` is given, and raises when
-there is none. `generate` is the generation itself (arrays in, frames out;
+there is none. `--frame_parallel` runs the denoise frame-parallel, as in
+traj_app (only rank 0 writes and prints). `generate` is the generation itself (arrays in, frames out;
 of the file libraries it needs only cv2, for the landmark raster); `_run`
 adds the files around it.
 """
@@ -29,8 +30,11 @@ import torch
 
 from mofa_tpu_torch.apps.instrument import (add_observability_args,
                                             maybe_trace, observe)
-from mofa_tpu_torch.apps.loaders import load_bundle, load_cmp, write_video
+from mofa_tpu_torch.apps.loaders import (FRAME_PARALLEL_HELP, load_bundle,
+                                         load_cmp, share_bundle,
+                                         start_frame_parallel, write_video)
 from mofa_tpu_torch.apps.traj_app import drag_flow, resolve_device
+from mofa_tpu_torch.core.mesh import is_main_rank
 from mofa_tpu_torch.models.clip_vision import TINY_CLIP_CONFIG
 from mofa_tpu_torch.models.cmp.model import TINY_CMP_CONFIG, CMPConfig
 from mofa_tpu_torch.models.svd_unet import MICRO_UNET_CONFIG
@@ -70,13 +74,15 @@ def build_parser():
                    help="cuda (the default; raises without a CUDA device) or cpu")
     p.add_argument("--tiny", action="store_true",
                    help="micro model configs, CMP included (smoke runs; no real weights)")
+    p.add_argument("--frame_parallel", action="store_true",
+                   help=FRAME_PARALLEL_HELP)
     return add_observability_args(p)
 
 
 def generate(image01, landmarks, tracks, face_mask, cmp_loader, bundle_loader, *,
              timer, num_inference_steps: int = 25, ctrl_scale_ldmk: float = 1.0,
              ctrl_scale_traj: float = 0.6, decode_chunk_size: int = 8,
-             seed: int = 42, trace_dir=None, phase_times=None):
+             seed: int = 42, trace_dir=None, phase_times=None, mesh=None):
     """Landmarks and drag tracks -> video, on the device the CMP is loaded to.
 
     image01 [H, W, 3] in [0, 1] (H, W multiples of 64); landmarks
@@ -85,7 +91,8 @@ def generate(image01, landmarks, tracks, face_mask, cmp_loader, bundle_loader, *
     face adapter everywhere). cmp_loader() gives the CMP; it is freed before
     bundle_loader() gives the dual-adapter ModelBundle. timer: a PhaseTimer
     (phases cmp_load, cmp_flow_landmarks, cmp_flow_tracks, bundle_load,
-    denoise_decode); phase_times: passed to HybridPipeline. Returns (frames
+    denoise_decode); phase_times: passed to HybridPipeline; mesh: as in
+    traj_app.generate. Returns (frames
     [T, H, W, 3] in [0, 1], face flow and drag flow [1, T-1, H, W, 2],
     landmark frames [T, H, W, 3] in [0, 1] as numpy)."""
     h, w = image01.shape[:2]
@@ -112,9 +119,9 @@ def generate(image01, landmarks, tracks, face_mask, cmp_loader, bundle_loader, *
     mask = (torch.ones(1, h, w, 1, device=dev) if face_mask is None
             else to_dev(np.asarray(face_mask, np.float32))[None, :, :, None])
     with timer.phase("bundle_load"):
-        bundle = bundle_loader()
+        bundle = share_bundle(bundle_loader(), mesh)
     with timer.phase("denoise_decode"), maybe_trace(trace_dir):
-        frames, _ = HybridPipeline(bundle)(
+        frames, _ = HybridPipeline(bundle, mesh=mesh)(
             image, face_flow, drag, to_dev(ldmk_imgs)[None], mask,
             num_inference_steps=num_inference_steps,
             ctrl_scale_ldmk=ctrl_scale_ldmk, ctrl_scale_traj=ctrl_scale_traj,
@@ -125,12 +132,14 @@ def generate(image01, landmarks, tracks, face_mask, cmp_loader, bundle_loader, *
 
 
 def run(args):
-    dev = resolve_device(args.device)
+    dev, mesh = resolve_device(args.device), None
+    if args.frame_parallel:
+        dev, mesh = start_frame_parallel(dev)
     with observe(args, dev) as timer:
-        _run(args, dev, timer)
+        _run(args, dev, timer, mesh)
 
 
-def _run(args, dev, timer):
+def _run(args, dev, timer, mesh=None):
     image, (h, w) = preprocess_image(args.image, args.target_size)
     landmarks = np.load(args.landmarks)
     tracks = None
@@ -155,7 +164,9 @@ def _run(args, dev, timer):
         timer=timer, num_inference_steps=args.num_inference_steps,
         ctrl_scale_ldmk=args.ctrl_scale_ldmk, ctrl_scale_traj=args.ctrl_scale_traj,
         decode_chunk_size=args.decode_chunk_size, seed=args.seed,
-        trace_dir=args.trace_dir)
+        trace_dir=args.trace_dir, mesh=mesh)
+    if not is_main_rank():
+        return
     frames = frames.float().cpu().numpy()
     with timer.phase("write"):
         write_video(frames, args.output, fps=args.fps)

@@ -6,12 +6,15 @@ Counterpart of mofa_tpu/apps/instrument.py. Every inference CLI gains:
                    on exit
   --trace_dir DIR  write a torch.profiler Chrome trace of the generation
                    phase (the denoise loop and the decode)
+
+Under a process group only rank 0 prints the table.
 """
 
 from __future__ import annotations
 
 import contextlib
 
+from mofa_tpu_torch.core.mesh import is_main_rank
 from mofa_tpu_torch.utils.profiling import PhaseTimer, trace
 
 
@@ -31,7 +34,7 @@ def observe(args, device=None):
     try:
         yield timer
     finally:
-        if getattr(args, "timings", False):
+        if getattr(args, "timings", False) and is_main_rank():
             print(timer.report())
 
 

@@ -13,7 +13,8 @@ of W frames, stride S, on the landmark adapter) -> mp4 / gif.
         --stride 2 --num_inference_steps 1 --output out.gif
 
 It runs on the CUDA device unless `--device cpu` is given, and raises when
-there is none. `generate` is the generation itself (arrays in, frames out;
+there is none. `--frame_parallel` runs the denoise frame-parallel, as in
+traj_app (only rank 0 writes and prints). `generate` is the generation itself (arrays in, frames out;
 of the file libraries it needs only cv2, for the landmark raster); `_run`
 adds the files around it.
 """
@@ -28,8 +29,11 @@ import torch
 
 from mofa_tpu_torch.apps.instrument import (add_observability_args,
                                             maybe_trace, observe)
-from mofa_tpu_torch.apps.loaders import load_bundle, load_cmp, write_video
+from mofa_tpu_torch.apps.loaders import (FRAME_PARALLEL_HELP, load_bundle,
+                                         load_cmp, share_bundle,
+                                         start_frame_parallel, write_video)
 from mofa_tpu_torch.apps.traj_app import resolve_device
+from mofa_tpu_torch.core.mesh import is_main_rank
 from mofa_tpu_torch.models.clip_vision import TINY_CLIP_CONFIG
 from mofa_tpu_torch.models.cmp.model import TINY_CMP_CONFIG, CMPConfig
 from mofa_tpu_torch.models.svd_unet import MICRO_UNET_CONFIG
@@ -67,13 +71,16 @@ def build_parser():
                    help="cuda (the default; raises without a CUDA device) or cpu")
     p.add_argument("--tiny", action="store_true",
                    help="micro model configs, CMP included (smoke runs; no real weights)")
+    p.add_argument("--frame_parallel", action="store_true",
+                   help=FRAME_PARALLEL_HELP)
     return add_observability_args(p)
 
 
 def generate(image01, landmarks, cmp_loader, bundle_loader, *, timer,
              window_size: int = 25, stride: int = 12, num_inference_steps: int = 25,
              ctrl_scale: float = 1.0, decode_chunk_size: int = 8, seed: int = 42,
-             window_batch: int = 1, trace_dir=None, phase_times=None):
+             window_batch: int = 1, trace_dir=None, phase_times=None,
+             mesh=None):
     """A landmark track -> video, on the device the CMP is loaded to.
 
     image01 [H, W, 3] in [0, 1] (H, W multiples of 64); landmarks
@@ -81,7 +88,8 @@ def generate(image01, landmarks, cmp_loader, bundle_loader, *, timer,
     bundle_loader() gives the landmark-adapter ModelBundle. timer: a
     PhaseTimer (phases cmp_load, cmp_flow, bundle_load, denoise_decode);
     phase_times: passed to KeypointPipeline. The pipeline's random draws
-    come from a generator seeded with `seed`. Returns (frames
+    come from a generator seeded with `seed`; mesh: as in
+    traj_app.generate. Returns (frames
     [T, H, W, 3] in [0, 1], flow [1, T-1, H, W, 2], landmark frames
     [T, H, W, 3] in [0, 1] as numpy)."""
     with timer.phase("cmp_load"):
@@ -96,9 +104,9 @@ def generate(image01, landmarks, cmp_loader, bundle_loader, *, timer,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     with timer.phase("bundle_load"):
-        bundle = bundle_loader()
+        bundle = share_bundle(bundle_loader(), mesh)
     with timer.phase("denoise_decode"), maybe_trace(trace_dir):
-        frames, _ = KeypointPipeline(bundle)(
+        frames, _ = KeypointPipeline(bundle, mesh=mesh)(
             image, flow, torch.from_numpy(ldmk_imgs).to(dev)[None],
             window_size=window_size, stride=stride,
             num_inference_steps=num_inference_steps,
@@ -109,12 +117,14 @@ def generate(image01, landmarks, cmp_loader, bundle_loader, *, timer,
 
 
 def run(args):
-    dev = resolve_device(args.device)
+    dev, mesh = resolve_device(args.device), None
+    if args.frame_parallel:
+        dev, mesh = start_frame_parallel(dev)
     with observe(args, dev) as timer:
-        _run(args, dev, timer)
+        _run(args, dev, timer, mesh)
 
 
-def _run(args, dev, timer):
+def _run(args, dev, timer, mesh=None):
     image, (h, w) = preprocess_image(args.image, args.target_size)
     landmarks = np.load(args.landmarks)[: args.num_frames]
     cfg_kw, cmp_cfg = {}, CMPConfig()
@@ -130,7 +140,9 @@ def _run(args, dev, timer):
         timer=timer, window_size=args.window_size, stride=args.stride,
         num_inference_steps=args.num_inference_steps, ctrl_scale=args.ctrl_scale,
         decode_chunk_size=args.decode_chunk_size, seed=args.seed,
-        window_batch=args.window_batch, trace_dir=args.trace_dir)
+        window_batch=args.window_batch, trace_dir=args.trace_dir, mesh=mesh)
+    if not is_main_rank():
+        return
     frames = frames.float().cpu().numpy()
     with timer.phase("write"):
         write_video(frames, args.output, fps=args.fps)

@@ -9,7 +9,11 @@ app needs:
 - `load_bundle`: the SVD-XT bundle, each part from its reference-format
   weight file (diffusers / transformers `.safetensors` or `.bin`) with
   `strict=True`, or with seeded random weights where none is found;
-- `write_video`: gif through PIL, mp4 through cv2, each imported when used.
+- `write_video`: gif through PIL, mp4 through cv2, each imported when used,
+  or the raw uint8 frames as .npy;
+- `start_frame_parallel` / `share_bundle`: the apps' `--frame_parallel`
+  (one process per device, under torchrun or alone; only the main rank
+  prints, `core.mesh.is_main_rank`).
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from mofa_tpu_torch.core.mesh import is_main_rank
 from mofa_tpu_torch.models.clip_vision import CLIPVisionConfig
 from mofa_tpu_torch.models.cmp.model import CMP, CMPConfig
 from mofa_tpu_torch.models.svd_unet import SVDUNetConfig
@@ -28,6 +34,7 @@ from mofa_tpu_torch.models.vae import VAEConfig
 from mofa_tpu_torch.models.weights import (load_safetensors,
                                            load_torch_checkpoint,
                                            unwrap_state_dict)
+from mofa_tpu_torch.parallel.activation import broadcast_module_
 from mofa_tpu_torch.pipelines.common import ModelBundle, init_random_
 
 _WEIGHT_FILES = ("diffusion_pytorch_model.safetensors", "model.safetensors",
@@ -66,7 +73,7 @@ def load_cmp(ckpt_path: Optional[str] = None, device="cuda",
         cmp.load_state_dict(cmp_state_dict(ckpt), strict=True)
     else:
         if ckpt_path:
-            print(f"[loaders] CMP: no checkpoint at {ckpt_path!r}; random init")
+            _say(f"[loaders] CMP: no checkpoint at {ckpt_path!r}; random init")
         init_random_cmp_(cmp, torch.Generator(device=device).manual_seed(seed))
     return cmp.to(dtype).eval().requires_grad_(False)
 
@@ -138,11 +145,11 @@ def load_bundle(svd_dir: Optional[str] = None,
             unet_cfg, vae_cfg, clip_cfg, ldmk, controlnet2_dir is not None).items():
         path = _find_weights(dirs[name])
         if path is None:
-            print(f"[loaders] {desc[name]}: no weights at {dirs[name]!r}; random init")
+            _say(f"[loaders] {desc[name]}: no weights at {dirs[name]!r}; random init")
             with torch.device(device):
                 m = init_random_(build(), generator)
         else:
-            print(f"[loaders] {desc[name]}: {path}")
+            _say(f"[loaders] {desc[name]}: {path}")
             with torch.device("meta"):
                 m = build()
             m.load_state_dict(part_state_dict(name, path, m), strict=True,
@@ -152,10 +159,14 @@ def load_bundle(svd_dir: Optional[str] = None,
 
 
 def write_video(frames01, path: str, fps: int = 7) -> None:
-    """[T, H, W, 3] float in [0, 1] (numpy or tensor) -> mp4 (cv2) or gif (PIL)."""
+    """[T, H, W, 3] float in [0, 1] (numpy or tensor) -> mp4 (cv2), gif (PIL)
+    or .npy (the uint8 frames as they are, without a codec)."""
     if torch.is_tensor(frames01):
         frames01 = frames01.detach().float().cpu().numpy()
     frames = (np.asarray(frames01) * 255).clip(0, 255).astype("uint8")
+    if path.endswith(".npy"):
+        np.save(path, frames)
+        return
     if path.endswith(".gif"):
         from PIL import Image
         imgs = [Image.fromarray(f) for f in frames]
@@ -168,3 +179,29 @@ def write_video(frames01, path: str, fps: int = 7) -> None:
     for f in frames:
         vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
     vw.release()
+
+
+FRAME_PARALLEL_HELP = "shard the denoise over all devices' frames axis"
+
+
+def start_frame_parallel(device):
+    """`--frame_parallel`: join the process group (core.mesh.init_distributed:
+    torchrun's ranks, or a world of one) and build the (1, 1, 1, world)
+    mesh. Returns (this rank's device, the mesh)."""
+    from mofa_tpu_torch.core.mesh import init_distributed, make_mesh
+    device = init_distributed(device)
+    return device, make_mesh(data=1, frames=dist.get_world_size())
+
+
+def share_bundle(bundle: ModelBundle, mesh) -> ModelBundle:
+    """Every rank takes the first rank's weights, byte for byte (with a
+    mesh; without one the bundle is returned as it is)."""
+    if mesh is not None:
+        for module in bundle.modules().values():
+            broadcast_module_(module)
+    return bundle
+
+
+def _say(msg: str) -> None:
+    if is_main_rank():
+        print(msg)

@@ -14,7 +14,10 @@ Trajectory JSON:
    "motion_brush": optional path to a {0, 255} PNG mask}
 
 It runs on the CUDA device unless `--device cpu` is given, and raises when
-there is none. `generate` is the generation itself (arrays in, frames out;
+there is none. `--frame_parallel` shards the denoise over the frames of
+every rank (one process per device): the same command runs alone (a world
+of one) or under `torchrun --nproc_per_node N`; NCCL on the card, gloo
+with `--device cpu`. Only rank 0 writes the video and prints. `generate` is the generation itself (arrays in, frames out;
 it needs neither PIL nor cv2); `_run` adds the files around it, read
 through cv2 (`preprocess/image.py`: Pillow's decoding and resizing
 reproduced, so the CLI needs no PIL).
@@ -31,7 +34,10 @@ import torch
 
 from mofa_tpu_torch.apps.instrument import (add_observability_args,
                                             maybe_trace, observe)
-from mofa_tpu_torch.apps.loaders import load_bundle, load_cmp, write_video
+from mofa_tpu_torch.apps.loaders import (FRAME_PARALLEL_HELP, load_bundle,
+                                         load_cmp, share_bundle,
+                                         start_frame_parallel, write_video)
+from mofa_tpu_torch.core.mesh import is_main_rank
 from mofa_tpu_torch.models.clip_vision import TINY_CLIP_CONFIG
 from mofa_tpu_torch.models.cmp.model import TINY_CMP_CONFIG, CMPConfig
 from mofa_tpu_torch.models.svd_unet import MICRO_UNET_CONFIG
@@ -70,6 +76,8 @@ def build_parser():
                    help="cuda (the default; raises without a CUDA device) or cpu")
     p.add_argument("--tiny", action="store_true",
                    help="micro model configs, CMP included (smoke runs; no real weights)")
+    p.add_argument("--frame_parallel", action="store_true",
+                   help=FRAME_PARALLEL_HELP)
     return add_observability_args(p)
 
 
@@ -118,7 +126,7 @@ def generate(image01, tracks, cmp_loader, bundle_loader, *, timer, brush=None,
              num_frames: int = 25, num_inference_steps: int = 25,
              min_guidance: float = 1.0, max_guidance: float = 3.0,
              ctrl_scale: float = 0.6, decode_chunk_size: int = 8, seed: int = 42,
-             trace_dir=None, phase_times=None):
+             trace_dir=None, phase_times=None, mesh=None):
     """Drag tracks -> video, on the device the CMP is loaded to.
 
     image01 [H, W, 3] in [0, 1] (H, W multiples of 64); tracks and brush as
@@ -126,7 +134,8 @@ def generate(image01, tracks, cmp_loader, bundle_loader, *, timer, brush=None,
     bundle_loader() gives the ModelBundle. timer: a PhaseTimer (phases
     cmp_load, cmp_flow, bundle_load, denoise_decode); phase_times: passed to
     TrajPipeline. The pipeline's random draws come from a generator seeded
-    with `seed`. Returns (frames [T, H, W, 3] in [0, 1], flow [1, T-1, H, W, 2]),
+    with `seed`. mesh: frame-parallel inference over its ranks (the bundle
+    takes rank 0's weights). Returns (frames [T, H, W, 3] in [0, 1], flow [1, T-1, H, W, 2]),
     on the device."""
     with timer.phase("cmp_load"):
         engine = DragFlowEngine(cmp_loader())
@@ -140,9 +149,9 @@ def generate(image01, tracks, cmp_loader, bundle_loader, *, timer, brush=None,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     with timer.phase("bundle_load"):
-        bundle = bundle_loader()
+        bundle = share_bundle(bundle_loader(), mesh)
     with timer.phase("denoise_decode"), maybe_trace(trace_dir):
-        frames, _ = TrajPipeline(bundle)(
+        frames, _ = TrajPipeline(bundle, mesh=mesh)(
             image, flow, num_inference_steps=num_inference_steps,
             min_guidance_scale=min_guidance, max_guidance_scale=max_guidance,
             controlnet_cond_scale=ctrl_scale, decode_chunk_size=decode_chunk_size,
@@ -152,12 +161,14 @@ def generate(image01, tracks, cmp_loader, bundle_loader, *, timer, brush=None,
 
 
 def run(args):
-    dev = resolve_device(args.device)
+    dev, mesh = resolve_device(args.device), None
+    if args.frame_parallel:
+        dev, mesh = start_frame_parallel(dev)
     with observe(args, dev) as timer:
-        _run(args, dev, timer)
+        _run(args, dev, timer, mesh)
 
 
-def _run(args, dev, timer):
+def _run(args, dev, timer, mesh=None):
     image, (h, w) = preprocess_image(args.image, args.target_size)
     with open(args.tracks) as f:
         spec = json.load(f)
@@ -178,7 +189,9 @@ def _run(args, dev, timer):
         num_inference_steps=args.num_inference_steps,
         min_guidance=args.min_guidance, max_guidance=args.max_guidance,
         ctrl_scale=args.ctrl_scale, decode_chunk_size=args.decode_chunk_size,
-        seed=args.seed, trace_dir=args.trace_dir)
+        seed=args.seed, trace_dir=args.trace_dir, mesh=mesh)
+    if not is_main_rank():
+        return
     with timer.phase("write"):
         write_video(frames, args.output, fps=args.fps)
     print(f"wrote {args.output} ({args.num_frames} frames @ {h}x{w})")

@@ -8,7 +8,10 @@ which gives D = 128 at the /32 level), one 1x1 `controlnet_down_blocks`
 conv per skip and a `controlnet_mid_block`, plus the 4-layer conditioning
 embedding. Module names are the reference's, flat on the model. With
 `remat_blocks = True` the down and mid blocks run under activation
-checkpointing while grad is on (models/svd_unet.py).
+checkpointing while grad is on (models/svd_unet.py). Inside a
+frame_parallel context the trunk runs on this rank's frames, as the UNet
+does, and returns this rank's rows of the residuals: the UNet reads them
+under the same context.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch.nn.functional as F
 from mofa_tpu_torch.models.svd_unet import (SVDUNetConfig, build_down_blocks,
                                             build_embeddings, build_mid_block,
                                             embed_timestep_and_ids,
-                                            frames_to_nchw, maybe_remat,
+                                            frame_rows, frames_to_nchw,
+                                            maybe_remat,
                                             nchw_to_nhwc, run_down_block)
 
 
@@ -80,7 +84,8 @@ class ControlNetSDVModel(nn.Module):
         """sample [B, T, H, W, C_in]. inject_features: [B*T, h_s, w_s, c_s]
         tensors added at each scale (index 0 after conv_in, index i after
         down block i-1, the last one once more before the mid block).
-        Returns (down residuals, mid residual), each [B*T, h, w, c]."""
+        Returns (down residuals, mid residual), each [B*T, h, w, c]
+        (inside frame_parallel, this rank's rows)."""
         cfg = self.cfg
         bsz, nf = sample.shape[:2]
         emb = embed_timestep_and_ids(self, cfg, timestep, added_time_ids, bsz,
@@ -90,7 +95,8 @@ class ControlNetSDVModel(nn.Module):
         indicator = torch.zeros(bsz, nf, dtype=sample.dtype,
                                 device=sample.device)
         feats = (None if inject_features is None else
-                 [f.permute(0, 3, 1, 2).contiguous() for f in inject_features])
+                 [frame_rows(f, bsz * nf).permute(0, 3, 1, 2).contiguous()
+                  for f in inject_features])
 
         x = self.conv_in(frames_to_nchw(sample))
         if feats is not None:

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from mofa_tpu_torch.kernels.attention import (dot_product_attention,
                                               temporal_attention_tmajor)
 from mofa_tpu_torch.kernels.geglu_ffn import fused_ffn_applicable, ln_geglu_ffn
+from mofa_tpu_torch.parallel.activation import all_reduce_stats
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -57,6 +58,27 @@ class GroupNorm(nn.GroupNorm):
         x5 = x.reshape(n // pool_leading, pool_leading, c, -1).transpose(1, 2)
         y = super().forward(x5)
         return y.transpose(1, 2).reshape(x.shape)
+
+
+def group_norm_token_sharded(norm: nn.GroupNorm, x: torch.Tensor,
+                             tokens) -> torch.Tensor:
+    """`norm` on [N, C, T, L, ...] whose token dim L holds the tokens
+    `tokens` (a parallel.activation.TokenSlice) of every rank: fp32 group
+    sums, mean and centred sum of squares in two passes, each reduced over
+    the ranks that share the tokens, then the affine."""
+    n, c = x.shape[:2]
+    g = norm.num_groups
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xg = x.reshape(n, g, -1).to(acc)
+    count = xg.shape[-1] // (tokens.stop - tokens.start) * tokens.total
+    mean = all_reduce_stats(xg.sum(-1), tokens) / count
+    d = xg - mean[..., None]
+    var = all_reduce_stats((d * d).sum(-1), tokens) / count
+    y = (d * torch.rsqrt(var + norm.eps)[..., None]).reshape(x.shape)
+    if norm.affine:
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        y = y * norm.weight.to(acc).reshape(shape) + norm.bias.to(acc).reshape(shape)
+    return y.to(x.dtype)
 
 
 class TimestepEmbedding(nn.Module):

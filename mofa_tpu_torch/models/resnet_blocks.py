@@ -6,6 +6,12 @@ Down/Upsample2D). Spatial tensors are [B*T, C, H, W]; the temporal block
 runs on the [B, C, T, H, W] view, where its GroupNorm pools over the
 frames of each video and its (3, 1, 1) convs mix neighbouring frames
 (zero padding at the ends).
+
+Inside a frame_parallel context (parallel/activation.py) the spatial
+block runs on this rank's frames; the temporal block gets all frames of
+this rank's share of the H*W tokens (`frames_to_tokens`), its GroupNorm
+statistics reduced over the shares, and the result comes back to the
+rank's frames for the blend.
 """
 
 from __future__ import annotations
@@ -15,7 +21,11 @@ from typing import Optional
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mofa_tpu_torch.models.layers import AlphaBlender, GroupNorm
+from mofa_tpu_torch.models.layers import (AlphaBlender, GroupNorm,
+                                          group_norm_token_sharded)
+from mofa_tpu_torch.parallel.activation import (frame_ctx_active,
+                                                frames_to_tokens, local_rows,
+                                                tokens_to_frames)
 
 
 class ResnetBlock2D(nn.Module):
@@ -40,7 +50,9 @@ class ResnetBlock2D(nn.Module):
 
 
 class TemporalResnetBlock(nn.Module):
-    """Resnet over the frame axis: x [B, C, T, H, W], temb [B, T, temb]."""
+    """Resnet over the frame axis: x [B, C, T, H, W], temb [B, T, temb].
+    `tokens` (a TokenSlice): x holds those of the H*W tokens along H, and
+    the GroupNorm statistics are reduced over the ranks holding the rest."""
 
     def __init__(self, cin: int, cout: int, temb_channels: Optional[int],
                  eps: float):
@@ -54,12 +66,14 @@ class TemporalResnetBlock(nn.Module):
         self.conv_shortcut = (nn.Conv3d(cin, cout, 1) if cin != cout
                               else None)
 
-    def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+    def forward(self, x, temb=None, tokens=None):
+        norm = ((lambda m, y: m(y)) if tokens is None else
+                (lambda m, y: group_norm_token_sharded(m, y, tokens)))
+        h = self.conv1(F.silu(norm(self.norm1, x)))
         if self.time_emb_proj is not None and temb is not None:
             t = self.time_emb_proj(F.silu(temb))                 # [B, T, C]
             h = h + t.permute(0, 2, 1)[:, :, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(F.silu(norm(self.norm2, h)))
         sc = self.conv_shortcut(x) if self.conv_shortcut is not None else x
         return sc + h
 
@@ -81,6 +95,8 @@ class SpatioTemporalResBlock(nn.Module):
 
     def forward(self, x, temb, image_only_indicator):
         # x [B*T, C, H, W]; temb [B*T, temb] or None; indicator [B, T]
+        if frame_ctx_active():
+            return self._forward_frame_parallel(x, temb, image_only_indicator)
         b, t = image_only_indicator.shape
         h = self.spatial_res_block(x, temb)
         bt, c, hh, ww = h.shape
@@ -89,6 +105,24 @@ class SpatioTemporalResBlock(nn.Module):
         ht = self.temporal_res_block(h5, temb_bt)
         ht = ht.permute(0, 2, 1, 3, 4).reshape(bt, c, hh, ww)
         return self.time_mixer(h, ht, image_only_indicator)
+
+    def _forward_frame_parallel(self, x, temb, image_only_indicator):
+        # x: this rank's rows of the [B*T, C, H, W] batch; temb and the
+        # indicator whole
+        b, t = image_only_indicator.shape
+        total = b * t
+        h = self.spatial_res_block(
+            x, None if temb is None else local_rows(temb, total))
+        rows, c, hh, ww = h.shape
+        h_tok, tokens = frames_to_tokens(h.reshape(rows, c, hh * ww), total, 2)
+        n_tok = h_tok.shape[2]
+        h5 = h_tok.reshape(b, t, c, n_tok, 1).permute(0, 2, 1, 3, 4)
+        temb_bt = temb.reshape(b, t, -1) if temb is not None else None
+        ht = self.temporal_res_block(h5, temb_bt, tokens)
+        ht = ht.permute(0, 2, 1, 3, 4).reshape(total, c, n_tok)
+        ht = tokens_to_frames(ht, tokens, 2).reshape(rows, c, hh, ww)
+        return self.time_mixer(h, ht, local_rows(
+            image_only_indicator.reshape(total), total))
 
 
 class Downsample2D(nn.Module):

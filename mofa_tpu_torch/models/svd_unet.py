@@ -19,6 +19,13 @@ each down, mid and up block runs under
 enabled, so its activations are recomputed in the backward; these are the
 JAX package's `maybe_remat` sites (mofa_tpu/models/svd_unet.py:172-223,
 controlnet_sdv.py:106-128).
+
+Inside a frame_parallel context (parallel/activation.py) the UNet runs
+on this rank's rows of the B*T frames: the sample and the ControlNet
+residuals are sliced to them (residuals that already hold only them pass
+as they are), the blocks slice the time embedding, the encoder states and
+the image-only indicator, and the output is gathered once, at the end,
+so every rank returns the whole [B, T, H, W, C].
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from mofa_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlockSpatioTemporal, CrossAttnUpBlockSpatioTemporal,
     DownBlockSpatioTemporal, UNetMidBlockSpatioTemporal,
     UpBlockSpatioTemporal)
+from mofa_tpu_torch.parallel.activation import (all_gather_frames,
+                                                frame_ctx_active, local_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +95,18 @@ MICRO_UNET_CONFIG = SVDUNetConfig(
 
 
 def frames_to_nchw(x: torch.Tensor) -> torch.Tensor:
-    """[B, T, H, W, C] -> contiguous [B*T, C, H, W]."""
-    return x.reshape((-1,) + x.shape[2:]).permute(0, 3, 1, 2).contiguous()
+    """[B, T, H, W, C] -> contiguous [B*T, C, H, W] (inside frame_parallel:
+    this rank's rows)."""
+    flat = x.reshape((-1,) + x.shape[2:])
+    if frame_ctx_active():
+        flat = local_rows(flat, flat.shape[0])
+    return flat.permute(0, 3, 1, 2).contiguous()
+
+
+def frame_rows(x: torch.Tensor, total: int) -> torch.Tensor:
+    """A per-frame [B*T, ...] input as the blocks take it: whole, or inside
+    frame_parallel this rank's rows."""
+    return local_rows(x, total) if frame_ctx_active() else x
 
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -212,7 +231,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         indicator = torch.zeros(bsz, nf, dtype=sample.dtype,
                                 device=sample.device)
         residuals = (None if down_block_additional_residuals is None else
-                     [r.permute(0, 3, 1, 2)
+                     [frame_rows(r, bsz * nf).permute(0, 3, 1, 2)
                       for r in down_block_additional_residuals])
 
         x = self.conv_in(frames_to_nchw(sample))
@@ -227,7 +246,8 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
         x = maybe_remat(remat, self.mid_block, x, emb, ehs, indicator)
         if mid_block_additional_residual is not None:
-            x = x + mid_block_additional_residual.permute(0, 3, 1, 2)
+            x = x + frame_rows(mid_block_additional_residual,
+                               bsz * nf).permute(0, 3, 1, 2)
 
         for block in self.up_blocks:
             n = len(block.resnets)
@@ -235,5 +255,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             x = maybe_remat(remat, run_up_block, block, x, res, emb, ehs,
                             indicator)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return nchw_to_nhwc(x).reshape(sample.shape[:4] + (x.shape[1],))
+        x = nchw_to_nhwc(self.conv_out(F.silu(self.conv_norm_out(x))))
+        if frame_ctx_active():
+            x = all_gather_frames(x.contiguous(), bsz * nf)
+        return x.reshape(sample.shape[:4] + (x.shape[-1],))

@@ -2,16 +2,24 @@
 
 Counterpart of mofa_tpu/pipelines/common.py. Image tensors are
 channel-last; frames [B, T, H, W, C].
+
+With a mesh (core.mesh.make_mesh) a pipeline runs frame-parallel: the
+encoders run whole on every rank, the latents and the Euler state are
+replicated (the first rank's draws and encodings are broadcast), the
+adapter encode and the denoiser calls run inside `frame_parallel` on each
+rank's frames, and `decode_latents` deals whole chunks to the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Union
 
 import torch
 import torch.nn as nn
 
+from mofa_tpu_torch.core.mesh import AXES
 from mofa_tpu_torch.models.clip_vision import (CLIPVisionConfig,
                                                CLIPVisionModelWithProjection)
 from mofa_tpu_torch.models.mofa_adapter import FlowControlNet, LdmkFlowControlNet
@@ -19,6 +27,10 @@ from mofa_tpu_torch.models.svd_unet import (SVDUNetConfig,
                                             UNetSpatioTemporalConditionModel)
 from mofa_tpu_torch.models.vae import AutoencoderKLTemporalDecoder, VAEConfig
 from mofa_tpu_torch.ops.resize import resize_antialias_hw
+from mofa_tpu_torch.parallel.activation import (all_gather_frames,
+                                                frame_ctx_active,
+                                                frame_parallel, replicate,
+                                                row_range)
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -133,17 +145,57 @@ def encode_vae_image(bundle: ModelBundle, image_pm1: torch.Tensor,
 
 
 def decode_latents(bundle: ModelBundle, latents: torch.Tensor,
-                   decode_chunk_size: int = 8) -> torch.Tensor:
+                   decode_chunk_size: int = 8, mesh=None) -> torch.Tensor:
     """[B, T, h, w, 4] -> frames [B, T, H, W, 3] fp32 in [-1, 1]. Chunked:
     each chunk of `decode_chunk_size` frames is its own video for the
-    temporal convs (the reference's decode_latents)."""
+    temporal convs (the reference's decode_latents).
+
+    With a mesh and at least as many full chunks as its "frames" axis has
+    ranks (and more than one), the full chunks are dealt whole to the
+    ranks, each rank decodes its own and the frames are gathered in order;
+    the ragged remainder is decoded alone on every rank, as is everything
+    when the chunks are fewer than the ranks. Whole chunks keep the
+    temporal convs' neighbours exact (mofa_tpu/pipelines/common.py:226-262)."""
     b, t = latents.shape[:2]
     flat = latents.reshape((b * t,) + latents.shape[2:])
     flat = (flat / bundle.vae.cfg.scaling_factor).to(params_dtype(bundle.vae))
-    frames = [bundle.vae.decode(chunk, chunk.shape[0]).float()
-              for chunk in flat.split(decode_chunk_size)]
+    decode = lambda chunk: bundle.vae.decode(chunk, chunk.shape[0]).float()
+    n_full = (b * t) // decode_chunk_size
+    frames, start = [], 0
+    if mesh is not None and n_full > 1 and n_full >= mesh[AXES.frames].size():
+        with frame_parallel(mesh):
+            c0, c1 = row_range(n_full)
+        # the VAE decodes whole videos: outside the context
+        mine = flat[c0 * decode_chunk_size:c1 * decode_chunk_size]
+        out = torch.cat([decode(c) for c in mine.split(decode_chunk_size)])
+        with frame_parallel(mesh):
+            out = all_gather_frames(
+                out.reshape((c1 - c0, decode_chunk_size) + out.shape[1:]),
+                n_full)
+        frames.append(out.reshape((-1,) + out.shape[2:]))
+        start = n_full * decode_chunk_size
+    frames += [decode(chunk) for chunk in flat[start:].split(decode_chunk_size)]
     out = torch.cat(frames, dim=0)
     return out.reshape((b, t) + out.shape[1:])
+
+
+def frame_parallel_or_none(mesh):
+    """frame_parallel(mesh), or a null context without a mesh."""
+    return frame_parallel(mesh) if mesh is not None else contextlib.nullcontext()
+
+
+def local_frame_rows(total: int):
+    """This rank's rows of a [total, ...] frame batch inside
+    frame_parallel (a range), None outside it."""
+    return range(*row_range(total)) if frame_ctx_active() else None
+
+
+def replicated(*tensors):
+    """Inside frame_parallel, each tensor as the first rank holds it;
+    outside, the tensors as they are."""
+    if not frame_ctx_active():
+        return tensors
+    return tuple(replicate(x) for x in tensors)
 
 
 def get_add_time_ids(fps: float, motion_bucket_id: float, noise_aug: float,

@@ -22,9 +22,12 @@ video longer than the model's window.
 call, in (cfg, view, frame) order, the view count padded to a multiple of
 it with zero-weight copies of the last view. Within a step the windows
 interact only through the overlap average, so the result is the
-window-at-a-time one. The JAX package's `big_program`, `cfg_split` and
-`offload_encoders` are not ported: they shrink its compiled program or fit
-it into one 16 GB TPU chip.
+window-at-a-time one. With `mesh` the view encodes and the denoise run
+frame-parallel (pipelines/common.py; mofa_tpu/pipelines/keypoint.py:201):
+the rows of a call, (cfg, view, frame), ride the frames axis, and each
+rank encodes only the view frames its rows read. The JAX package's
+`big_program`, `cfg_split` and `offload_encoders` are not ported: they
+shrink its compiled program or fit it into one 16 GB TPU chip.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ from mofa_tpu_torch.ops.euler import (euler_step, make_euler_schedule,
 from mofa_tpu_torch.pipelines.common import (ModelBundle, decode_latents,
                                              encode_clip_image,
                                              encode_vae_image,
-                                             get_add_time_ids, params_dtype,
-                                             postprocess_frames)
+                                             frame_parallel_or_none,
+                                             get_add_time_ids,
+                                             local_frame_rows, params_dtype,
+                                             postprocess_frames, replicated)
 from mofa_tpu_torch.pipelines.traj import _PhaseClock
 
 
@@ -82,8 +87,11 @@ def window_groups(num_frames: int, window_size: int, stride: int,
 class KeypointPipeline:
     """bundle.controlnet: LdmkFlowControlNet."""
 
-    def __init__(self, bundle: ModelBundle):
+    def __init__(self, bundle: ModelBundle, mesh=None):
+        """mesh: a DeviceMesh for frame-parallel inference (None: one
+        device)."""
         self.bundle = bundle
+        self.mesh = mesh
 
     @torch.no_grad()
     def __call__(self, image01: torch.Tensor, controlnet_flow: torch.Tensor,
@@ -141,26 +149,65 @@ class KeypointPipeline:
         guidance = torch.linspace(min_guidance_scale, max_guidance_scale,
                                   window_size, device=dev)[None, :, None, None, None]
 
+        with frame_parallel_or_none(self.mesh):
+            image_embeddings, image_latents, latents = replicated(
+                image_embeddings, image_latents, latents)
+            latents = self._encode_and_denoise(
+                sched, num_inference_steps, latents, image_latents,
+                image_embeddings, added_time_ids, image_pm1.to(cd),
+                controlnet_flow, landmarks, guidance, window_size, stride,
+                window_batch, controlnet_cond_scale, cd, clock)
+
+        if output_type == "latent":
+            return latents, controlnet_flow
+        frames = postprocess_frames(decode_latents(bundle, latents,
+                                                   decode_chunk_size, self.mesh))
+        clock.mark("decode")
+        return frames, controlnet_flow
+
+    def _encode_and_denoise(self, sched, num_inference_steps, latents,
+                            image_latents, image_embeddings, added_time_ids,
+                            cond, controlnet_flow, landmarks, guidance,
+                            window_size, stride, window_batch,
+                            controlnet_cond_scale, cd, clock):
+        bundle = self.bundle
+        dev = latents.device
+        t = landmarks.shape[1]
         vb = window_batch
         idx_np, w_np = window_groups(t, window_size, stride, vb)
         # every view's features at B rows, once: the flow window is
-        # flow[:, idx[1:] - 1], the landmark window landmarks[:, idx]
-        cond = image_pm1.to(cd)
+        # flow[:, idx[1:] - 1], the landmark window landmarks[:, idx];
+        # inside frame_parallel only the view frames this rank's rows read
         feats_of_view = {}             # a repeated view is encoded once
-        for v in idx_np.reshape(-1, window_size):
-            key = tuple(int(i) for i in v)
+
+        def encode(v, frames=None):
+            key = (tuple(int(i) for i in v), frames)
             if key not in feats_of_view:
                 sel = torch.as_tensor(v, device=dev, dtype=torch.long)
                 feats_of_view[key], _ = bundle.controlnet.encode_features(
                     cond, controlnet_flow[:, sel[1:] - 1].to(cd),
-                    landmarks[:, sel].to(cd))
-        # each group's features in (view, frame) row order; the CFG halves
-        # are the same rows twice, stacked per call
+                    landmarks[:, sel].to(cd),
+                    **({} if frames is None else {"rows": frames}))
+            return feats_of_view[key]
+
+        # each group's features in (view, frame) row order, the CFG halves
+        # the same rows twice, stacked per call; inside frame_parallel
+        # this rank's rows of the call's (cfg, view, frame) batch
+        rows = local_frame_rows(2 * vb * window_size)
         groups = []
         for idx_g, w_g in zip(idx_np, w_np):
-            views = [feats_of_view[tuple(int(i) for i in v)] for v in idx_g]
-            feats = [torch.cat(level) if vb > 1 else level[0]
-                     for level in zip(*views)]
+            if rows is None:
+                views = [encode(v) for v in idx_g]
+                feats = [torch.cat(level) if vb > 1 else level[0]
+                         for level in zip(*views)]
+            else:
+                slots = [divmod(r % (vb * window_size), window_size) for r in rows]
+                need = {v: tuple(sorted({f for u, f in slots if u == v}))
+                        for v, _ in slots}
+                stacks = {v: encode(idx_g[v], fs) for v, fs in need.items()}
+                feats = [torch.stack([stacks[v][level][need[v].index(f)]
+                                      for v, f in slots])
+                         for level in range(len(next(iter(stacks.values()))))]
             flat = torch.as_tensor(idx_g.reshape(-1), device=dev, dtype=torch.long)
             weight = torch.as_tensor(w_g.reshape(-1), device=dev)[:, None, None, None]
             groups.append((flat, weight, feats))
@@ -184,7 +231,8 @@ class KeypointPipeline:
                 win_lat = latents[0, flat].reshape((vb, window_size) + latents.shape[2:])
                 latent_in = scale_model_input(torch.cat([win_lat] * 2), sigma)
                 latent_in = torch.cat([latent_in.to(cd), img_lat], dim=-1)
-                inject = [torch.cat([f, f]) for f in feats]
+                inject = (feats if rows is not None
+                          else [torch.cat([f, f]) for f in feats])
                 down, mid = bundle.controlnet(
                     latent_in, ts, ehs, ids, conditioning_scale=controlnet_cond_scale,
                     precomputed_features=inject)
@@ -198,10 +246,4 @@ class KeypointPipeline:
                     (vb * window_size,) + value.shape[1:]) * weight)
             latents = torch.where(count > 0, value / count, value)[None]
             clock.mark("denoise_step")
-
-        if output_type == "latent":
-            return latents, controlnet_flow
-        frames = postprocess_frames(decode_latents(bundle, latents,
-                                                   decode_chunk_size))
-        clock.mark("decode")
-        return frames, controlnet_flow
+        return latents

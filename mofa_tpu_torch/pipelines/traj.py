@@ -13,6 +13,10 @@ Counterpart of mofa_tpu/pipelines/traj.py (reference
 Bug-compat quirks kept (default on): added_time_ids hardcoded to
 (fps=6, motion=128, aug=0.02); CLIP sees un-normalised [0, 1] pixels;
 per-frame guidance linspace(min, max).
+
+With `mesh` (core.mesh.make_mesh) the adapter encode and the denoise run
+frame-parallel (pipelines/common.py), at the places the JAX package
+enters `frame_parallel` (mofa_tpu/pipelines/traj.py:178,291,308).
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ from mofa_tpu_torch.ops.euler import (euler_step, make_euler_schedule,
 from mofa_tpu_torch.pipelines.common import (ModelBundle, decode_latents,
                                              encode_clip_image,
                                              encode_vae_image,
-                                             get_add_time_ids, params_dtype,
-                                             postprocess_frames)
+                                             frame_parallel_or_none,
+                                             get_add_time_ids,
+                                             local_frame_rows, params_dtype,
+                                             postprocess_frames, replicated)
 
 
 class _PhaseClock:
@@ -53,9 +59,13 @@ class _PhaseClock:
 
 
 class TrajPipeline:
-    def __init__(self, bundle: ModelBundle, bug_compat: bool = True):
+    def __init__(self, bundle: ModelBundle, bug_compat: bool = True,
+                 mesh=None):
+        """mesh: a DeviceMesh for frame-parallel inference (None: one
+        device)."""
         self.bundle = bundle
         self.bug_compat = bug_compat
+        self.mesh = mesh
 
     @torch.no_grad()
     def __call__(self, image01: torch.Tensor, controlnet_flow: torch.Tensor,
@@ -118,10 +128,29 @@ class TrajPipeline:
         guidance = torch.linspace(min_guidance_scale, max_guidance_scale, t,
                                   device=dev)[None, :, None, None, None]
 
-        inject = bundle.controlnet.encode_features(cond_image, flow_cfg)
-        clock.mark("warp")
+        with frame_parallel_or_none(self.mesh):
+            image_embeddings, image_latents, latents = replicated(
+                image_embeddings.to(cd), image_latents, latents)
+            rows = local_frame_rows(2 * b * t)
+            inject = bundle.controlnet.encode_features(
+                cond_image, flow_cfg, **({} if rows is None else {"rows": rows}))
+            clock.mark("warp")
+            latents = self._denoise(sched, num_inference_steps, latents,
+                                    image_latents, image_embeddings,
+                                    added_time_ids, inject, guidance,
+                                    controlnet_cond_scale, cd, clock)
 
-        image_embeddings = image_embeddings.to(cd)
+        if output_type == "latent":
+            return latents, controlnet_flow
+        frames = postprocess_frames(decode_latents(bundle, latents,
+                                                   decode_chunk_size, self.mesh))
+        clock.mark("decode")
+        return frames, controlnet_flow
+
+    def _denoise(self, sched, num_inference_steps, latents, image_latents,
+                 image_embeddings, added_time_ids, inject, guidance,
+                 controlnet_cond_scale, cd, clock):
+        bundle = self.bundle
         for i in range(num_inference_steps):
             sigma = float(sched.sigmas[i])
             sigma_next = float(sched.sigmas[i + 1])
@@ -140,10 +169,4 @@ class TrajPipeline:
             noise_pred = uncond + guidance.to(cond.dtype) * (cond - uncond)
             latents, _ = euler_step(noise_pred, latents, sigma, sigma_next)
             clock.mark("denoise_step")
-
-        if output_type == "latent":
-            return latents, controlnet_flow
-        frames = postprocess_frames(decode_latents(bundle, latents,
-                                                   decode_chunk_size))
-        clock.mark("decode")
-        return frames, controlnet_flow
+        return latents
